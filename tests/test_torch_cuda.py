@@ -1,0 +1,47 @@
+"""The port's CUDA kernels on the card, held bit-for-bit against their plain
+versions at small shapes with ragged batch, group and contraction edges.
+
+Needs an NVIDIA GPU and nvcc; skips without a GPU. Imports no JAX, so on a
+machine without it run: python -m pytest tests/test_torch_cuda.py -m cuda
+--noconftest"""
+
+import pytest
+import torch
+
+from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
+from tfhe_aes2_tpu_torch.ops.kernels import matmul as kmm
+from tests.torch_port_common import require_cuda
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain():
+    """On the card: every kernel bit-equal to its plain version at small
+    shapes, including ragged batch and group edges."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(5)
+    dev = "cuda"
+
+    def r8(*shape):
+        return torch.randint(-128, 128, shape, generator=gen,
+                             dtype=torch.int8).to(dev)
+
+    n, k1, levels, b, base_log, n_d, js = 64, 3, 2, 13, 12, 2, 2
+    acc = torch.randint(-2 ** 62, 2 ** 62, (k1, b, n), generator=gen,
+                        dtype=torch.int64).to(dev)
+    t = torch.randint(0, 2 * n, (b,), generator=gen,
+                      dtype=torch.int32).to(dev)
+    assert torch.equal(kx.rot_diff_digits(acc, t, base_log, levels, n_d),
+                       kx.rot_diff_digits_plain(acc, t, base_log, levels,
+                                                n_d))
+    dig, ext = r8(k1, levels, n_d, b, n), r8(k1, k1 * levels, 8 - js, 2 * n)
+    a1, d1 = kx.extprod_step2g(dig, ext, acc.clone(), t, base_log, levels, js)
+    a2, d2 = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, base_log,
+                                     levels, js)
+    assert torch.equal(a1, a2) and torch.equal(d1, d2)
+    dig, ext = r8(3, 4, n_d * 11, n), r8(3, 2, 4, 4, 2 * n)
+    assert torch.equal(kx.extprod_grouped_fused(dig, ext, n_d, 4),
+                       kx.extprod_grouped_fused_plain(dig, ext, n_d, 4))
+    d, m = r8(3, 37, 101), r8(7, 101, 75)
+    assert torch.equal(kmm.fused_limb_matmul(d, m, 1),
+                       kmm.fused_limb_matmul_plain(d, m, 1))
+    torch.cuda.synchronize()

@@ -1,0 +1,153 @@
+// Shared device code of the negacirculant limb-plane kernels (K1-K3).
+//
+// The contraction these kernels evaluate, for one output component o:
+//
+//   out[row, m] = Σ_r Σ_{i, j>=JS} 2^(8(i+j)) Σ_jj dig_i[r, row, jj] · NC_j[r][jj, m]
+//
+// with NC_j[r][jj, m] = ext_j[r][(m - jj) mod 2N] the negacirculant of one
+// int8 limb plane of ext = [p, -p]. NC is never materialised (the expanded
+// negacirculant BSK alone would be ~146 GB): each block keeps, per plane, a
+// 2N-word "S-table" in shared memory whose word x packs the four bytes
+// rext[x..x+3], rext[q] = ext[(-q) mod 2N]. The four negacirculant entries
+// NC[jj+q, m], q = 0..3, are then exactly the bytes of word (jj - m) mod 2N,
+// in the order __dp4a pairs them with the four digit bytes dig[jj..jj+3].
+// Neighbouring threads own neighbouring columns m, so their S-table words
+// are neighbours too: conflict-free shared loads.
+//
+// One block owns ROWS output rows x all N columns of one component; thread
+// t owns columns t and t + N/2, so blockDim.x = N/2. Each (row, column)
+// keeps one int32 bucket per weight 2^(8s), s = i + j in [JS, 8); products
+// with s >= 8 vanish mod 2^64 and are skipped. Bucket bound: at most ND
+// (i, j) pairs land in one bucket, each summing R·N products of at most
+// 2^7 · 2^7, so |bucket| <= ND·R·N·2^14 — 2.5e8 for the blind rotation at
+// PARAMS_SQRD_LVL_64 (ND=2, R=15, N=512), below 2^31. The Python wrappers
+// refuse shapes past this bound. The buckets are folded into a wrapping
+// uint64 (sign-extended, shifted by 8s) once the contraction is complete;
+// any exact order of int32 partial sums gives the same bits mod 2^64.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace nc {
+
+constexpr int ROWS = 8;   // output rows per block
+constexpr int COLS = 2;   // output columns per thread
+
+// Shared-memory bytes of the contraction stage: NJ S-tables of 2N words and
+// the ND x ROWS x N digit tile.
+__host__ __device__ inline size_t contraction_smem(int nd, int nj, int n) {
+  return (size_t)nj * 2 * n * 4 + (size_t)nd * ROWS * n;
+}
+
+// Fill the NJ S-tables from the int8 ext planes [NJ][2N] at `ext`.
+template <int NJ>
+__device__ __forceinline__ void build_s_tables(uint32_t* s_tab,
+                                               const int8_t* __restrict__ ext,
+                                               int n) {
+  const int two_n = 2 * n;
+  const int mask = two_n - 1;
+  for (int idx = threadIdx.x; idx < NJ * two_n; idx += blockDim.x) {
+    const int j = idx / two_n;
+    const int x = idx - j * two_n;
+    const int8_t* e = ext + (size_t)j * two_n;
+    uint32_t word = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int p = (two_n - x - q) & mask;
+      word |= (uint32_t)(uint8_t)e[p] << (8 * q);
+    }
+    s_tab[idx] = word;
+  }
+}
+
+// Load the ND x ROWS digit tile as 32-bit words: plane i of row `row` starts
+// at base + i*plane_stride + row*row_stride (all multiples of 4 bytes). Rows
+// at or past `rows_valid` load as zero.
+template <int ND>
+__device__ __forceinline__ void load_digit_tile(uint32_t* dig_w,
+                                                const int8_t* __restrict__ base,
+                                                size_t plane_stride,
+                                                size_t row_stride,
+                                                int rows_valid, int n) {
+  const int nw = n >> 2;
+  for (int idx = threadIdx.x; idx < ND * ROWS * nw; idx += blockDim.x) {
+    const int w = idx % nw;
+    const int row = (idx / nw) % ROWS;
+    const int i = idx / (nw * ROWS);
+    uint32_t v = 0;
+    if (row < rows_valid) {
+      v = *reinterpret_cast<const uint32_t*>(
+          base + i * plane_stride + row * row_stride + 4 * (size_t)w);
+    }
+    dig_w[idx] = v;
+  }
+}
+
+// Accumulate one row r of the contraction into the buckets.
+template <int ND, int JS>
+__device__ __forceinline__ void accumulate(int32_t (&part)[ROWS][COLS][8 - JS],
+                                           const uint32_t* s_tab,
+                                           const uint32_t* dig_w, int n) {
+  const int two_n = 2 * n;
+  const int mask = two_n - 1;
+  const int nw = n >> 2;
+#pragma unroll 1
+  for (int w = 0; w < nw; ++w) {
+    uint32_t a[ND][ROWS];
+#pragma unroll
+    for (int i = 0; i < ND; ++i)
+#pragma unroll
+      for (int row = 0; row < ROWS; ++row)
+        a[i][row] = dig_w[(i * ROWS + row) * nw + w];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      const int m = threadIdx.x + c * blockDim.x;
+      const int x = (4 * w - m) & mask;
+#pragma unroll
+      for (int j = JS; j < 8; ++j) {
+        const int b = (int)s_tab[(j - JS) * two_n + x];
+#pragma unroll
+        for (int i = 0; i < ND; ++i) {
+          if (i + j < 8) {
+#pragma unroll
+            for (int row = 0; row < ROWS; ++row)
+              part[row][c][i + j - JS] =
+                  __dp4a((int)a[i][row], b, part[row][c][i + j - JS]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Σ_s sign_extend(bucket_s) << 8s, wrapping mod 2^64.
+template <int JS>
+__device__ __forceinline__ uint64_t recombine(const int32_t (&bucket)[8 - JS]) {
+  uint64_t sum = 0;
+#pragma unroll
+  for (int s = 0; s < 8 - JS; ++s)
+    sum += (uint64_t)(int64_t)bucket[s] << (8 * (s + JS));
+  return sum;
+}
+
+}  // namespace nc
+
+// Instantiate `launch<ND, JS>(args...)` for ND in 1..3, JS in 0..7; returns
+// cudaErrorInvalidValue for anything else.
+#define NC_DISPATCH(ND_, JS_, CALL)                                        \
+  switch ((ND_) * 8 + (JS_)) {                                             \
+    case 8: return CALL(1, 0); case 9: return CALL(1, 1);                  \
+    case 10: return CALL(1, 2); case 11: return CALL(1, 3);                \
+    case 12: return CALL(1, 4); case 13: return CALL(1, 5);                \
+    case 14: return CALL(1, 6); case 15: return CALL(1, 7);                \
+    case 16: return CALL(2, 0); case 17: return CALL(2, 1);                \
+    case 18: return CALL(2, 2); case 19: return CALL(2, 3);                \
+    case 20: return CALL(2, 4); case 21: return CALL(2, 5);                \
+    case 22: return CALL(2, 6); case 23: return CALL(2, 7);                \
+    case 24: return CALL(3, 0); case 25: return CALL(3, 1);                \
+    case 26: return CALL(3, 2); case 27: return CALL(3, 3);                \
+    case 28: return CALL(3, 4); case 29: return CALL(3, 5);                \
+    case 30: return CALL(3, 6); case 31: return CALL(3, 7);                \
+    default: return (int)cudaErrorInvalidValue;                            \
+  }

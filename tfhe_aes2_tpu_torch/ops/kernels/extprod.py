@@ -1,0 +1,206 @@
+"""K1-K3: the negacirculant external-product kernels and their plain versions.
+
+K1 `extprod_step2g` — one whole blind-rotate CMux step (dots + recombine +
+   the next step's glue). Replaces the Pallas kernel
+   tfhe_aes2_tpu/ops/pallas/extprod.py::extprod_step2g; source csrc/cmux.cu.
+K2 `rot_diff_digits` — the glue alone, for step 0. Replaces
+   extprod.py::rot_diff_digits; source csrc/cmux.cu.
+K3 `extprod_grouped_fused` — the vertical-packing external product (one
+   selector GGSW per lane, shared by its G accumulators). Replaces
+   extprod.py::extprod_grouped_fused; source csrc/vp.cu.
+
+What bounds them on the H100 is int8 operations (K1 at 256 lanes: ~5.5e10
+multiply-adds a step on ~15 MB of operands). This first version runs the
+products as __dp4a from shared-memory S-tables that index the 2N-byte ext
+row, so the negacirculant (146 GB for the expanded BSK) never exists; the
+TPU's packed ladders, weight buckets in VMEM and sequential (n_bt, o, r)
+grid have no counterpart — a block owns ROWS lanes × all N columns of one
+component and loops over r itself (csrc/nc_common.cuh).
+
+Layouts (int64 torus values; the TPU's (lo, hi) u32 pairs do not exist):
+  dig    int8  [k+1, L, n_d, B, N]   digit limb planes, row r = u·L + l
+  ext_or int8  [O, R, 8-js, 2N]      one BSK entry's limb planes of [p, -p]
+  acc    int64 [O, B, N]             the component-major accumulator
+
+On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises. `launches` counts kernel launches only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tfhe_aes2_tpu_torch.ops import decomposition, polynomial, torus
+from tfhe_aes2_tpu_torch.ops.kernels import build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _fn(stem: str, name: str, argtypes):
+    f = getattr(build.library(stem), name)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    return f
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _require_cuda(name: str, spec) -> None:
+    """spec: [(tensor, dtype)]. All on one CUDA device, contiguous."""
+    dev = spec[0][0].device
+    for t, dtype in spec:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: tensors must all lie on one CUDA "
+                             f"device (got {t.device} and {dev})")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def _check_geometry(name: str, n: int, n_d: int, r: int, j_start: int):
+    if n & (n - 1) or not 8 <= n <= 512:
+        raise ValueError(f"{name}: N={n} must be a power of two in [8, 512]")
+    if not 1 <= n_d <= 3 or not 0 <= j_start <= 7:
+        raise ValueError(f"{name}: n_d={n_d}, j_start={j_start} unsupported")
+    # int32 weight buckets: at most n_d (i, j) pairs of R·N products of
+    # at most 2^7·2^7 each (csrc/nc_common.cuh)
+    if n_d * r * n * (1 << 14) >= 1 << 31:
+        raise ValueError(f"{name}: contraction too long for int32 buckets")
+
+
+# ----------------------------------------------------------------- K2 glue
+
+def rot_diff_digits_plain(acc: torch.Tensor, t: torch.Tensor, base_log: int,
+                          levels: int, n_d: int) -> torch.Tensor:
+    """Digit limb planes of X^t·acc - acc: acc int64 [O, B, N], t [B] in
+    [0, 2N) -> int8 [O, L, n_d, B, N]."""
+    rot = polynomial.monomial_mul(acc, t[None, :])
+    digits = decomposition.decompose(rot - acc, base_log, levels)  # [O,B,N,L]
+    planes = torus.split_int32_signed(digits, n_d)           # [n_d,O,B,N,L]
+    return planes.permute(1, 4, 0, 2, 3).contiguous()
+
+
+def rot_diff_digits(acc: torch.Tensor, t: torch.Tensor, base_log: int,
+                    levels: int, n_d: int) -> torch.Tensor:
+    """K2. acc int64 [O, B, N]; t int32 [B] -> int8 [O, L, n_d, B, N]."""
+    o, b, n = acc.shape
+    if t.shape != (b,):
+        raise ValueError(f"rot_diff_digits: t shape {tuple(t.shape)} != ({b},)")
+    if _on_cpu(acc, t):
+        return rot_diff_digits_plain(acc, t, base_log, levels, n_d)
+    _check_geometry("rot_diff_digits", n, n_d, 1, 0)
+    _require_cuda("rot_diff_digits", [(acc, torch.int64), (t, torch.int32)])
+    out = torch.empty((o, levels, n_d, b, n), dtype=torch.int8,
+                      device=acc.device)
+    f = _fn("cmux", "tfhe_rot_diff_digits", [_P, _P, _P] + [_I] * 6 + [_P])
+    rc = f(acc.data_ptr(), t.data_ptr(), out.data_ptr(), b, n, o, levels,
+           n_d, base_log, build.stream_ptr(acc.device))
+    build.check(rc, "rot_diff_digits")
+    rot_diff_digits.launches += 1
+    return out
+
+
+rot_diff_digits.launches = 0
+
+
+# ------------------------------------------------------- K1 the CMux step
+
+def extprod_step2g_plain(dig, ext_or, acc, t_next, base_log: int,
+                         levels: int, j_start: int):
+    """acc += Σ_r dig[r] ⊛ BSK rows (limb planes j >= j_start), in place;
+    returns (acc, digits of X^t_next·acc - acc)."""
+    k1, lv, n_d, b, n = dig.shape
+    dig_planes = dig.reshape(k1 * lv, n_d, b, n).permute(1, 2, 0, 3)[:, None]
+    ext = ext_or.permute(1, 0, 2, 3)[None]                # [1, R, O, NJ, 2N]
+    acc += polynomial.nc_limb_product(dig_planes, ext, j_start)[0].permute(
+        1, 0, 2)
+    return acc, rot_diff_digits_plain(acc, t_next, base_log, levels, n_d)
+
+
+def extprod_step2g(dig: torch.Tensor, ext_or: torch.Tensor, acc: torch.Tensor,
+                   t_next: torch.Tensor, base_log: int, levels: int,
+                   j_start: int):
+    """K1. dig int8 [k+1, L, n_d, B, N]; ext_or int8 [O, R, 8-js, 2N];
+    acc int64 [O, B, N] (updated in place, as the TPU kernel aliases it);
+    t_next int32 [B] -> (acc, next digits int8 [k+1, L, n_d, B, N])."""
+    k1, lv, n_d, b, n = dig.shape
+    o, r, nj, two_n = ext_or.shape
+    if (lv != levels or o != k1 or r != k1 * levels or nj != 8 - j_start
+            or two_n != 2 * n or acc.shape != (o, b, n)
+            or t_next.shape != (b,)):
+        raise ValueError(
+            f"extprod_step2g: shapes dig {tuple(dig.shape)}, ext_or "
+            f"{tuple(ext_or.shape)}, acc {tuple(acc.shape)}, t_next "
+            f"{tuple(t_next.shape)} (levels={levels}, j_start={j_start})")
+    if _on_cpu(dig, ext_or, acc, t_next):
+        return extprod_step2g_plain(dig, ext_or, acc, t_next, base_log,
+                                    levels, j_start)
+    _check_geometry("extprod_step2g", n, n_d, r, j_start)
+    _require_cuda("extprod_step2g",
+                  [(dig, torch.int8), (ext_or, torch.int8),
+                   (acc, torch.int64), (t_next, torch.int32)])
+    out = torch.empty_like(dig)
+    f = _fn("cmux", "tfhe_extprod_step2g", [_P] * 5 + [_I] * 8 + [_P])
+    rc = f(dig.data_ptr(), ext_or.data_ptr(), acc.data_ptr(),
+           t_next.data_ptr(), out.data_ptr(), b, n, o, r, levels, n_d,
+           j_start, base_log, build.stream_ptr(acc.device))
+    build.check(rc, "extprod_step2g")
+    extprod_step2g.launches += 1
+    return acc, out
+
+
+extprod_step2g.launches = 0
+
+
+# ----------------------------------------- K3 the vertical-packing product
+
+def extprod_grouped_fused_plain(dig, ext, n_d: int, j_start: int):
+    """dig int8 [B, R, n_d·G, N]; ext int8 [B, O, R, 8-js, 2N]
+    -> int64 [B, O, G, N]."""
+    b, r, ndg, n = dig.shape
+    g = ndg // n_d
+    dig_planes = dig.reshape(b, r, n_d, g, n).permute(2, 0, 3, 1, 4)
+    out = polynomial.nc_limb_product(dig_planes, ext.permute(0, 2, 1, 3, 4),
+                                     j_start)                # [B, G, O, N]
+    return out.permute(0, 2, 1, 3).contiguous()
+
+
+def extprod_grouped_fused(dig: torch.Tensor, ext: torch.Tensor, n_d: int,
+                          j_start: int) -> torch.Tensor:
+    """K3. dig int8 [B, R, n_d·G, N] (lane b's digit limb planes);
+    ext int8 [B, O, R, 8-js, 2N] (lane b's GGSW row limb planes)
+    -> int64 [B, O, G, N], exact mod 2^64 over the kept planes."""
+    b, r, ndg, n = dig.shape
+    b2, o, r2, nj, two_n = ext.shape
+    if ((b2, r2, two_n) != (b, r, 2 * n) or nj != 8 - j_start
+            or ndg % n_d):
+        raise ValueError(f"extprod_grouped_fused: shapes dig "
+                         f"{tuple(dig.shape)}, ext {tuple(ext.shape)}, "
+                         f"n_d={n_d}, j_start={j_start}")
+    if _on_cpu(dig, ext):
+        return extprod_grouped_fused_plain(dig, ext, n_d, j_start)
+    _check_geometry("extprod_grouped_fused", n, n_d, r, j_start)
+    _require_cuda("extprod_grouped_fused",
+                  [(dig, torch.int8), (ext, torch.int8)])
+    g = ndg // n_d
+    out = torch.empty((b, o, g, n), dtype=torch.int64, device=dig.device)
+    f = _fn("vp", "tfhe_extprod_grouped_fused", [_P] * 3 + [_I] * 7 + [_P])
+    rc = f(dig.data_ptr(), ext.data_ptr(), out.data_ptr(), b, g, n, o, r,
+           n_d, j_start, build.stream_ptr(dig.device))
+    build.check(rc, "extprod_grouped_fused")
+    extprod_grouped_fused.launches += 1
+    return out
+
+
+extprod_grouped_fused.launches = 0
+
+
+def split_polys_ext(polys: torch.Tensor) -> torch.Tensor:
+    """int64 [..., N] -> ext limb planes int8 [8, ..., 2N] (ext = [p, -p])."""
+    return torus.split_u64_signed(polynomial.negacyclic_extend(polys))

@@ -1,0 +1,92 @@
+"""Negacyclic polynomial arithmetic in Z_{2^64}[X]/(X^N + 1) on int64.
+
+A product a ⊛ b is a matrix product of a's coefficients with the
+negacirculant of b: NC(b)[j, m] = ext[(m - j) mod 2N] with ext = [b, -b], so
+(a ⊛ b)[m] = Σ_j a[j]·NC(b)[j, m]. The kernels (ops/kernels/extprod.py)
+never materialise NC: they index the 2N-entry ext row on chip.
+`nc_limb_product` here is the plain truth for K1-K3: the same function in
+float64 matrix products, used by the kernels' plain versions.
+
+Monomial multiplications (the rotations of blind rotation and vertical
+packing) are index gathers on ext.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def negacyclic_extend(polys: torch.Tensor) -> torch.Tensor:
+    """[..., N] -> [..., 2N]: concat(p, -p); ext[m mod 2N] realises X^m signs."""
+    return torch.cat([polys, -polys], dim=-1)
+
+
+def nc_index(n: int, device) -> torch.Tensor:
+    """idx[j, m] = (m - j) mod 2N, so NC[j, m] = ext[idx[j, m]]."""
+    j = torch.arange(n, device=device)[:, None]
+    m = torch.arange(n, device=device)[None, :]
+    return (m - j) % (2 * n)
+
+
+def monomial_mul_static(polys: torch.Tensor, t: int) -> torch.Tensor:
+    """X^t · polys for a static t: slice + concat + negate."""
+    n = polys.shape[-1]
+    t %= 2 * n
+    if t == 0:
+        return polys
+    if t >= n:
+        return -monomial_mul_static(polys, t - n)
+    return torch.cat([-polys[..., n - t:], polys[..., : n - t]], dim=-1)
+
+
+def monomial_mul(polys: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """X^t · polys (negacyclic). polys [..., N]; t integer tensor
+    broadcastable to polys.shape[:-1], values in [0, 2N):
+    (X^t p)[m] = ext[(m - t) mod 2N]."""
+    n = polys.shape[-1]
+    ext = negacyclic_extend(polys)
+    m = torch.arange(n, device=polys.device)
+    idx = (m - t.to(torch.int64)[..., None]) % (2 * n)
+    idx = idx.expand(polys.shape[:-1] + (n,))
+    return torch.gather(ext, -1, idx)
+
+
+def nc_limb_product(dig_planes: torch.Tensor, ext_planes: torch.Tensor,
+                    j_start: int) -> torch.Tensor:
+    """Plain truth of the negacirculant limb-plane contraction of K1-K3.
+
+    dig_planes: int8 [n_d, S, G, R, N], the balanced limb planes of gadget
+                digits (plane i weighs 2^(8i)) for G accumulators in each
+                of S groups;
+    ext_planes: int8 [S, R, O, 8 - j_start, 2N], limb planes j_start..7 of
+                ext = [p, -p] for each row r and output component o, shared
+                by the G accumulators of a group;
+    -> int64 [S, G, O, N] = Σ_{i,j} 2^(8(i+j)) Σ_r dig_i[r] ⊛ plane_j[r, o]
+       mod 2^64.
+
+    Float64 limb products are exact below 2^53: the recombined digit is
+    below 2^(8·n_d - 1) in magnitude, a key plane entry at most 2^7, and
+    the contraction has R·N terms; the check below refuses anything
+    longer. Products with i + j >= 8 vanish mod 2^64, so contracting the
+    recombined digit against each key plane gives the kernels' bits.
+    """
+    n_d, s, g, r, n = dig_planes.shape
+    if ext_planes.shape[:2] != (s, r) or ext_planes.shape[-1] != 2 * n:
+        raise ValueError(f"shape mismatch {tuple(dig_planes.shape)} vs "
+                         f"{tuple(ext_planes.shape)}")
+    o_cnt, n_j = ext_planes.shape[2:4]
+    if (8 * n_d - 1) + 7 + (r * n).bit_length() >= 53:
+        raise ValueError("contraction too long for exact float64")
+    digits = sum(dig_planes[i].to(torch.float64) * float(1 << (8 * i))
+                 for i in range(n_d))                       # [S, G, R, N]
+    digits = digits.reshape(s, g, r * n)
+    idx = nc_index(n, dig_planes.device)
+    out = torch.zeros((s, g, o_cnt, n), dtype=torch.int64,
+                      device=dig_planes.device)
+    for o in range(o_cnt):
+        for jj in range(n_j):
+            ext = ext_planes[:, :, o, jj].to(torch.float64)  # [S, R, 2N]
+            nc = ext[..., idx].reshape(s, r * n, n)          # [S, R·N, N]
+            prod = torch.bmm(digits, nc).to(torch.int64)     # [S, G, N]
+            out[:, :, o] += prod << (8 * (j_start + jj))
+    return out
