@@ -5,21 +5,36 @@
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. device and build: the card's name and power limit, the nvcc build of
      every kernel from tfhe_aes2_tpu_torch/csrc/;
-  2. kernel checks: K1-K4 at their PARAMS_SQRD_LVL_64 main-path shapes,
+  2. kernel checks: K1-K8 at their PARAMS_SQRD_LVL_64 main-path shapes,
      each held bit-for-bit against its plain PyTorch version on the card,
-     with median times over a few launches and each kernel's bound;
-  3. a fast end-to-end run at PARAMS_TEST (2 rounds), decrypt-verified;
-  4. the full-width run at PARAMS_SQRD_LVL_64: seeded keygen, 2 CTR blocks
-     through key_schedule_staged + encrypt_blocks_staged (10 rounds), then
-     1 block through encrypt_block_latency, each decrypted and checked
-     against the AES authority, with every kernel's launch counter reset
-     just before and read just after.
+     with median times (50 launches for kernels under 0.2 ms) and each
+     kernel's bound; and two cross-checks: K7's partial sums recombined
+     equal K6's update, and K2 then K5 equals K1;
+  3. fast end-to-end runs at PARAMS_TEST (2 rounds), decrypt-verified: the
+     default lowering, then ("glue_out", "partials") with a compressed
+     response;
+  4. the full-width run at PARAMS_SQRD_LVL_64 under the default lowering:
+     seeded keygen, 2 CTR blocks through key_schedule_staged +
+     encrypt_blocks_staged (10 rounds), then 1 block through
+     encrypt_block_latency, each decrypted and checked against the AES
+     authority, with every kernel's launch counter reset just before and
+     read just after;
+  5. the second path at full width, on the same keys and the same encrypted
+     request as phase 4's single block: the latency path under
+     Lowering("grid", "partials") (K2 + K5 per CMux step, K8 + torch
+     recombination per vertical-packing stage), its ciphertext bit-equal to
+     phase 4's and its compressed response (q' = 2^16) decrypted to the AES
+     keystream; then one 160-lane blind rotation under "glue_out" (torch
+     glue + K6 per step), bit-equal to the default schedule's, with K7 as
+     K6's reference on that rotation's own operands. Launch counters reset
+     and read around each.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or tfhe_aes2_tpu.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -28,11 +43,12 @@ import time
 import numpy as np
 import torch
 
-from tfhe_aes2_tpu_torch.aes_128 import aes_lib, plain, scenario
+from tfhe_aes2_tpu_torch.aes_128 import aes_lib, fhe, plain, scenario
 from tfhe_aes2_tpu_torch.models import shortint_woppbs_1bit as model
-from tfhe_aes2_tpu_torch.ops import decomposition, torus
+from tfhe_aes2_tpu_torch.ops import blind_rotate, decomposition, polynomial
 from tfhe_aes2_tpu_torch.ops import params as params_mod
-from tfhe_aes2_tpu_torch.ops import truncation
+from tfhe_aes2_tpu_torch.ops import torus, truncation
+from tfhe_aes2_tpu_torch.ops.lowering import Lowering
 from tfhe_aes2_tpu_torch.ops.kernels import build
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
 from tfhe_aes2_tpu_torch.ops.kernels import matmul as kmm
@@ -57,7 +73,21 @@ KERNELS = {
     "fused_limb_matmul": dict(
         fn=kmm.fused_limb_matmul, source="tfhe_aes2_tpu_torch/csrc/matmul.cu",
         replaces="tfhe_aes2_tpu/ops/pallas/matmul.py:82"),
+    "extprod_step2": dict(
+        fn=kx.extprod_step2, source="tfhe_aes2_tpu_torch/csrc/step.cu",
+        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:439"),
+    "extprod_step": dict(
+        fn=kx.extprod_step, source="tfhe_aes2_tpu_torch/csrc/step.cu",
+        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:307"),
+    "extprod_partials": dict(
+        fn=kx.extprod_partials, source="tfhe_aes2_tpu_torch/csrc/partials.cu",
+        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:127"),
+    "extprod_partials_grouped": dict(
+        fn=kx.extprod_partials_grouped,
+        source="tfhe_aes2_tpu_torch/csrc/partials.cu",
+        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:1071"),
 }
+STRATEGY = fhe.ShortintWoppbs1BitSboxGalMulPbsAesEncrypt
 
 
 def log(msg: str) -> None:
@@ -68,19 +98,28 @@ def sync() -> None:
     torch.cuda.synchronize()
 
 
-def time_ms(fn, reps: int = 5) -> float:
-    """Median device time of fn() over `reps` runs after one warm-up."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+def _median_ms(fn, reps: int) -> float:
+    """Median device time of `reps` launches of fn(), each between its own
+    pair of events, all enqueued between two synchronisations."""
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    sync()
+    for start, end in events:
         start.record()
         fn()
         end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    sync()
+    return float(np.median([a.elapsed_time(b) for a, b in events]))
+
+
+def time_ms(fn, reps: int = 20) -> float:
+    """Median device time of fn() over `reps` runs after one warm-up (20
+    for the kernels: a median of 5 has been seen 20% off for one shape in
+    one run); a kernel under 0.2 ms is near launch latency, where so few
+    launches do not resolve it, and is timed again over 50."""
+    fn()
+    ms = _median_ms(fn, reps)
+    return _median_ms(fn, 50) if ms < 0.2 else ms
 
 
 def bound(macs: int, nbytes: int) -> tuple[float, str]:
@@ -141,8 +180,8 @@ def phase_device() -> str:
 
 
 def phase_kernels() -> dict:
-    """K1-K4 at main-path shapes vs their plain versions; returns the last
-    (largest) measurement of each kernel for the JSON line."""
+    """K1-K8 at main-path shapes vs their plain versions, and the two
+    cross-checks between kernels; returns every measurement by kernel."""
     log("== phase 2: kernel checks at PARAMS_SQRD_LVL_64 shapes")
     gen = torch.Generator().manual_seed(1234)
     k1, n, lv = P.glwe_dimension + 1, P.polynomial_size, P.pbs_level
@@ -185,6 +224,67 @@ def phase_kernels() -> dict:
         nbytes = dig.numel() * 2 + ext.numel() + acc.numel() * 16 + b * 4
         record(f"extprod_step2g B={b}", rows["extprod_step2g"], macs,
                nbytes, ms, pms, err)
+        # K5: the same step without its glue, and K2 then K5 against K1
+        acc_5 = kx.extprod_step2(dig, ext, acc.clone(), js)
+        ref = kx.extprod_step2_plain(dig, ext, acc.clone(), js)
+        sync()
+        err = max_abs_err(acc_5, ref)
+        if not (torch.equal(acc_5, acc_k) and torch.equal(
+                kx.rot_diff_digits(acc_5, t, P.pbs_base_log, lv, nd), dig_k)):
+            raise AssertionError(f"K2 then K5 differs from K1 at B={b}")
+        ms = time_ms(lambda: kx.extprod_step2(dig, ext, scratch, js))
+        pms = time_ms(lambda: kx.extprod_step2_plain(dig, ext, scratch, js),
+                      reps=2)
+        record(f"extprod_step2 B={b}", rows["extprod_step2"], macs,
+               dig.numel() + ext.numel() + acc.numel() * 16, ms, pms, err)
+        # the `grid` step as the path runs it, K2 then K5 back to back:
+        # K2 alone sits near launch latency, so the split of K1's step is
+        # read from this pair, not from the sum of two isolated times
+        pair_ms = time_ms(lambda: kx.extprod_step2(
+            kx.rot_diff_digits(scratch, t, P.pbs_base_log, lv, nd), ext,
+            scratch, js))
+        log(f"    grid step (K2 then K5) B={b}: {pair_ms:.4f} ms against "
+            f"K1's {rows['extprod_step2g'][-1]['ms']:.4f} ms")
+        rows["extprod_step2"][-1]["grid_step_ms"] = pair_ms
+        # K6: the same update on the batch-major layouts
+        dig_bm = dig.reshape(r, nd, b, n).permute(1, 2, 0, 3).contiguous()
+        acc_bm = acc.permute(1, 0, 2).contiguous()
+        acc_6 = kx.extprod_step(dig_bm, ext, acc_bm, js)
+        ref = kx.extprod_step_plain(dig_bm, ext, acc_bm, js)
+        sync()
+        err = max_abs_err(acc_6, ref)
+        if not torch.equal(acc_6.permute(1, 0, 2), acc_k):
+            raise AssertionError(f"K6 differs from K1's accumulator at B={b}")
+        ms = time_ms(lambda: kx.extprod_step(dig_bm, ext, acc_bm, js))
+        pms = time_ms(lambda: kx.extprod_step_plain(dig_bm, ext, acc_bm, js),
+                      reps=2)
+        record(f"extprod_step B={b}", rows["extprod_step"], macs,
+               dig.numel() + ext.numel() + acc.numel() * 16, ms, pms, err)
+    log("  cross-check: K2 then K5 == K1, and K6 == K1's accumulator, at "
+        "every B")
+
+    # K7 at B=288: all 8 key planes (js=0); with the planes the BSK drops
+    # zeroed, its partial sums recombined must be K6's update at js
+    b = 288
+    dig_bm = rand_i8(gen, (nd, b, r, n))
+    ext8 = rand_i8(gen, (8, r, k1, 2 * n))
+    ext8[:js] = 0
+    acc_bm = torch.randint(-2**62, 2**62, (b, k1, n), generator=gen,
+                           dtype=torch.int64).to(DEV)
+    parts = kx.extprod_partials(dig_bm, ext8)
+    ref = kx.extprod_partials_plain(dig_bm, ext8)
+    sync()
+    err = max_abs_err(parts, ref)
+    acc_6 = kx.extprod_step(dig_bm, ext8[js:].permute(2, 1, 0, 3).contiguous(),
+                            acc_bm, js)
+    if not torch.equal(acc_bm + polynomial.recombine_partials(parts), acc_6):
+        raise AssertionError("K7 recombined differs from K6's update")
+    log("  cross-check: K7 recombined == K6's update at B=288")
+    ms = time_ms(lambda: kx.extprod_partials(dig_bm, ext8))
+    pms = time_ms(lambda: kx.extprod_partials_plain(dig_bm, ext8), reps=2)
+    record(f"extprod_partials B={b}", rows["extprod_partials"],
+           b * k1 * r * n * n * pairs(nd, 0),
+           dig_bm.numel() + ext8.numel() + parts.numel() * 4, ms, pms, err)
 
     # K3: the three vertical-packing shapes of the main path (lanes, G)
     js_vp = truncation.vp_ggsw_j_start(P)
@@ -205,6 +305,25 @@ def phase_kernels() -> dict:
         record(f"extprod_grouped_fused lanes={lanes} G={g}",
                rows["extprod_grouped_fused"], macs,
                dig.numel() + ext.numel() + got.numel() * 8, ms, pms, err)
+        # K8 on the same operands in its own layouts; recombined it is K3
+        dig_8 = dig.reshape(lanes, r_vp, nd_vp, g, n).permute(
+            2, 0, 3, 1, 4).contiguous()                    # [n_d, B, G, R, N]
+        ext_8 = ext.permute(3, 0, 2, 1, 4).contiguous()    # [8-js, B, R, O, 2N]
+        parts = kx.extprod_partials_grouped(dig_8, ext_8, js_vp)
+        ref = kx.extprod_partials_grouped_plain(dig_8, ext_8, js_vp)
+        sync()
+        err = max_abs_err(parts, ref)
+        if not torch.equal(polynomial.recombine_partials(parts, js_vp),
+                           got.permute(0, 2, 1, 3)):
+            raise AssertionError("K8 recombined differs from K3")
+        ms = time_ms(lambda: kx.extprod_partials_grouped(dig_8, ext_8, js_vp))
+        pms = time_ms(lambda: kx.extprod_partials_grouped_plain(
+            dig_8, ext_8, js_vp), reps=2)
+        rms = time_ms(lambda: polynomial.recombine_partials(parts, js_vp))
+        record(f"extprod_partials_grouped lanes={lanes} G={g}",
+               rows["extprod_partials_grouped"], macs,
+               dig.numel() + ext.numel() + parts.numel() * 4, ms, pms, err)
+        log(f"    torch recombination of its partial sums: {rms:.4f} ms")
 
     # K4: keyswitch then pfKS at 256 lanes
     kn = P.glwe_dimension * P.polynomial_size
@@ -243,49 +362,151 @@ def read_counters() -> dict:
     return {name: spec["fn"].launches for name, spec in KERNELS.items()}
 
 
+def require_launches(what: str, counts: dict, names) -> None:
+    log(f"launches, {what}: {counts}")
+    for name in names:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched: {what}")
+
+
 def phase_test_params() -> None:
     log("== phase 3: end to end at PARAMS_TEST, 2 rounds")
     t0 = time.time()
     client, ctx = model.generate_keys(params_mod.PARAMS_TEST, seed=3,
-                                      device=DEV)
-    out, _ = scenario.run_client_server_aes_scenario(
-        client, ctx, KEY, IV, 2, rounds=2)
+                                      device=DEV, lowering=Lowering())
     expect = plain.expand_key_and_encrypt_blocks(
         KEY, scenario.ctr_blocks(IV, 2), 2)
+    out, _ = scenario.run_client_server_aes_scenario(
+        client, ctx, KEY, IV, 2, rounds=2)
     assert out == expect, "PARAMS_TEST output mismatch"
-    log(f"PARAMS_TEST 2-round CTR x2 verified in {time.time() - t0:.1f} s")
+    ctx = dataclasses.replace(ctx, lowering=Lowering("glue_out", "partials"))
+    out, _ = scenario.run_client_server_aes_scenario(
+        client, ctx, KEY, IV, 2, rounds=2, compress_log2q=32)
+    assert out == expect, "PARAMS_TEST output mismatch under glue_out"
+    log("PARAMS_TEST 2-round CTR x2 verified under the default lowering and "
+        f"under (glue_out, partials) with a compressed response in "
+        f"{time.time() - t0:.1f} s")
 
 
-def phase_full_width() -> dict:
-    """The user's entry points at full width: the CTR scenario with 2 blocks
-    (key_schedule_staged + encrypt_blocks_staged, 10 rounds) and with 1
-    block (encrypt_block_latency), each decrypted and checked against the
-    AES authority inside the scenario."""
-    log("== phase 4: full width, PARAMS_SQRD_LVL_64, 10 rounds")
+def phase_full_width():
+    """The user's entry points at full width under the default lowering:
+    the CTR scenario with 2 blocks (key_schedule_staged +
+    encrypt_blocks_staged, 10 rounds), then 1 block through the same three
+    steps the scenario is made of (encrypt_request, serve_request ->
+    encrypt_block_latency, read_response), each decrypted and checked
+    against the AES authority. Returns what phase 5 runs again: the keys,
+    the single block's encrypted request and its output ciphertext, and the
+    launch counts of both runs."""
+    log("== phase 4: full width, PARAMS_SQRD_LVL_64, 10 rounds, lowering "
+        "(gridg, fused)")
     t0 = time.time()
-    client, ctx = model.generate_keys(P, seed=0, device=DEV)
+    client, ctx = model.generate_keys(P, seed=0, device=DEV,
+                                      lowering=Lowering())
     sync()
     log(f"keygen (seeded) + key preparation: {time.time() - t0:.1f} s")
+    blocks = scenario.ctr_blocks(IV, 2)
+    expect = aes_lib.encrypt_blocks(KEY, blocks)
+    main_path = ("extprod_step2g", "rot_diff_digits", "extprod_grouped_fused",
+                 "fused_limb_matmul")
 
     reset_counters()
     out2, t2 = scenario.run_client_server_aes_scenario(client, ctx, KEY, IV,
                                                        2, rounds=10)
-    out1, t1 = scenario.run_client_server_aes_scenario(client, ctx, KEY, IV,
-                                                       1, rounds=10)
-    launches = read_counters()
-    expect = aes_lib.encrypt_blocks(KEY, scenario.ctr_blocks(IV, 2))
-    assert out2 == expect and out1 == expect[:1], "keystream mismatch"
+    batch = read_counters()
+    assert out2 == expect, "keystream mismatch on the batch path"
+    require_launches("2-block batch path", batch, main_path)
+
+    request = scenario.encrypt_request(client, ctx, STRATEGY, KEY, blocks[:1])
+    reset_counters()
+    out1, t1 = scenario.serve_request(ctx, STRATEGY, *request, rounds=10)
+    latency = read_counters()
+    assert scenario.read_response(client, ctx, STRATEGY, out1) == expect[:1], \
+        "keystream mismatch on the latency path"
+    require_launches("1-block latency path", latency, main_path)
     log(f"key expansion: {t2['key_expansion_s']:.2f} s; 10 rounds x 2 "
         f"blocks: {t2['blocks_s']:.2f} s; latency path (1 block, expansion "
         f"included): {t1['fused_latency_s']:.2f} s")
-    log(f"launches on the main path: {launches}")
     log("2-block batch path and 1-block latency path decrypt to the AES "
         "authority's keystream")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 "main path")
-    return launches
+    return client, ctx, request, out1.array, batch, latency
+
+
+def phase_second_path(client, ctx, request, out_default, latency_default):
+    """The unfused lowerings at full width, held bit-for-bit against the
+    default lowering on phase 4's keys and inputs."""
+    log("== phase 5: full width, second path: lowering (grid, partials) "
+        "with a compressed response, then a glue_out rotation")
+    expect = aes_lib.encrypt_blocks(KEY, scenario.ctr_blocks(IV, 1))
+    ctx_gp = dataclasses.replace(ctx, lowering=Lowering("grid", "partials"))
+    reset_counters()
+    out, t = scenario.serve_request(ctx_gp, STRATEGY, *request, rounds=10)
+    got = scenario.read_response(client, ctx_gp, STRATEGY, out,
+                                 compress_log2q=16)
+    grid = read_counters()
+    assert got == expect, "keystream mismatch under (grid, partials)"
+    if not torch.equal(out.array, out_default):
+        raise AssertionError("(grid, partials) ciphertext differs from the "
+                             "default lowering's")
+    log(f"latency path under (grid, partials): {t['fused_latency_s']:.2f} s; "
+        "ciphertext bit-equal to the default lowering's; compressed "
+        "response (q' = 2^16) decrypts to the AES authority's keystream")
+    require_launches("latency path under (grid, partials)", grid,
+                     ("rot_diff_digits", "extprod_step2",
+                      "extprod_partials_grouped", "fused_limb_matmul"))
+    n_lwe = P.lwe_dimension
+    wanted = {"rot_diff_digits": 11 * n_lwe, "extprod_step2": 11 * n_lwe,
+              "extprod_partials_grouped":
+                  latency_default["extprod_grouped_fused"],
+              "extprod_step2g": 0, "extprod_grouped_fused": 0}
+    for name, count in wanted.items():
+        if grid[name] != count:
+            raise AssertionError(f"{name}: {grid[name]} launches under "
+                                 f"(grid, partials), expected {count}")
+
+    # one batched blind rotation under glue_out against the default schedule
+    b = 160
+    gen = torch.Generator().manual_seed(77)
+    lwe = torch.randint(-2**62, 2**62, (b, n_lwe + 1), generator=gen,
+                        dtype=torch.int64).to(DEV)
+    acc = torch.randint(-2**62, 2**62, (P.glwe_dimension + 1,
+                                        P.polynomial_size), generator=gen,
+                        dtype=torch.int64).to(DEV)
+    bsk = ctx.sks.bsk
+    sync()
+    t0 = time.time()
+    ref = blind_rotate.blind_rotate_glwe(lwe, bsk, acc, P, Lowering())
+    sync()
+    t_default = time.time() - t0
+    reset_counters()
+    t0 = time.time()
+    got = blind_rotate.blind_rotate_glwe(lwe, bsk, acc, P,
+                                         Lowering(br="glue_out"))
+    sync()
+    t_glue = time.time() - t0
+    # K7 in the part it has, K6's reference: one more update of this
+    # rotation's accumulator with BSK entry 0, through K6 and through K7
+    o_cnt, r_cnt, nj, two_n = bsk[0].shape
+    js = 8 - nj
+    nd = torus.limbs_for_bound(decomposition.digit_bound(P.pbs_base_log))
+    rot = polynomial.monomial_mul(got, blind_rotate.mod_switch(
+        lwe[:, 0], P.log2_poly_size)[:, None])
+    planes = torus.split_int32_signed(blind_rotate.decompose_glwe(
+        rot - got, P.pbs_base_log, P.pbs_level), nd)
+    ext8 = torch.zeros((8, r_cnt, o_cnt, two_n), dtype=torch.int8, device=DEV)
+    ext8[js:] = bsk[0].permute(2, 1, 0, 3)
+    k6 = kx.extprod_step(planes, bsk[0], got, js)
+    k7 = got + polynomial.recombine_partials(kx.extprod_partials(planes, ext8))
+    glue = read_counters()
+    if not torch.equal(got, ref):
+        raise AssertionError("glue_out rotation differs from the default")
+    if not torch.equal(k6, k7):
+        raise AssertionError("K7 recombined differs from K6 on the path")
+    log(f"blind rotation, B={b}, {n_lwe} steps: default {t_default:.3f} s, "
+        f"glue_out {t_glue:.3f} s, bit-equal; K6 == K7 recombined on its "
+        "operands")
+    require_launches("glue_out rotation", glue,
+                     ("extprod_step", "extprod_partials"))
+    return grid, glue
 
 
 def main() -> int:
@@ -295,7 +516,12 @@ def main() -> int:
     smi = phase_device()
     rows = phase_kernels()
     phase_test_params()
-    launches = phase_full_width()
+    client, ctx, request, out1, batch, latency = phase_full_width()
+    grid, glue = phase_second_path(client, ctx, request, out1, latency)
+    # each kernel's launches on the main paths: the default lowering's two
+    # runs (phase 4), the (grid, partials) run and the glue_out rotation
+    launches = {name: batch[name] + latency[name] + grid[name] + glue[name]
+                for name in KERNELS}
     kernels = []
     for name, spec in KERNELS.items():
         last = rows[name][-1]
@@ -305,7 +531,10 @@ def main() -> int:
             max_abs_err=max(x["max_abs_err"] for x in rows[name]),
             ms=last["ms"], plain_ms=last["plain_ms"],
             bound_ms=last["bound_ms"], bound_by=last["bound_by"],
-            library_ms=None, shape=last["name"]))
+            library_ms=None, shape=last["name"],
+            shapes=[{k: v for k, v in x.items()
+                     if k not in ("macs", "nbytes", "max_abs_err")}
+                    for x in rows[name]]))
     log(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@ machine without it run: python -m pytest tests/test_torch_cuda.py -m cuda
 import pytest
 import torch
 
+from tfhe_aes2_tpu_torch.ops import polynomial
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
 from tfhe_aes2_tpu_torch.ops.kernels import matmul as kmm
 from tests.torch_port_common import require_cuda
@@ -38,6 +39,31 @@ def test_cuda_kernels_match_plain():
     a2, d2 = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, base_log,
                                      levels, js)
     assert torch.equal(a1, a2) and torch.equal(d1, d2)
+    # K5 / K6: the same update without the glue, in place / batch-major
+    a5 = kx.extprod_step2(dig, ext, acc.clone(), js)
+    assert torch.equal(a5, kx.extprod_step2_plain(dig, ext, acc.clone(), js))
+    assert torch.equal(a5, a1)
+    dig_bm = dig.reshape(k1 * levels, n_d, b, n).permute(1, 2, 0, 3).contiguous()
+    acc_bm = acc.permute(1, 0, 2).contiguous()
+    a6 = kx.extprod_step(dig_bm, ext, acc_bm, js)
+    assert torch.equal(a6, kx.extprod_step_plain(dig_bm, ext, acc_bm, js))
+    assert torch.equal(a6.permute(1, 0, 2), a1)
+    # K7: all 8 key planes; recombined over zeroed low planes it is K6
+    ext8 = r8(8, k1 * levels, k1, 2 * n)
+    parts = kx.extprod_partials(dig_bm, ext8)
+    assert torch.equal(parts, kx.extprod_partials_plain(dig_bm, ext8))
+    ext8[:js] = 0
+    assert torch.equal(
+        acc_bm + polynomial.recombine_partials(
+            kx.extprod_partials(dig_bm, ext8)),
+        kx.extprod_step(dig_bm, ext8[js:].permute(2, 1, 0, 3).contiguous(),
+                        acc_bm, js))
+    # K8: ragged group edge, rows below js zero
+    dig8, ext_8 = r8(n_d, 3, 11, 4, n), r8(4, 3, 4, 2, 2 * n)
+    parts = kx.extprod_partials_grouped(dig8, ext_8, 4)
+    assert torch.equal(parts,
+                       kx.extprod_partials_grouped_plain(dig8, ext_8, 4))
+    assert not parts[:4].any()
     dig, ext = r8(3, 4, n_d * 11, n), r8(3, 2, 4, 4, 2 * n)
     assert torch.equal(kx.extprod_grouped_fused(dig, ext, n_d, 4),
                        kx.extprod_grouped_fused_plain(dig, ext, n_d, 4))

@@ -1,6 +1,7 @@
-"""Kernels K1-K4 of the PyTorch port: each plain version against the JAX
+"""Kernels K1-K8 of the PyTorch port: each plain version against the JAX
 package's Pallas function (interpret mode) on the same numpy-made int8
-inputs, at j_start 0 and at the truncated j_start. Both sides are exact
+inputs, at j_start 0 and at a truncated j_start; K5-K8 also at N=256, at an
+odd batch and at a batch of 1. Both sides are exact
 integer arithmetic mod 2^64, so the tolerance is 0 (bit-equality). The
 CUDA kernels themselves are held against these plain versions on the card
 by tests/test_torch_cuda.py."""
@@ -13,6 +14,7 @@ import torch
 from tfhe_aes2_tpu.ops.pallas import extprod as jx
 from tfhe_aes2_tpu.ops.pallas import matmul as jmm
 
+from tfhe_aes2_tpu_torch.ops import polynomial as tpoly
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
 from tfhe_aes2_tpu_torch.ops.kernels import matmul as kmm
 from tests.torch_port_common import t8, t64, u64
@@ -79,6 +81,120 @@ def test_k3_extprod_grouped_fused_matches_pallas(js, g):
                                   _from_pair(pair[:, :, 0], pair[:, :, 1]))
 
 
+# (N, B): an odd batch at N=64, a batch of 1 at N=256
+STEP_SHAPES = [(64, 5), (256, 1)]
+
+
+def _step_inputs(seed, n, b, js, k1=2, levels=2, n_d=2):
+    """Batch-major operands of one CMux update, all 8 key planes with the
+    planes below js zeroed: digit planes [n_d, B, R, N], ext planes
+    [8, R, O, 2N], acc uint64 [B, O, N]."""
+    rng = np.random.default_rng(seed)
+    r = k1 * levels
+    dig = rng.integers(-128, 128, (n_d, b, r, n)).astype(np.int8)
+    ext = rng.integers(-128, 128, (8, r, k1, 2 * n)).astype(np.int8)
+    ext[:js] = 0
+    acc = rng.integers(0, 2 ** 64, (b, k1, n), dtype=np.uint64)
+    return dig, ext, acc, k1, levels
+
+
+@pytest.mark.parametrize("js", [0, 2])
+@pytest.mark.parametrize("n,b", STEP_SHAPES)
+def test_k5_extprod_step2_matches_pallas(n, b, js):
+    dig, ext, acc, k1, levels = _step_inputs(140 + js, n, b, js)
+    dig_rf = np.ascontiguousarray(dig.transpose(2, 0, 1, 3))  # [R, n_d, B, N]
+    ext_or = np.ascontiguousarray(ext[js:].transpose(2, 1, 0, 3))
+    acc_of = np.ascontiguousarray(acc.transpose(1, 0, 2))     # [O, B, N]
+    ref = np.asarray(jx.extprod_step2(
+        jnp.asarray(dig_rf), jnp.asarray(ext_or), _acc_pair(acc_of),
+        interpret=True, j_start=js))
+    acc_t, before = t64(acc_of), acc_of.copy()
+    got = kx.extprod_step2(t8(dig_rf).reshape((k1, levels) + dig_rf.shape[1:]),
+                           t8(ext_or), acc_t, js)
+    assert got is acc_t                  # in place, like the TPU kernel
+    np.testing.assert_array_equal(acc_of, before)   # not through to numpy
+    np.testing.assert_array_equal(u64(got), _from_pair(ref[:, 0], ref[:, 1]))
+
+
+@pytest.mark.parametrize("js", [0, 2])
+@pytest.mark.parametrize("n,b", STEP_SHAPES)
+def test_k6_extprod_step_matches_pallas(n, b, js):
+    dig, ext, acc, _, _ = _step_inputs(150 + js, n, b, js)
+    lo = jnp.asarray(acc & np.uint64(0xFFFFFFFF), jnp.uint32)
+    hi = jnp.asarray(acc >> np.uint64(32), jnp.uint32)
+    ref = jx.extprod_step(jnp.asarray(dig), jnp.asarray(ext[js:]), lo, hi,
+                          interpret=True, j_start=js)
+    acc_t = t64(acc)
+    ext_or = np.ascontiguousarray(ext[js:].transpose(2, 1, 0, 3))
+    got = kx.extprod_step(t8(dig), t8(ext_or), acc_t, js)
+    np.testing.assert_array_equal(u64(acc_t), acc)      # input untouched
+    np.testing.assert_array_equal(u64(got), _from_pair(*ref))
+
+
+@pytest.mark.parametrize("n,b", STEP_SHAPES)
+def test_k7_extprod_partials_matches_pallas(n, b):
+    dig, ext, _, _, _ = _step_inputs(160, n, b, 0)
+    ref = np.asarray(jx.extprod_partials(jnp.asarray(dig), jnp.asarray(ext),
+                                         interpret=True))
+    got = kx.extprod_partials(t8(dig), t8(ext))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("js", [0, 4])
+@pytest.mark.parametrize("n,b,g", [(64, 3, 5), (256, 1, 2)])
+def test_k8_extprod_partials_grouped_matches_pallas(n, b, g, js):
+    rng = np.random.default_rng(170 + js)
+    r, o, n_d = 3, 2, 2
+    dig = rng.integers(-128, 128, (n_d, b, g, r, n)).astype(np.int8)
+    ext = rng.integers(-128, 128, (8 - js, b, r, o, 2 * n)).astype(np.int8)
+    ref = np.asarray(jx.extprod_partials_grouped(
+        jnp.asarray(dig), jnp.asarray(ext), interpret=True, j_start=js))
+    got = kx.extprod_partials_grouped(t8(dig), t8(ext), js)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert not got[:js].any()            # rows below js are zeros
+    # recombined, the partial sums are K3's product on K3's layouts
+    fused = kx.extprod_grouped_fused(
+        t8(dig.transpose(1, 3, 0, 2, 4).reshape(b, r, n_d * g, n)),
+        t8(ext.transpose(1, 3, 2, 0, 4)), n_d, js)          # [B, O, G, N]
+    np.testing.assert_array_equal(
+        u64(tpoly.recombine_partials(got, js)),
+        u64(fused.permute(0, 2, 1, 3)))
+
+
+@pytest.mark.parametrize("js", [0, 2])
+def test_k7_recombined_equals_k6_update(js):
+    """K7 takes all 8 key planes; with the planes below js zeroed, its
+    partial sums folded mod 2^64 are exactly what K6 adds at j_start=js."""
+    dig, ext, acc, _, _ = _step_inputs(180 + js, 64, 7, js)
+    parts = kx.extprod_partials(t8(dig), t8(ext))
+    ext_or = np.ascontiguousarray(ext[js:].transpose(2, 1, 0, 3))
+    got = kx.extprod_step(t8(dig), t8(ext_or), t64(acc), js)
+    np.testing.assert_array_equal(
+        u64(t64(acc) + tpoly.recombine_partials(parts)), u64(got))
+
+
+@pytest.mark.parametrize("js", [0, 2])
+def test_k2_then_k5_equals_k1(js):
+    """The `grid` step (K2 then K5) and the `gridg` step (K1) take the
+    accumulator and the digits through the same values."""
+    rng = np.random.default_rng(190 + js)
+    n, k1, levels, b, base_log, n_d = 64, 3, 2, 5, 12, 2
+    acc = rng.integers(0, 2 ** 64, (k1, b, n), dtype=np.uint64)
+    ext = rng.integers(-128, 128, (k1, k1 * levels, 8 - js, 2 * n)
+                       ).astype(np.int8)
+    t_now = torch.from_numpy(rng.integers(0, 2 * n, (b,), dtype=np.int32))
+    t_next = torch.from_numpy(rng.integers(0, 2 * n, (b,), dtype=np.int32))
+    dig = kx.rot_diff_digits(t64(acc), t_now, base_log, levels, n_d)
+    acc1, dig1 = kx.extprod_step2g(dig, t8(ext), t64(acc), t_next, base_log,
+                                   levels, js)
+    acc5 = kx.extprod_step2(dig, t8(ext), t64(acc), js)
+    np.testing.assert_array_equal(u64(acc5), u64(acc1))
+    np.testing.assert_array_equal(
+        kx.rot_diff_digits(acc5, t_next, base_log, levels, n_d).numpy(),
+        dig1.numpy())
+
+
 @pytest.mark.parametrize("b,k,n,n_d,js", [
     (256, 256, 128, 1, 5),     # keyswitch-like: base-3 digits, 3 key planes
     (256, 384, 256, 3, 1),     # pfKS-like: base-16 digits, 7 key planes
@@ -115,3 +231,11 @@ def test_wrappers_refuse_bad_shapes():
         kx.extprod_grouped_fused(torch.zeros((2, 3, 4, 8), dtype=torch.int8),
                                  torch.zeros((2, 2, 3, 6, 16),
                                              dtype=torch.int8), 2, 3)
+    z8 = lambda *shape: torch.zeros(shape, dtype=torch.int8)
+    with pytest.raises(ValueError):      # K7 takes all 8 key planes
+        kx.extprod_partials(z8(2, 3, 4, 8), z8(6, 4, 2, 16))
+    with pytest.raises(ValueError):      # K6: acc must be batch-major
+        kx.extprod_step(z8(2, 3, 4, 8), z8(2, 4, 6, 16),
+                        torch.zeros((2, 3, 8), dtype=torch.int64), 2)
+    with pytest.raises(ValueError):      # K8: plane count != 8 - j_start
+        kx.extprod_partials_grouped(z8(2, 3, 5, 4, 8), z8(6, 3, 4, 2, 16), 4)

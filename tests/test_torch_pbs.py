@@ -10,37 +10,18 @@ tests/test_keyswitch_pbs.py builds it, and vertical_packing(use_conv="pallas").
 """
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
 from tfhe_aes2_tpu.ops import blind_rotate as jbr
 from tfhe_aes2_tpu.ops import circuit_bootstrap as jcbs
-from tfhe_aes2_tpu.ops import keys as jkeys
 from tfhe_aes2_tpu.ops import keyswitch as jks
-from tfhe_aes2_tpu.ops import truncation as jtrunc
-from tfhe_aes2_tpu.ops.torus import split_u64_signed
 
 from tfhe_aes2_tpu_torch.ops import blind_rotate as tbr
 from tfhe_aes2_tpu_torch.ops import circuit_bootstrap as tcbs
 from tfhe_aes2_tpu_torch.ops import keys as tkeys
 from tfhe_aes2_tpu_torch.ops import keyswitch as tks
-from tests.torch_port_common import port_keys, t64, u64
-
-
-def _jax_keys(keys, truncate: bool):
-    """The JAX key set to hold the port against: raw u64 keys, or the
-    prepared int8 planes with the package's truncation."""
-    client, sks = keys
-    p = client.params
-    raw = jax.tree_util.tree_map(jnp.asarray, sks)
-    if not truncate:
-        return raw
-    return jkeys.ServerKeySet(
-        bsk=jbr.prepare_bsk(raw.bsk, p),
-        ksk=split_u64_signed(raw.ksk)[jtrunc.ksk_j_start(p):],
-        pfpksk=split_u64_signed(raw.pfpksk)[jtrunc.pfpksk_j_start(p):],
-        pksk=raw.pksk)
+from tests.torch_port_common import jax_server_keys, port_keys, t64, u64
 
 
 VALS = np.array([0x3a, 0xc5])
@@ -52,7 +33,7 @@ def setup(keys_test):
     p = client.params
     prepared = {t: tkeys.prepare_server_keys(raw, p, truncate=t)
                 for t in (False, True)}
-    jax_sets = {t: _jax_keys(keys_test, t) for t in (False, True)}
+    jax_sets = {t: jax_server_keys(keys_test, t) for t in (False, True)}
     bits = np.unpackbits(VALS.astype(np.uint8)[:, None], axis=-1)  # [2, 8]
     cts = keys_test[0].encrypt_bits(bits)            # [2, 8, kN+1] uint64
     return keys_test[0], p, prepared, jax_sets, bits, cts

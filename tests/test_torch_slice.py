@@ -75,7 +75,7 @@ def test_truncated_paths_decrypt_to_oracles(keys_test):
     assert out == aes_lib.encrypt_blocks(KEY, scenario.ctr_blocks(bytes(8), 1))
 
 
-@pytest.mark.parametrize("flag", [["--compress-output", "16"],
+@pytest.mark.parametrize("flag", [["--implementation", "shortint-woppbs-8bit"],
                                   ["--fhe-counter"],
                                   ["--implementation", "shortint-1bit"]])
 def test_cli_refuses_unported_options(flag):

@@ -42,9 +42,33 @@ def port_keys(jax_keys):
         np.asarray(sks.pksk), device=CPU)
 
 
-def port_context(jax_keys, truncate: bool):
+def port_context(jax_keys, truncate: bool, lowering=None):
     client, sks = port_keys(jax_keys)
-    return client, tm1.context_from_keys(client.params, sks, truncate)
+    return client, tm1.context_from_keys(client.params, sks, truncate,
+                                         lowering)
+
+
+def jax_server_keys(jax_keys, truncate: bool):
+    """The JAX key set to hold the port against: raw u64 keys, or the
+    prepared int8 planes with the package's truncation (what its Pallas
+    path, interpret mode on the CPU, computes on)."""
+    import jax
+    import jax.numpy as jnp
+    from tfhe_aes2_tpu.ops import blind_rotate as jbr
+    from tfhe_aes2_tpu.ops import keys as jkeys
+    from tfhe_aes2_tpu.ops import truncation as jtrunc
+    from tfhe_aes2_tpu.ops.torus import split_u64_signed
+
+    client, sks = jax_keys
+    p = client.params
+    raw = jax.tree_util.tree_map(jnp.asarray, sks)
+    if not truncate:
+        return raw
+    return jkeys.ServerKeySet(
+        bsk=jbr.prepare_bsk(raw.bsk, p),
+        ksk=split_u64_signed(raw.ksk)[jtrunc.ksk_j_start(p):],
+        pfpksk=split_u64_signed(raw.pfpksk)[jtrunc.pfpksk_j_start(p):],
+        pksk=raw.pksk)
 
 
 def t64(x) -> torch.Tensor:

@@ -16,6 +16,7 @@ import torch
 
 from tfhe_aes2_tpu_torch.aes_128 import aes_lib, fhe as fhe_mod, plain
 from tfhe_aes2_tpu_torch.models.shortint_woppbs_1bit import FheContext
+from tfhe_aes2_tpu_torch.ops import compression
 from tfhe_aes2_tpu_torch.ops.keys import ClientKey
 from tfhe_aes2_tpu_torch.ops.torus import to_numpy, to_tensor
 
@@ -34,22 +35,25 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_client_server_aes_scenario(
-        client: ClientKey, ctx: FheContext, key_clear: bytes, iv: bytes,
-        block_count: int,
-        strategy=fhe_mod.ShortintWoppbs1BitSboxGalMulPbsAesEncrypt,
-        verify: bool = True, rounds: int = 10):
-    """Returns (decrypted blocks, timings dict).
+def encrypt_request(client: ClientKey, ctx: FheContext, strategy,
+                    key_clear: bytes, blocks_clear: list[bytes]):
+    """Client: FHE-encrypt the AES key and the blocks onto the server's
+    device -> (key_ct [16, 8, kN+1], block_cts [B, 16, 8, kN+1])."""
+    dev = ctx.device
+    return (to_tensor(strategy.encrypt_key_client(client, key_clear), dev),
+            to_tensor(strategy.encrypt_client(client, blocks_clear), dev))
+
+
+def serve_request(ctx: FheContext, strategy, key_ct: torch.Tensor,
+                  block_cts: torch.Tensor, rounds: int = 10):
+    """Server: expand the key and run the rounds under FHE ->
+    (output BitCt [B | 16, 8], timings dict).
 
     A single block at 10 rounds takes the fused latency path and reports
     only `fused_latency_s`: that path has no expansion/rounds split.
     """
     dev = ctx.device
-    key_ct = to_tensor(strategy.encrypt_key_client(client, key_clear), dev)
-    blocks_clear = ctr_blocks(iv, block_count)
-    block_cts = to_tensor(strategy.encrypt_client(client, blocks_clear), dev)
-    log.info("aes key and blocks fhe encrypted")
-
+    block_count = block_cts.shape[0]
     if block_count == 1 and rounds == 10:
         t0 = time.time()
         out = fhe_mod.encrypt_block_latency(strategy, ctx, key_ct, block_cts)
@@ -57,24 +61,59 @@ def run_client_server_aes_scenario(
         t_lat = time.time() - t0
         print(f"AES key expansion + #1 output computed in: {t_lat:.3f}s "
               "(fused latency path)")
-        timings = {"fused_latency_s": t_lat}
-    else:
-        t0 = time.time()
-        eks = fhe_mod.key_schedule_staged(strategy, ctx, key_ct)
-        _sync(dev)
-        t_expand = time.time() - t0
-        print(f"AES key expansion took: {t_expand:.3f}s")
-        t0 = time.time()
-        out = fhe_mod.encrypt_blocks_staged(strategy, ctx, eks, block_cts,
-                                            rounds)
-        _sync(dev)
-        t_blocks = time.time() - t0
-        print(f"AES of #{block_count} outputs computed in: {t_blocks:.3f}s "
-              f"({block_count / t_blocks:.4f} blocks/s)")
-        timings = {"key_expansion_s": t_expand, "blocks_s": t_blocks,
-                   "blocks_per_s": block_count / t_blocks}
+        return out, {"fused_latency_s": t_lat}
+    t0 = time.time()
+    eks = fhe_mod.key_schedule_staged(strategy, ctx, key_ct)
+    _sync(dev)
+    t_expand = time.time() - t0
+    print(f"AES key expansion took: {t_expand:.3f}s")
+    t0 = time.time()
+    out = fhe_mod.encrypt_blocks_staged(strategy, ctx, eks, block_cts, rounds)
+    _sync(dev)
+    t_blocks = time.time() - t0
+    print(f"AES of #{block_count} outputs computed in: {t_blocks:.3f}s "
+          f"({block_count / t_blocks:.4f} blocks/s)")
+    return out, {"key_expansion_s": t_expand, "blocks_s": t_blocks,
+                 "blocks_per_s": block_count / t_blocks}
 
-    decrypted = strategy.decrypt_client(client, to_numpy(out.array))
+
+def read_response(client: ClientKey, ctx: FheContext, strategy, out,
+                  compress_log2q: int | None = None) -> list[bytes]:
+    """The answer's way back: the server's output BitCt -> the blocks the
+    client decrypts.
+
+    compress_log2q (16 or 32): the server keyswitches the output bits to
+    the small key and modulus-switches them to q' = 2^log2q before
+    transport (ops/compression.py), and the client decrypts the packed
+    bytes: a ~12x / ~6x smaller response than the big-key ciphertexts.
+    """
+    if compress_log2q is None:
+        return strategy.decrypt_client(client, to_numpy(out.array))
+    comp = compression.compress_bits(out.array, ctx.sks, ctx.params,
+                                     compress_log2q)
+    blob = compression.pack_bytes(comp, compress_log2q)
+    raw = out.array.numel() * 8
+    print(f"compressed response: {len(blob)} bytes "
+          f"({raw / len(blob):.1f}x smaller than big-key cts)")
+    return compression.decrypt_blocks_compressed(
+        client, compression.unpack_bytes(blob, tuple(comp.shape),
+                                         compress_log2q), compress_log2q)
+
+
+def run_client_server_aes_scenario(
+        client: ClientKey, ctx: FheContext, key_clear: bytes, iv: bytes,
+        block_count: int,
+        strategy=fhe_mod.ShortintWoppbs1BitSboxGalMulPbsAesEncrypt,
+        verify: bool = True, rounds: int = 10,
+        compress_log2q: int | None = None):
+    """encrypt_request -> serve_request -> read_response, verified against
+    the AES authority. Returns (decrypted blocks, timings dict)."""
+    blocks_clear = ctr_blocks(iv, block_count)
+    key_ct, block_cts = encrypt_request(client, ctx, strategy, key_clear,
+                                        blocks_clear)
+    log.info("aes key and blocks fhe encrypted")
+    out, timings = serve_request(ctx, strategy, key_ct, block_cts, rounds)
+    decrypted = read_response(client, ctx, strategy, out, compress_log2q)
     if verify:
         if rounds == 10:
             expect = aes_lib.encrypt_blocks(key_clear, blocks_clear)

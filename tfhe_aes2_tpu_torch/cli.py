@@ -1,11 +1,14 @@
 """CLI mirroring the reference binary (src/bin/main.rs:29-39), on the GPU.
 
     python -m tfhe_aes2_tpu_torch.cli --key <hex16> --iv <hex8> \
-        --number-of-outputs N [--implementation shortint-woppbs-1bit] [--seed S]
+        --number-of-outputs N [--implementation shortint-woppbs-1bit] \
+        [--seed S] [--compress-output {16,32}]
 
 Same flags as `python -m tfhe_aes2_tpu.cli`. This port runs the
-shortint-woppbs-1bit model only; --compress-output and --fhe-counter are
-not ported yet (ROADMAP.md Queue 1).
+shortint-woppbs-1bit model only; --fhe-counter is not ported yet
+(ROADMAP.md Queue 1). The kernels the bootstraps run follow the JAX
+package's TFHE_BR_KERNEL / TFHE_BR_GLUE / TFHE_VP_FUSED environment
+(ops/lowering.py); the lowering in use is printed.
 """
 
 from __future__ import annotations
@@ -52,10 +55,6 @@ def main(argv=None, device: str = "cuda") -> int:
         raise NotImplementedError(
             f"--implementation {args.implementation} is not ported yet "
             "(ROADMAP.md Queue 1, 'the other FHE models')")
-    if args.compress_output is not None:
-        raise NotImplementedError(
-            "--compress-output is not ported yet (ROADMAP.md Queue 1, "
-            "'output compression')")
     if args.fhe_counter:
         raise NotImplementedError(
             "--fhe-counter is not ported yet (ROADMAP.md Queue 1, "
@@ -78,8 +77,10 @@ def main(argv=None, device: str = "cuda") -> int:
     print(f"generating keys ({args.params}) on {device}...")
     client, ctx = model.generate_keys(PARAM_CHOICES[args.params],
                                       seed=args.seed, device=device)
+    print(f"lowering: br={ctx.lowering.br} vp={ctx.lowering.vp}")
     run_client_server_aes_scenario(client, ctx, key, iv,
-                                   args.number_of_outputs, rounds=args.rounds)
+                                   args.number_of_outputs, rounds=args.rounds,
+                                   compress_log2q=args.compress_output)
     oracle = ("AES authority" if args.rounds == 10
               else f"plain {args.rounds}-round oracle")
     print(f"ok: FHE keystream verified against {oracle}")

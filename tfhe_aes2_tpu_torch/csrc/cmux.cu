@@ -76,28 +76,16 @@ extprod_step2g_kernel(const int8_t* __restrict__ dig,
                       int levels, int base_log) {
   constexpr int NJ = 8 - JS;
   extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* s_tab = reinterpret_cast<uint32_t*>(smem);
-  uint32_t* dig_w = s_tab + NJ * 2 * n;
   const int o = blockIdx.y;
   const int b0 = blockIdx.x * nc::ROWS;
   const int rows = min(nc::ROWS, B - b0);
 
   int32_t part[nc::ROWS][nc::COLS][NJ];
-#pragma unroll
-  for (int row = 0; row < nc::ROWS; ++row)
-#pragma unroll
-    for (int c = 0; c < nc::COLS; ++c)
-#pragma unroll
-      for (int s = 0; s < NJ; ++s) part[row][c][s] = 0;
-
-  for (int r = 0; r < R; ++r) {
-    __syncthreads();
-    nc::load_digit_tile<ND>(dig_w, dig + ((size_t)r * ND * B + b0) * n,
-                            (size_t)B * n, (size_t)n, rows, n);
-    nc::build_s_tables<NJ>(s_tab, ext + ((size_t)o * R + r) * NJ * 2 * n, n);
-    __syncthreads();
-    nc::accumulate<ND, JS>(part, s_tab, dig_w, n);
-  }
+  const nc::Operands op{dig + (size_t)b0 * n, (size_t)ND * B * n,
+                        (size_t)B * n, (size_t)n,
+                        ext + (size_t)o * R * NJ * 2 * n,
+                        (size_t)NJ * 2 * n, (size_t)2 * n};
+  nc::contract<ND, JS>(part, smem, op, R, rows, n);
 
   __syncthreads();                      // shared memory now holds the tile
   uint64_t* tile = reinterpret_cast<uint64_t*>(smem);   // [ROWS][N]

@@ -1,4 +1,4 @@
-// Shared device code of the negacirculant limb-plane kernels (K1-K3).
+// Shared device code of the negacirculant limb-plane kernels (K1, K3, K5-K8).
 //
 // The contraction these kernels evaluate, for one output component o:
 //
@@ -40,17 +40,18 @@ __host__ __device__ inline size_t contraction_smem(int nd, int nj, int n) {
   return (size_t)nj * 2 * n * 4 + (size_t)nd * ROWS * n;
 }
 
-// Fill the NJ S-tables from the int8 ext planes [NJ][2N] at `ext`.
+// Fill the NJ S-tables from NJ int8 ext rows of 2N bytes; plane j's row
+// starts at ext + j*plane_stride.
 template <int NJ>
 __device__ __forceinline__ void build_s_tables(uint32_t* s_tab,
                                                const int8_t* __restrict__ ext,
-                                               int n) {
+                                               size_t plane_stride, int n) {
   const int two_n = 2 * n;
   const int mask = two_n - 1;
   for (int idx = threadIdx.x; idx < NJ * two_n; idx += blockDim.x) {
     const int j = idx / two_n;
     const int x = idx - j * two_n;
-    const int8_t* e = ext + (size_t)j * two_n;
+    const int8_t* e = ext + (size_t)j * plane_stride;
     uint32_t word = 0;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -118,6 +119,45 @@ __device__ __forceinline__ void accumulate(int32_t (&part)[ROWS][COLS][8 - JS],
         }
       }
     }
+  }
+}
+
+// Where one block's operands lie, so that every kernel reads its own layout:
+// digit plane i of output row `row` at contraction row r starts at
+// dig + r*dig_r + i*dig_plane + row*dig_row; key plane j of contraction row
+// r starts at ext + r*ext_r + j*ext_plane (strides in bytes, the digit
+// strides multiples of 4).
+struct Operands {
+  const int8_t* dig;
+  size_t dig_r, dig_plane, dig_row;
+  const int8_t* ext;
+  size_t ext_r, ext_plane;
+};
+
+// The whole contraction of one block: zero the buckets, then for each of
+// the R rows stage the digit tile and the S-tables in shared memory (`smem`
+// holds contraction_smem bytes) and accumulate.
+template <int ND, int JS>
+__device__ __forceinline__ void contract(int32_t (&part)[ROWS][COLS][8 - JS],
+                                         unsigned char* smem,
+                                         const Operands& op, int R,
+                                         int rows_valid, int n) {
+  constexpr int NJ = 8 - JS;
+  uint32_t* s_tab = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* dig_w = s_tab + NJ * 2 * n;
+#pragma unroll
+  for (int row = 0; row < ROWS; ++row)
+#pragma unroll
+    for (int c = 0; c < COLS; ++c)
+#pragma unroll
+      for (int s = 0; s < NJ; ++s) part[row][c][s] = 0;
+  for (int r = 0; r < R; ++r) {
+    __syncthreads();
+    load_digit_tile<ND>(dig_w, op.dig + r * op.dig_r, op.dig_plane,
+                        op.dig_row, rows_valid, n);
+    build_s_tables<NJ>(s_tab, op.ext + r * op.ext_r, op.ext_plane, n);
+    __syncthreads();
+    accumulate<ND, JS>(part, s_tab, dig_w, n);
   }
 }
 

@@ -29,8 +29,6 @@ __global__ void extprod_grouped_fused_kernel(const int8_t* __restrict__ dig,
                                              int G, int n, int R) {
   constexpr int NJ = 8 - JS;
   extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* s_tab = reinterpret_cast<uint32_t*>(smem);
-  uint32_t* dig_w = s_tab + NJ * 2 * n;
   const int o = blockIdx.y;
   const int O = gridDim.y;
   const int b = blockIdx.z;
@@ -38,23 +36,11 @@ __global__ void extprod_grouped_fused_kernel(const int8_t* __restrict__ dig,
   const int rows = min(nc::ROWS, G - g0);
 
   int32_t part[nc::ROWS][nc::COLS][NJ];
-#pragma unroll
-  for (int row = 0; row < nc::ROWS; ++row)
-#pragma unroll
-    for (int c = 0; c < nc::COLS; ++c)
-#pragma unroll
-      for (int s = 0; s < NJ; ++s) part[row][c][s] = 0;
-
-  for (int r = 0; r < R; ++r) {
-    __syncthreads();
-    nc::load_digit_tile<ND>(
-        dig_w, dig + (((size_t)b * R + r) * ND * G + g0) * n, (size_t)G * n,
-        (size_t)n, rows, n);
-    nc::build_s_tables<NJ>(
-        s_tab, ext + (((size_t)b * O + o) * R + r) * NJ * 2 * n, n);
-    __syncthreads();
-    nc::accumulate<ND, JS>(part, s_tab, dig_w, n);
-  }
+  const nc::Operands op{dig + ((size_t)b * R * ND * G + g0) * n,
+                        (size_t)ND * G * n, (size_t)G * n, (size_t)n,
+                        ext + ((size_t)b * O + o) * R * NJ * 2 * n,
+                        (size_t)NJ * 2 * n, (size_t)2 * n};
+  nc::contract<ND, JS>(part, smem, op, R, rows, n);
 
 #pragma unroll
   for (int row = 0; row < nc::ROWS; ++row) {

@@ -25,6 +25,7 @@ import torch
 from tfhe_aes2_tpu_torch.ops import circuit_bootstrap as cbs_ops
 from tfhe_aes2_tpu_torch.ops import keys as keys_mod
 from tfhe_aes2_tpu_torch.ops import lwe as lwe_ops
+from tfhe_aes2_tpu_torch.ops.lowering import Lowering
 from tfhe_aes2_tpu_torch.ops.params import PARAMS_SQRD_LVL_64, WopbsParams
 from tfhe_aes2_tpu_torch.ops.torus import to_tensor
 
@@ -55,10 +56,11 @@ def _empty_ids(shape) -> np.ndarray:
 @dataclass
 class FheContext:
     """Server-side evaluation context: parameters + prepared keys on a
-    device."""
+    device, and the lowering (ops/lowering.py) its bootstraps run."""
 
     params: WopbsParams
     sks: keys_mod.PreparedServerKeys
+    lowering: Lowering = Lowering()
 
     @property
     def device(self) -> torch.device:
@@ -89,7 +91,8 @@ class FheContext:
         t = bits.array.shape[-2]
         o = lut.shape[0]
         out = cbs_ops.circuit_bootstrap_vertical_packing(
-            bits.array, self._luts(lut), self.sks, self.params)
+            bits.array, self._luts(lut), self.sks, self.params,
+            self.lowering)
         lane_shape = bits.lane_shape[:-1] + (o,)
         return BitCt(out, np.full(lane_shape, t, np.int64),
                      _fresh_ids(lane_shape), self)
@@ -108,13 +111,13 @@ class FheContext:
             metas.append((bits.lane_shape[:-1] + (lut.shape[0],),
                           bits.array.shape[-2]))
         ggsw = cbs_ops.circuit_bootstrap_bits(torch.cat(flats), self.sks,
-                                              self.params)
+                                              self.params, self.lowering)
         outs, off = [], 0
         for (bits, lut), flat, (shape, t) in zip(parts, flats, metas):
             nl = flat.shape[0]
             g = ggsw[off: off + nl].reshape((nl // t, t) + ggsw.shape[1:])
             out = cbs_ops.vertical_packing(g, self._luts(lut), self.params,
-                                           self.sks.vp_js)
+                                           self.sks.vp_js, self.lowering)
             outs.append(BitCt(out.reshape(shape + (n1,)),
                               np.full(shape, t, np.int64), _fresh_ids(shape),
                               self))
@@ -233,14 +236,20 @@ def fresh_bitct(arrays: torch.Tensor, context: FheContext,
 
 
 def generate_keys(params: WopbsParams = PARAMS_SQRD_LVL_64, seed: int = 0,
-                  device="cuda", truncate: bool = True):
-    """(ClientKey, FheContext) with prepared keys on `device`."""
+                  device="cuda", truncate: bool = True,
+                  lowering: Lowering | None = None):
+    """(ClientKey, FheContext) with prepared keys on `device`; `lowering`
+    None means Lowering.from_env()."""
     client, sks = keys_mod.generate_keys(params, seed=seed, device=device)
-    return client, context_from_keys(params, sks, truncate)
+    return client, context_from_keys(params, sks, truncate, lowering)
 
 
 def context_from_keys(params: WopbsParams, sks: keys_mod.ServerKeySet,
-                      truncate: bool = True) -> FheContext:
-    """FheContext over raw keys (keys.generate_keys / keys_from_numpy)."""
+                      truncate: bool = True,
+                      lowering: Lowering | None = None) -> FheContext:
+    """FheContext over raw keys (keys.generate_keys / keys_from_numpy);
+    `lowering` None means Lowering.from_env()."""
     return FheContext(params=params,
-                      sks=keys_mod.prepare_server_keys(sks, params, truncate))
+                      sks=keys_mod.prepare_server_keys(sks, params, truncate),
+                      lowering=(Lowering.from_env() if lowering is None
+                                else lowering))

@@ -1,12 +1,20 @@
 """Blind rotation + programmable bootstrap (the hot loop).
 
-The CMux chain of the blind rotation runs the JAX package's "gridg"
-schedule (tfhe_aes2_tpu/ops/blind_rotate.py:265-293): kernel K2 decomposes
-X^{a_0}·acc - acc once, then kernel K1 runs each of the n steps — the
-external product with BSK entry i added into the accumulator, fused with
-the decomposition of the NEXT step's rotation difference; the last step's
-glue is fed t = 0 and its digits are discarded. All concurrent bootstraps
-of the batch advance through step i together.
+The CMux chain of the blind rotation runs one of three schedules of the
+JAX package (tfhe_aes2_tpu/ops/blind_rotate.py:229-364), chosen by
+`Lowering.br`; all give the same bits:
+
+  "gridg" (default): kernel K2 decomposes X^{a_0}·acc - acc once, then
+      kernel K1 runs each of the n steps — the external product with BSK
+      entry i added into the accumulator, fused with the decomposition of
+      the NEXT step's rotation difference; the last step's glue is fed t = 0
+      and its digits are discarded.
+  "grid": two launches a step, K2 (the glue) then K5 (dots + recombine).
+  "glue_out": the glue in plain torch on the batch-major accumulator
+      (rotate, subtract, decompose, split: a few dozen small launches),
+      then K6.
+
+All concurrent bootstraps of the batch advance through step i together.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ import torch
 
 from tfhe_aes2_tpu_torch.ops import decomposition, polynomial, torus
 from tfhe_aes2_tpu_torch.ops.kernels import extprod
+from tfhe_aes2_tpu_torch.ops.lowering import Lowering
 from tfhe_aes2_tpu_torch.ops.params import WopbsParams
 from tfhe_aes2_tpu_torch.ops.torus import srl, wrap
 
@@ -35,13 +44,14 @@ def decompose_glwe(glwe: torch.Tensor, base_log: int,
 
 
 def blind_rotate_glwe(lwe: torch.Tensor, bsk: torch.Tensor,
-                      acc_glwe: torch.Tensor,
-                      params: WopbsParams) -> torch.Tensor:
+                      acc_glwe: torch.Tensor, params: WopbsParams,
+                      lowering: Lowering = Lowering()) -> torch.Tensor:
     """Blind-rotate a GLWE accumulator by the phase of `lwe`.
 
     lwe:      [..., n+1] int64 (under the small key)
     bsk:      prepared int8 [n, k+1, R, 8-js, 2N] (keys.prepare_bsk)
     acc_glwe: [..., k+1, N] int64, broadcastable over the batch
+    lowering: its `br` picks the schedule of the CMux chain
     returns   [..., k+1, N]
     """
     p = params
@@ -57,16 +67,31 @@ def blind_rotate_glwe(lwe: torch.Tensor, bsk: torch.Tensor,
     b_tilde = mod_switch(lwe[:, -1], logn)
     acc = acc_glwe.expand(batch + (k1, n)).reshape(b_flat, k1, n)
     acc = polynomial.monomial_mul(acc, ((2 * n - b_tilde) % (2 * n))[:, None])
-    acc_of = acc.permute(1, 0, 2).contiguous()                 # [O, B, N]
-
-    dig = extprod.rot_diff_digits(acc_of, a_steps[0], p.pbs_base_log,
-                                  p.pbs_level, n_d)
-    zero = torch.zeros_like(a_steps[0])
     n_lwe = a_steps.shape[0]
-    for i in range(n_lwe):
-        t_next = a_steps[i + 1] if i + 1 < n_lwe else zero
-        acc_of, dig = extprod.extprod_step2g(dig, bsk[i], acc_of, t_next,
-                                             p.pbs_base_log, p.pbs_level, js)
+
+    if lowering.br == "glue_out":
+        acc = acc.contiguous()                                 # [B, O, N]
+        for i in range(n_lwe):
+            rot = polynomial.monomial_mul(acc, a_steps[i][:, None])
+            digits = decompose_glwe(rot - acc, p.pbs_base_log, p.pbs_level)
+            planes = torus.split_int32_signed(digits, n_d)     # [n_d, B, R, N]
+            acc = extprod.extprod_step(planes, bsk[i], acc, js)
+        return acc.reshape(batch + (k1, n))
+
+    acc_of = acc.permute(1, 0, 2).contiguous()                 # [O, B, N]
+    if lowering.br == "grid":
+        for i in range(n_lwe):
+            dig = extprod.rot_diff_digits(acc_of, a_steps[i], p.pbs_base_log,
+                                          p.pbs_level, n_d)
+            acc_of = extprod.extprod_step2(dig, bsk[i], acc_of, js)
+    else:
+        dig = extprod.rot_diff_digits(acc_of, a_steps[0], p.pbs_base_log,
+                                      p.pbs_level, n_d)
+        zero = torch.zeros_like(a_steps[0])
+        for i in range(n_lwe):
+            t_next = a_steps[i + 1] if i + 1 < n_lwe else zero
+            acc_of, dig = extprod.extprod_step2g(
+                dig, bsk[i], acc_of, t_next, p.pbs_base_log, p.pbs_level, js)
     return acc_of.permute(1, 0, 2).reshape(batch + (k1, n))
 
 
@@ -81,7 +106,8 @@ def sample_extract0(glwe: torch.Tensor) -> torch.Tensor:
 
 
 def pbs_bit_to_level(lwe_small: torch.Tensor, bsk: torch.Tensor,
-                     target_log: int, params: WopbsParams) -> torch.Tensor:
+                     target_log: int, params: WopbsParams,
+                     lowering: Lowering = Lowering()) -> torch.Tensor:
     """Bootstrap a 1-bit LWE (bit at 2^63) to LWE_bigkey(bit·2^(64-target_log)).
 
     The gadget-scaling PBS inside circuit bootstrapping: shift the input by
@@ -94,6 +120,6 @@ def pbs_bit_to_level(lwe_small: torch.Tensor, bsk: torch.Tensor,
     acc = torch.zeros((p.glwe_dimension + 1, p.polynomial_size),
                       dtype=torch.int64, device=lwe_small.device)
     acc[-1] = wrap(-half)
-    out = sample_extract0(blind_rotate_glwe(shifted, bsk, acc, p))
+    out = sample_extract0(blind_rotate_glwe(shifted, bsk, acc, p, lowering))
     out[..., -1] += half
     return out

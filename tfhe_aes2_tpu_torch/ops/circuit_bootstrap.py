@@ -6,7 +6,10 @@ blind rotation); the multivalued LUT is then evaluated with a CMux tree over
 packed LUT polynomials and a CMux-rotation stage, one polynomial per output
 bit. Every vertical-packing CMux is one launch of kernel K3, with the lane's
 selector GGSW shared by its accumulators (the JAX package's pair-mode stage
-loop, tfhe_aes2_tpu/ops/circuit_bootstrap.py:154-198, on int64).
+loop, tfhe_aes2_tpu/ops/circuit_bootstrap.py:154-198, on int64) — or, under
+`Lowering.vp == "partials"`, one launch of kernel K8 and the recombination
+of its int32 partial sums in torch (the JAX package's TFHE_VP_FUSED=0 stage,
+circuit_bootstrap.py:200-253).
 """
 
 from __future__ import annotations
@@ -20,11 +23,13 @@ from tfhe_aes2_tpu_torch.ops import keyswitch as ks
 from tfhe_aes2_tpu_torch.ops import polynomial, torus
 from tfhe_aes2_tpu_torch.ops.keys import PreparedServerKeys
 from tfhe_aes2_tpu_torch.ops.kernels import extprod
+from tfhe_aes2_tpu_torch.ops.lowering import Lowering
 from tfhe_aes2_tpu_torch.ops.params import WopbsParams
 
 
 def circuit_bootstrap_bits(bits_big: torch.Tensor, sks: PreparedServerKeys,
-                           params: WopbsParams) -> torch.Tensor:
+                           params: WopbsParams,
+                           lowering: Lowering = Lowering()) -> torch.Tensor:
     """LWE bits [..., kN+1] (bit at 2^63, big key) -> GGSW
     [..., L, k+1, k+1, N]: big->small keyswitch, then per cbs level a
     scaling PBS and the k+1 pfKS that assemble the GGSW rows."""
@@ -32,7 +37,8 @@ def circuit_bootstrap_bits(bits_big: torch.Tensor, sks: PreparedServerKeys,
     dual = ks.keyswitch(bits_big, sks.ksk, p)
     rows = []
     for j in range(p.cbs_level):
-        lwe_j = br.pbs_bit_to_level(dual, sks.bsk, p.cbs_base_log * (j + 1), p)
+        lwe_j = br.pbs_bit_to_level(dual, sks.bsk, p.cbs_base_log * (j + 1), p,
+                                    lowering)
         rows.append(ks.pfks_all(lwe_j, sks.pfpksk, p))     # [..., k+1, k+1, N]
     return torch.stack(rows, dim=-4)
 
@@ -64,12 +70,14 @@ def generate_lut(input_bits: int, output_bits: int, f,
 
 
 def vertical_packing(ggsw: torch.Tensor, luts: torch.Tensor,
-                     params: WopbsParams, vp_js: int) -> torch.Tensor:
+                     params: WopbsParams, vp_js: int,
+                     lowering: Lowering = Lowering()) -> torch.Tensor:
     """Evaluate the packed LUTs under the GGSW-encrypted selector bits.
 
     ggsw:  [..., T, L, k+1, k+1, N] int64, T selector bits, MSB first;
     luts:  [O, P, N] int64 clear LUT polynomials (shared by the batch);
-    vp_js: GGSW limb planes dropped by K3 (keys.PreparedServerKeys.vp_js).
+    vp_js: GGSW limb planes dropped by K3/K8 (keys.PreparedServerKeys.vp_js);
+    lowering: its `vp` picks K3 or K8 + recombination for the CMux stages.
     returns LWE [..., O, kN+1], one ct per output bit.
     """
     p = params
@@ -85,16 +93,24 @@ def vertical_packing(ggsw: torch.Tensor, luts: torch.Tensor,
     k1 = p.glwe_dimension + 1
     n_d = torus.limbs_for_bound(decomposition.digit_bound(p.cbs_base_log))
 
-    # per selector bit: K3's ext planes [B, O, R, 8-js, 2N]
+    partials = lowering.vp == "partials"
     rows = ggsw_to_rows(ggsw.reshape((b_flat, t) + ggsw.shape[-4:]))
     planes = extprod.split_polys_ext(rows)[vp_js:]         # [8-js, B, T, R, O, 2N]
-    planes = planes.permute(2, 1, 4, 3, 0, 5).contiguous()  # [T, B, O, R, 8-js, 2N]
+    if partials:                      # per bit, K8's [8-js, B, R, O, 2N]
+        planes = planes.permute(2, 0, 1, 3, 4, 5).contiguous()
+    else:                             # per bit, K3's [B, O, R, 8-js, 2N]
+        planes = planes.permute(2, 1, 4, 3, 0, 5).contiguous()
 
     def cmux(bit_idx: int, ct0: torch.Tensor, ct1: torch.Tensor):
         diff = ct1 - ct0                                   # [B, G..., k+1, N]
         digits = br.decompose_glwe(diff, p.cbs_base_log, p.cbs_level)
         d4 = digits.reshape((b_flat, -1) + digits.shape[-2:])  # [B, G, R, N]
         dig = torus.split_int32_signed(d4, n_d)            # [n_d, B, G, R, N]
+        if partials:
+            parts = extprod.extprod_partials_grouped(dig, planes[bit_idx],
+                                                     vp_js)  # [8, B, G, O, N]
+            out = polynomial.recombine_partials(parts, vp_js)
+            return ct0 + out.reshape(diff.shape)
         g = dig.shape[2]
         dig = dig.permute(1, 3, 0, 2, 4).reshape(b_flat, -1, n_d * g, n)
         out = extprod.extprod_grouped_fused(dig.contiguous(), planes[bit_idx],
@@ -118,8 +134,10 @@ def vertical_packing(ggsw: torch.Tensor, luts: torch.Tensor,
 def circuit_bootstrap_vertical_packing(bits_big: torch.Tensor,
                                        luts: torch.Tensor,
                                        sks: PreparedServerKeys,
-                                       params: WopbsParams) -> torch.Tensor:
+                                       params: WopbsParams,
+                                       lowering: Lowering = Lowering()
+                                       ) -> torch.Tensor:
     """Full WoP-PBS: input bits [..., T, kN+1] (MSB first) + LUTs [O, P, N]
     -> output bits [..., O, kN+1]."""
-    ggsw = circuit_bootstrap_bits(bits_big, sks, params)
-    return vertical_packing(ggsw, luts, params, sks.vp_js)
+    ggsw = circuit_bootstrap_bits(bits_big, sks, params, lowering)
+    return vertical_packing(ggsw, luts, params, sks.vp_js, lowering)

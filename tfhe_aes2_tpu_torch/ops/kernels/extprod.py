@@ -1,4 +1,5 @@
-"""K1-K3: the negacirculant external-product kernels and their plain versions.
+"""K1-K3, K5-K8: the negacirculant external-product kernels and their plain
+versions.
 
 K1 `extprod_step2g` — one whole blind-rotate CMux step (dots + recombine +
    the next step's glue). Replaces the Pallas kernel
@@ -8,6 +9,18 @@ K2 `rot_diff_digits` — the glue alone, for step 0. Replaces
 K3 `extprod_grouped_fused` — the vertical-packing external product (one
    selector GGSW per lane, shared by its G accumulators). Replaces
    extprod.py::extprod_grouped_fused; source csrc/vp.cu.
+K5 `extprod_step2` — K1 without the glue: dots + recombine into the
+   accumulator in place, so that K2 + K5 is K1 taken apart. Replaces
+   extprod.py::extprod_step2; source csrc/step.cu.
+K6 `extprod_step` — the same update on batch-major layouts (glue done
+   outside the kernel), into a new tensor. Replaces extprod.py::extprod_step;
+   source csrc/step.cu.
+K7 `extprod_partials` — the shared-key product over all 8 key planes as raw
+   int32 sums per weight 2^(8s). Replaces extprod.py::extprod_partials;
+   source csrc/partials.cu.
+K8 `extprod_partials_grouped` — the per-lane product of the vertical packing
+   as raw int32 sums. Replaces extprod.py::extprod_partials_grouped; source
+   csrc/partials.cu.
 
 What bounds them on the H100 is int8 operations (K1 at 256 lanes: ~5.5e10
 multiply-adds a step on ~15 MB of operands). This first version runs the
@@ -21,6 +34,9 @@ Layouts (int64 torus values; the TPU's (lo, hi) u32 pairs do not exist):
   dig    int8  [k+1, L, n_d, B, N]   digit limb planes, row r = u·L + l
   ext_or int8  [O, R, 8-js, 2N]      one BSK entry's limb planes of [p, -p]
   acc    int64 [O, B, N]             the component-major accumulator
+K6-K8 keep the TPU kernels' batch-major operand layouts (each wrapper's
+docstring), read by the kernels through their own strides; only K6's key
+operand differs: it is ext_or, the prepared BSK entry, not a transposed key.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. `launches` counts kernel launches only.
@@ -115,11 +131,8 @@ def extprod_step2g_plain(dig, ext_or, acc, t_next, base_log: int,
                          levels: int, j_start: int):
     """acc += Σ_r dig[r] ⊛ BSK rows (limb planes j >= j_start), in place;
     returns (acc, digits of X^t_next·acc - acc)."""
-    k1, lv, n_d, b, n = dig.shape
-    dig_planes = dig.reshape(k1 * lv, n_d, b, n).permute(1, 2, 0, 3)[:, None]
-    ext = ext_or.permute(1, 0, 2, 3)[None]                # [1, R, O, NJ, 2N]
-    acc += polynomial.nc_limb_product(dig_planes, ext, j_start)[0].permute(
-        1, 0, 2)
+    n_d = dig.shape[2]
+    acc = extprod_step2_plain(dig, ext_or, acc, j_start)
     return acc, rot_diff_digits_plain(acc, t_next, base_log, levels, n_d)
 
 
@@ -199,6 +212,171 @@ def extprod_grouped_fused(dig: torch.Tensor, ext: torch.Tensor, n_d: int,
 
 
 extprod_grouped_fused.launches = 0
+
+
+# ------------------------------------------- K5 the CMux step without glue
+
+def extprod_step2_plain(dig, ext_or, acc, j_start: int):
+    """acc += Σ_r dig[r] ⊛ BSK rows (limb planes j >= j_start), in place."""
+    k1, lv, n_d, b, n = dig.shape
+    dig_planes = dig.reshape(k1 * lv, n_d, b, n).permute(1, 2, 0, 3)[:, None]
+    ext = ext_or.permute(1, 0, 2, 3)[None]                # [1, R, O, NJ, 2N]
+    acc += polynomial.nc_limb_product(dig_planes, ext, j_start)[0].permute(
+        1, 0, 2)
+    return acc
+
+
+def extprod_step2(dig: torch.Tensor, ext_or: torch.Tensor, acc: torch.Tensor,
+                  j_start: int) -> torch.Tensor:
+    """K5. dig int8 [k+1, L, n_d, B, N] (K2's output); ext_or int8
+    [O, R, 8-js, 2N]; acc int64 [O, B, N], updated in place (the TPU kernel
+    aliases it) and returned."""
+    k1, lv, n_d, b, n = dig.shape
+    o, r, nj, two_n = ext_or.shape
+    if (o != k1 or r != k1 * lv or nj != 8 - j_start or two_n != 2 * n
+            or acc.shape != (o, b, n)):
+        raise ValueError(
+            f"extprod_step2: shapes dig {tuple(dig.shape)}, ext_or "
+            f"{tuple(ext_or.shape)}, acc {tuple(acc.shape)} "
+            f"(j_start={j_start})")
+    if _on_cpu(dig, ext_or, acc):
+        return extprod_step2_plain(dig, ext_or, acc, j_start)
+    _check_geometry("extprod_step2", n, n_d, r, j_start)
+    _require_cuda("extprod_step2", [(dig, torch.int8), (ext_or, torch.int8),
+                                    (acc, torch.int64)])
+    f = _fn("step", "tfhe_extprod_step2", [_P] * 3 + [_I] * 6 + [_P])
+    rc = f(dig.data_ptr(), ext_or.data_ptr(), acc.data_ptr(), b, n, o, r,
+           n_d, j_start, build.stream_ptr(acc.device))
+    build.check(rc, "extprod_step2")
+    extprod_step2.launches += 1
+    return acc
+
+
+extprod_step2.launches = 0
+
+
+# ------------------------------------ K6 the CMux update, batch-major
+
+def extprod_step_plain(digit_planes, ext_or, acc, j_start: int):
+    """acc + Σ_r digits[r] ⊛ BSK rows, a new tensor."""
+    prod = polynomial.nc_limb_product(
+        digit_planes[:, None], ext_or.permute(1, 0, 2, 3)[None], j_start)
+    return acc + prod[0]
+
+
+def extprod_step(digit_planes: torch.Tensor, ext_or: torch.Tensor,
+                 acc: torch.Tensor, j_start: int) -> torch.Tensor:
+    """K6. digit_planes int8 [n_d, B, R, N]; ext_or int8 [O, R, 8-js, 2N]
+    (the prepared BSK entry, where the TPU kernel takes [8-js, R, O, 2N]);
+    acc int64 [B, O, N], left untouched -> new acc int64 [B, O, N]."""
+    n_d, b, r, n = digit_planes.shape
+    o, r2, nj, two_n = ext_or.shape
+    if (r2 != r or two_n != 2 * n or nj != 8 - j_start
+            or acc.shape != (b, o, n)):
+        raise ValueError(
+            f"extprod_step: shapes digit_planes {tuple(digit_planes.shape)}, "
+            f"ext_or {tuple(ext_or.shape)}, acc {tuple(acc.shape)} "
+            f"(j_start={j_start})")
+    if _on_cpu(digit_planes, ext_or, acc):
+        return extprod_step_plain(digit_planes, ext_or, acc, j_start)
+    _check_geometry("extprod_step", n, n_d, r, j_start)
+    _require_cuda("extprod_step", [(digit_planes, torch.int8),
+                                   (ext_or, torch.int8), (acc, torch.int64)])
+    out = torch.empty_like(acc)
+    f = _fn("step", "tfhe_extprod_step", [_P] * 4 + [_I] * 6 + [_P])
+    rc = f(digit_planes.data_ptr(), ext_or.data_ptr(), acc.data_ptr(),
+           out.data_ptr(), b, n, o, r, n_d, j_start,
+           build.stream_ptr(acc.device))
+    build.check(rc, "extprod_step")
+    extprod_step.launches += 1
+    return out
+
+
+extprod_step.launches = 0
+
+
+# ------------------------------------------ K7 the shared-key partial sums
+
+def extprod_partials_plain(digit_planes, ext_planes):
+    """int32 [8, B, O, N] partial sums by weight 2^(8s)."""
+    return polynomial.nc_limb_partials(
+        digit_planes[:, None], ext_planes.permute(1, 2, 0, 3)[None], 0)[:, 0]
+
+
+def extprod_partials(digit_planes: torch.Tensor,
+                     ext_planes: torch.Tensor) -> torch.Tensor:
+    """K7. digit_planes int8 [n_d, B, R, N]; ext_planes int8 [8, R, O, 2N]
+    (all 8 limb planes of ext = [p, -p]) -> int32 [8, B, O, N]: row s sums
+    the pairs i + j = s; pairs with i + j >= 8 vanish mod 2^64 and are
+    dropped, so `polynomial.recombine_partials` of the result is the exact
+    product."""
+    n_d, b, r, n = digit_planes.shape
+    nj, r2, o, two_n = ext_planes.shape
+    if r2 != r or two_n != 2 * n or nj != 8:
+        raise ValueError(
+            f"extprod_partials: shapes digit_planes "
+            f"{tuple(digit_planes.shape)}, ext_planes "
+            f"{tuple(ext_planes.shape)} (all 8 key planes are taken)")
+    if _on_cpu(digit_planes, ext_planes):
+        return extprod_partials_plain(digit_planes, ext_planes)
+    # all 8 key planes make up to 8·n_d pairs (i, j), but a bucket s still
+    # takes at most n_d of them (one per i), which is _check_geometry's bound
+    _check_geometry("extprod_partials", n, n_d, r, 0)
+    _require_cuda("extprod_partials", [(digit_planes, torch.int8),
+                                       (ext_planes, torch.int8)])
+    out = torch.empty((8, b, o, n), dtype=torch.int32,
+                      device=digit_planes.device)
+    f = _fn("partials", "tfhe_extprod_partials", [_P] * 3 + [_I] * 5 + [_P])
+    rc = f(digit_planes.data_ptr(), ext_planes.data_ptr(), out.data_ptr(), b,
+           n, o, r, n_d, build.stream_ptr(out.device))
+    build.check(rc, "extprod_partials")
+    extprod_partials.launches += 1
+    return out
+
+
+extprod_partials.launches = 0
+
+
+# ----------------------------------- K8 the vertical-packing partial sums
+
+def extprod_partials_grouped_plain(digit_planes, ext_planes, j_start: int):
+    """int32 [8, B, G, O, N] partial sums; rows s < j_start are zero."""
+    return polynomial.nc_limb_partials(
+        digit_planes, ext_planes.permute(1, 2, 3, 0, 4), j_start)
+
+
+def extprod_partials_grouped(digit_planes: torch.Tensor,
+                             ext_planes: torch.Tensor,
+                             j_start: int) -> torch.Tensor:
+    """K8. digit_planes int8 [n_d, B, G, R, N] (lane b's G accumulators);
+    ext_planes int8 [8-js, B, R, O, 2N] (lane b's GGSW row limb planes)
+    -> int32 [8, B, G, O, N] partial sums by weight 2^(8s); the rows
+    s < j_start are zeros (the kernel writes them)."""
+    n_d, b, g, r, n = digit_planes.shape
+    nj, b2, r2, o, two_n = ext_planes.shape
+    if (b2, r2, two_n) != (b, r, 2 * n) or nj != 8 - j_start:
+        raise ValueError(
+            f"extprod_partials_grouped: shapes digit_planes "
+            f"{tuple(digit_planes.shape)}, ext_planes "
+            f"{tuple(ext_planes.shape)}, j_start={j_start}")
+    if _on_cpu(digit_planes, ext_planes):
+        return extprod_partials_grouped_plain(digit_planes, ext_planes,
+                                              j_start)
+    _check_geometry("extprod_partials_grouped", n, n_d, r, j_start)
+    _require_cuda("extprod_partials_grouped",
+                  [(digit_planes, torch.int8), (ext_planes, torch.int8)])
+    out = torch.empty((8, b, g, o, n), dtype=torch.int32,
+                      device=digit_planes.device)
+    f = _fn("partials", "tfhe_extprod_partials_grouped",
+            [_P] * 3 + [_I] * 7 + [_P])
+    rc = f(digit_planes.data_ptr(), ext_planes.data_ptr(), out.data_ptr(), b,
+           g, n, o, r, n_d, j_start, build.stream_ptr(out.device))
+    build.check(rc, "extprod_partials_grouped")
+    extprod_partials_grouped.launches += 1
+    return out
+
+
+extprod_partials_grouped.launches = 0
 
 
 def split_polys_ext(polys: torch.Tensor) -> torch.Tensor:

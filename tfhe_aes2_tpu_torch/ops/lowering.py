@@ -1,0 +1,64 @@
+"""Which kernels the blind rotation and the vertical packing run.
+
+Every lowering computes the same exact mod-2^64 arithmetic over the same
+kept limb planes, so all give bit-equal ciphertexts; they differ in how the
+work is cut into launches. The names follow the JAX package's environment
+switches (tfhe_aes2_tpu/ops/blind_rotate.py, ops/pallas/extprod.py), which
+`Lowering.from_env` reads so that one setting selects the counterpart
+schedule in both packages:
+
+  br  "gridg"     K2 once, then K1 per step (dots + recombine + the next
+                  step's glue in one launch); TFHE_BR_KERNEL=gridg, default
+      "grid"      K2 then K5 per step (glue and dots as two launches);
+                  TFHE_BR_KERNEL=grid
+      "glue_out"  rotate, subtract, decompose and split in plain torch, then
+                  K6 per step on batch-major layouts; TFHE_BR_GLUE=xla
+  vp  "fused"     K3 per CMux stage (u64 recombination in the kernel);
+                  default
+      "partials"  K8 per CMux stage (int32 partial sums), recombined in
+                  torch; TFHE_VP_FUSED=0
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+BR_CHOICES = ("gridg", "grid", "glue_out")
+VP_CHOICES = ("fused", "partials")
+# the JAX package's TFHE_BR_KERNEL values whose kernels the port lacks
+_BR_UNPORTED = ("merged", "longk", "bucket")
+
+
+@dataclass(frozen=True)
+class Lowering:
+    br: str = "gridg"
+    vp: str = "fused"
+
+    def __post_init__(self):
+        if self.br not in BR_CHOICES:
+            raise ValueError(f"Lowering.br {self.br!r} not in {BR_CHOICES}")
+        if self.vp not in VP_CHOICES:
+            raise ValueError(f"Lowering.vp {self.vp!r} not in {VP_CHOICES}")
+
+    @classmethod
+    def from_env(cls) -> "Lowering":
+        """The lowering the JAX package would run under the same
+        TFHE_BR_GLUE / TFHE_BR_KERNEL / TFHE_VP_FUSED. As there,
+        TFHE_BR_GLUE=xla takes the blind rotation whatever TFHE_BR_KERNEL
+        says."""
+        env = os.environ
+        kernel = env.get("TFHE_BR_KERNEL", "gridg")
+        if env.get("TFHE_BR_GLUE", "pallas") == "xla":
+            br = "glue_out"
+        elif kernel in _BR_UNPORTED:
+            raise ValueError(
+                f"TFHE_BR_KERNEL={kernel} is not ported yet (ROADMAP.md "
+                "Queue 2: K9 merged, K10a/K10b longk, K11 bucket)")
+        elif kernel in ("gridg", "grid"):
+            br = kernel
+        else:
+            raise ValueError(f"TFHE_BR_KERNEL={kernel!r} is not a schedule "
+                             "of the blind rotation")
+        vp = "partials" if env.get("TFHE_VP_FUSED", "1") == "0" else "fused"
+        return cls(br=br, vp=vp)

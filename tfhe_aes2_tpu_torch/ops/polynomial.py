@@ -4,8 +4,10 @@ A product a ⊛ b is a matrix product of a's coefficients with the
 negacirculant of b: NC(b)[j, m] = ext[(m - j) mod 2N] with ext = [b, -b], so
 (a ⊛ b)[m] = Σ_j a[j]·NC(b)[j, m]. The kernels (ops/kernels/extprod.py)
 never materialise NC: they index the 2N-entry ext row on chip.
-`nc_limb_product` here is the plain truth for K1-K3: the same function in
-float64 matrix products, used by the kernels' plain versions.
+`nc_limb_product` here is the plain truth for K1, K3, K5 and K6: the same
+function in float64 matrix products, used by the kernels' plain versions;
+`nc_limb_partials` is the same contraction left as one int32 sum per weight
+2^(8s), the plain truth for K7 and K8.
 
 Monomial multiplications (the rotations of blind rotation and vertical
 packing) are index gathers on ext.
@@ -51,9 +53,10 @@ def monomial_mul(polys: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.gather(ext, -1, idx)
 
 
-def nc_limb_product(dig_planes: torch.Tensor, ext_planes: torch.Tensor,
-                    j_start: int) -> torch.Tensor:
-    """Plain truth of the negacirculant limb-plane contraction of K1-K3.
+def nc_limb_partials(dig_planes: torch.Tensor, ext_planes: torch.Tensor,
+                     j_start: int) -> torch.Tensor:
+    """Plain truth of the negacirculant limb-plane contraction, as the raw
+    partial sums of K7/K8.
 
     dig_planes: int8 [n_d, S, G, R, N], the balanced limb planes of gadget
                 digits (plane i weighs 2^(8i)) for G accumulators in each
@@ -61,8 +64,51 @@ def nc_limb_product(dig_planes: torch.Tensor, ext_planes: torch.Tensor,
     ext_planes: int8 [S, R, O, 8 - j_start, 2N], limb planes j_start..7 of
                 ext = [p, -p] for each row r and output component o, shared
                 by the G accumulators of a group;
-    -> int64 [S, G, O, N] = Σ_{i,j} 2^(8(i+j)) Σ_r dig_i[r] ⊛ plane_j[r, o]
-       mod 2^64.
+    -> int32 [8, S, G, O, N], row s = Σ_{i + j = s} Σ_r dig_i[r] ⊛ plane_j[r, o];
+       pairs with i + j >= 8 vanish mod 2^64 and are not formed, and rows
+       s < j_start are zero.
+
+    Float64 products of int8 entries are exact, and each sum must fit the
+    kernels' int32 buckets: at most n_d pairs (i, j) share a weight, each
+    of R·N products of at most 2^14; the check below refuses anything
+    longer.
+    """
+    n_d, s_cnt, g, r, n = dig_planes.shape
+    if ext_planes.shape[:2] != (s_cnt, r) or ext_planes.shape[-1] != 2 * n:
+        raise ValueError(f"shape mismatch {tuple(dig_planes.shape)} vs "
+                         f"{tuple(ext_planes.shape)}")
+    o_cnt, n_j = ext_planes.shape[2:4]
+    if n_d * r * n * (1 << 14) >= 1 << 31:
+        raise ValueError("contraction too long for int32 partial sums")
+    digits = dig_planes.to(torch.float64).reshape(n_d, s_cnt, g, r * n)
+    idx = nc_index(n, dig_planes.device)
+    parts = torch.zeros((8, s_cnt, g, o_cnt, n), dtype=torch.int32,
+                        device=dig_planes.device)
+    for o in range(o_cnt):
+        for jj in range(n_j):
+            ext = ext_planes[:, :, o, jj].to(torch.float64)  # [S, R, 2N]
+            nc = ext[..., idx].reshape(s_cnt, r * n, n)      # [S, R·N, N]
+            for i in range(min(n_d, 8 - j_start - jj)):
+                prod = torch.bmm(digits[i], nc).to(torch.int32)  # [S, G, N]
+                parts[i + j_start + jj, :, :, o] += prod
+    return parts
+
+
+def recombine_partials(parts: torch.Tensor, j_start: int = 0) -> torch.Tensor:
+    """int32 [8, ...] partial sums by weight 2^(8s) -> int64 [...]:
+    Σ_{s >= j_start} sext(parts[s]) << 8s, wrapping mod 2^64."""
+    out = parts[j_start].to(torch.int64) << (8 * j_start)
+    for s in range(j_start + 1, 8):
+        out += parts[s].to(torch.int64) << (8 * s)
+    return out
+
+
+def nc_limb_product(dig_planes: torch.Tensor, ext_planes: torch.Tensor,
+                    j_start: int) -> torch.Tensor:
+    """Plain truth of the contraction of K1, K3, K5 and K6: operands as for
+    `nc_limb_partials` -> int64 [S, G, O, N] =
+    Σ_{i,j} 2^(8(i+j)) Σ_r dig_i[r] ⊛ plane_j[r, o] mod 2^64, equal to those
+    partial sums folded by `recombine_partials`.
 
     Float64 limb products are exact below 2^53: the recombined digit is
     below 2^(8·n_d - 1) in magnitude, a key plane entry at most 2^7, and
