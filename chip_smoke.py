@@ -5,14 +5,19 @@
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. device and build: the card's name and power limit, the nvcc build of
      every kernel from tfhe_aes2_tpu_torch/csrc/;
-  2. kernel checks: K1-K8 at their PARAMS_SQRD_LVL_64 main-path shapes,
+  2. kernel checks: K1-K11 at their PARAMS_SQRD_LVL_64 main-path shapes,
      each held bit-for-bit against its plain PyTorch version on the card,
      with median times (50 launches for kernels under 0.2 ms) and each
-     kernel's bound; and two cross-checks: K7's partial sums recombined
-     equal K6's update, and K2 then K5 equals K1;
+     kernel's bound; and the cross-checks: K7's partial sums recombined
+     equal K6's update, K2 then K5 equals K1, and one step of each of the
+     schedules `merged` (K9), `longk` (K10a then K10b) and `bucket` (K2 then
+     K11) equals K2 then K5, at B in {9, 128, 160, 256, 288};
   3. fast end-to-end runs at PARAMS_TEST (2 rounds), decrypt-verified: the
      default lowering, then ("glue_out", "partials") with a compressed
-     response;
+     response, then the keystream server as a second OS process on the card
+     (`python -m tfhe_aes2_tpu_torch.serve` under TFHE_BR_KERNEL=merged,
+     loading a saved key bundle) answering one request whose two blocks it
+     derives homomorphically from one uploaded block;
   4. the full-width run at PARAMS_SQRD_LVL_64 under the default lowering:
      seeded keygen, 2 CTR blocks through key_schedule_staged +
      encrypt_blocks_staged (10 rounds), then 1 block through
@@ -27,27 +32,46 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      keystream; then one 160-lane blind rotation under "glue_out" (torch
      glue + K6 per step), bit-equal to the default schedule's, with K7 as
      K6's reference on that rotation's own operands. Launch counters reset
-     and read around each.
+     and read around each;
+  6. the third path at full width: the keystream server on phase 4's keys,
+     saved to a bundle and loaded back (ops/serialization.py), serving on a
+     thread of this process under Lowering("merged") so that the launch
+     counters can be read. Request (a), phase 4's own encrypted key and
+     single block: a fresh key, so the latency path, whose compressed answer
+     must be byte-equal to the default lowering's; request (b), the same key
+     with fhe_counter_count=2: an expanded-key cache hit, one homomorphic
+     counter increment, ten rounds on the two derived blocks. Both decrypt
+     to the AES authority's keystream. Then the counter derivation alone
+     under the default, "longk" and "bucket" lowerings, bit-equal. Launch
+     counters reset and read around each request and each derivation.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or tfhe_aes2_tpu.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from tfhe_aes2_tpu_torch.aes_128 import aes_lib, fhe, plain, scenario
+from tfhe_aes2_tpu_torch import serve
+from tfhe_aes2_tpu_torch.aes_128 import aes_lib, ctr_fhe, fhe, plain, scenario
 from tfhe_aes2_tpu_torch.models import shortint_woppbs_1bit as model
-from tfhe_aes2_tpu_torch.ops import blind_rotate, decomposition, polynomial
+from tfhe_aes2_tpu_torch.ops import blind_rotate, compression, decomposition
+from tfhe_aes2_tpu_torch.ops import keys as keys_mod
 from tfhe_aes2_tpu_torch.ops import params as params_mod
-from tfhe_aes2_tpu_torch.ops import torus, truncation
+from tfhe_aes2_tpu_torch.ops import polynomial, serialization, torus, truncation
 from tfhe_aes2_tpu_torch.ops.lowering import Lowering
 from tfhe_aes2_tpu_torch.ops.kernels import build
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
@@ -86,7 +110,21 @@ KERNELS = {
         fn=kx.extprod_partials_grouped,
         source="tfhe_aes2_tpu_torch/csrc/partials.cu",
         replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:1071"),
+    "cmux_step_merged": dict(
+        fn=kx.cmux_step_merged, source="tfhe_aes2_tpu_torch/csrc/merged.cu",
+        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:737"),
+    "rot_diff_digits_flat": dict(
+        fn=kx.rot_diff_digits_flat,
+        source="tfhe_aes2_tpu_torch/csrc/longk.cu",
+        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:807"),
+    "extprod_step_longk": dict(
+        fn=kx.extprod_step_longk, source="tfhe_aes2_tpu_torch/csrc/longk.cu",
+        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:892"),
+    "extprod_step3": dict(
+        fn=kx.extprod_step3, source="tfhe_aes2_tpu_torch/csrc/bucket.cu",
+        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:988"),
 }
+ROOT = Path(__file__).resolve().parent
 STRATEGY = fhe.ShortintWoppbs1BitSboxGalMulPbsAesEncrypt
 
 
@@ -173,14 +211,93 @@ def phase_device() -> str:
     t0 = time.time()
     build.build_all()
     log(f"kernel build: {time.time() - t0:.1f} s (nvcc, sm_90a)")
-    spills = [ln for ln in build.ptxas_report().splitlines()
+    report = build.ptxas_report().splitlines()
+    spills = [report[i - 1].split("'")[1] if i and "'" in report[i - 1]
+              else ln for i, ln in enumerate(report)
               if "spill" in ln and " 0 bytes spill" not in ln]
-    log(f"ptxas: {len(spills)} kernel instantiations report spills")
+    log(f"ptxas: {len(spills)} kernel instantiations report spills"
+        + "".join(f"\n  {name}" for name in spills))
     return smi
 
 
+def check_step_schedules(rows: dict, b: int, acc, t, ext, js: int, nd: int):
+    """K9, K10a, K10b and K11 at batch b against their plain versions, and
+    one step of `merged`, `longk` and `bucket` against K2 then K5 on the
+    same accumulator, mask element and BSK entry; then each step timed as
+    its schedule runs it."""
+    lv, bl = P.pbs_level, P.pbs_base_log
+    k1, _, n = acc.shape
+    r = k1 * lv
+    macs = b * k1 * r * n * n * pairs(nd, js)
+    dig = kx.rot_diff_digits(acc, t, bl, lv, nd)
+    want = kx.extprod_step2(dig, ext, acc.clone(), js)
+    scratch = acc.clone()
+    # K9: the digits never leave the chip, so its bytes lose them
+    got = kx.cmux_step_merged(t, ext, acc, bl, lv, js)
+    ref = kx.cmux_step_merged_plain(t, ext, acc, bl, lv, js)
+    sync()
+    err = max_abs_err(got, ref)
+    if not torch.equal(got, want):
+        raise AssertionError(f"K9 differs from K2 then K5 at B={b}")
+    merged_ms = time_ms(lambda: kx.cmux_step_merged(t, ext, scratch, bl, lv,
+                                                    js))
+    pms = time_ms(lambda: kx.cmux_step_merged_plain(t, ext, scratch, bl, lv,
+                                                    js), reps=2)
+    record(f"cmux_step_merged B={b}", rows["cmux_step_merged"], macs,
+           ext.numel() + acc.numel() * 16 + b * 4, merged_ms, pms, err)
+    # K10a, then K10b on its output
+    flat = kx.rot_diff_digits_flat(acc, t, bl, lv, nd)
+    ref = kx.rot_diff_digits_flat_plain(acc, t, bl, lv, nd)
+    sync()
+    err = max_abs_err(flat, ref)
+    ms = time_ms(lambda: kx.rot_diff_digits_flat(acc, t, bl, lv, nd))
+    pms = time_ms(lambda: kx.rot_diff_digits_flat_plain(acc, t, bl, lv, nd),
+                  reps=2)
+    record(f"rot_diff_digits_flat B={b}", rows["rot_diff_digits_flat"], 0,
+           acc.numel() * 8 + flat.numel() + b * 4, ms, pms, err)
+    got = kx.extprod_step_longk(flat, ext, acc.clone(), js)
+    ref = kx.extprod_step_longk_plain(flat, ext, acc.clone(), js)
+    sync()
+    err = max_abs_err(got, ref)
+    if not torch.equal(got, want):
+        raise AssertionError(f"K10b after K10a differs from K2 then K5 at "
+                             f"B={b}")
+    ms = time_ms(lambda: kx.extprod_step_longk(flat, ext, scratch, js))
+    pms = time_ms(lambda: kx.extprod_step_longk_plain(flat, ext, scratch, js),
+                  reps=2)
+    record(f"extprod_step_longk B={b}", rows["extprod_step_longk"], macs,
+           flat.numel() + ext.numel() + acc.numel() * 16, ms, pms, err)
+    longk_ms = time_ms(lambda: kx.extprod_step_longk(
+        kx.rot_diff_digits_flat(scratch, t, bl, lv, nd), ext, scratch, js))
+    # K11 on K2's output
+    got = kx.extprod_step3(dig, ext, acc.clone(), js)
+    ref = kx.extprod_step3_plain(dig, ext, acc.clone(), js)
+    sync()
+    err = max_abs_err(got, ref)
+    if not torch.equal(got, want):
+        raise AssertionError(f"K11 after K2 differs from K2 then K5 at B={b}")
+    ms = time_ms(lambda: kx.extprod_step3(dig, ext, scratch, js))
+    pms = time_ms(lambda: kx.extprod_step3_plain(dig, ext, scratch, js),
+                  reps=2)
+    record(f"extprod_step3 B={b}", rows["extprod_step3"], macs,
+           dig.numel() + ext.numel() + acc.numel() * 16, ms, pms, err)
+    bucket_ms = time_ms(lambda: kx.extprod_step3(
+        kx.rot_diff_digits(scratch, t, bl, lv, nd), ext, scratch, js))
+    grid_ms = time_ms(lambda: kx.extprod_step2(
+        kx.rot_diff_digits(scratch, t, bl, lv, nd), ext, scratch, js))
+    k1_ms = time_ms(lambda: kx.extprod_step2g(dig, ext, scratch, t, bl, lv,
+                                              js))
+    log(f"    one CMux step at B={b}: gridg (K1) {k1_ms:.4f} ms, grid (K2 "
+        f"then K5) {grid_ms:.4f} ms, merged (K9) {merged_ms:.4f} ms, longk "
+        f"(K10a then K10b) {longk_ms:.4f} ms, bucket (K2 then K11) "
+        f"{bucket_ms:.4f} ms; all equal K2 then K5")
+    rows["cmux_step_merged"][-1]["step_ms"] = dict(
+        gridg=k1_ms, grid=grid_ms, merged=merged_ms, longk=longk_ms,
+        bucket=bucket_ms)
+
+
 def phase_kernels() -> dict:
-    """K1-K8 at main-path shapes vs their plain versions, and the two
+    """K1-K11 at main-path shapes vs their plain versions, and the
     cross-checks between kernels; returns every measurement by kernel."""
     log("== phase 2: kernel checks at PARAMS_SQRD_LVL_64 shapes")
     gen = torch.Generator().manual_seed(1234)
@@ -190,11 +307,15 @@ def phase_kernels() -> dict:
     js = truncation.bsk_j_start(P)
     rows: dict[str, list] = {k: [] for k in KERNELS}
 
-    for b in (128, 160, 256, 288):
+    for b in (9, 128, 160, 256, 288):     # 9: one byte of the CTR counter
         acc = torch.randint(-2**62, 2**62, (k1, b, n), generator=gen,
                             dtype=torch.int64).to(DEV)
         t = torch.randint(0, 2 * n, (b,), generator=gen,
                           dtype=torch.int32).to(DEV)
+        if b == 9:
+            check_step_schedules(rows, b, acc, t, rand_i8(
+                gen, (k1, r, 8 - js, 2 * n)), js, nd)
+            continue
         # K2
         got = kx.rot_diff_digits(acc, t, P.pbs_base_log, lv, nd)
         ref = kx.rot_diff_digits_plain(acc, t, P.pbs_base_log, lv, nd)
@@ -260,8 +381,10 @@ def phase_kernels() -> dict:
                       reps=2)
         record(f"extprod_step B={b}", rows["extprod_step"], macs,
                dig.numel() + ext.numel() + acc.numel() * 16, ms, pms, err)
+        check_step_schedules(rows, b, acc, t, ext, js, nd)
     log("  cross-check: K2 then K5 == K1, and K6 == K1's accumulator, at "
-        "every B")
+        "every B >= 128; K9 == K10b after K10a == K11 after K2 == K5 after "
+        "K2 at every B")
 
     # K7 at B=288: all 8 key planes (js=0); with the planes the BSK drops
     # zeroed, its partial sums recombined must be K6's update at js
@@ -369,13 +492,26 @@ def require_launches(what: str, counts: dict, names) -> None:
             raise AssertionError(f"kernel {name} never launched: {what}")
 
 
+def wait_for_socket(addr: str, alive, what: str) -> None:
+    """Until the server has bound `addr`; fails if `alive()` turns false or
+    after 120 s."""
+    deadline = time.time() + 120
+    while not os.path.exists(addr):
+        if not alive():
+            raise AssertionError(f"{what} ended before it listened")
+        if time.time() > deadline:
+            raise AssertionError(f"{what} never listened on {addr}")
+        time.sleep(0.05)
+
+
 def phase_test_params() -> None:
     log("== phase 3: end to end at PARAMS_TEST, 2 rounds")
     t0 = time.time()
-    client, ctx = model.generate_keys(params_mod.PARAMS_TEST, seed=3,
-                                      device=DEV, lowering=Lowering())
-    expect = plain.expand_key_and_encrypt_blocks(
-        KEY, scenario.ctr_blocks(IV, 2), 2)
+    pt = params_mod.PARAMS_TEST
+    client, raw = keys_mod.generate_keys(pt, seed=3, device=DEV)
+    ctx = model.context_from_keys(pt, raw, lowering=Lowering())
+    blocks = scenario.ctr_blocks(IV, 2)
+    expect = plain.expand_key_and_encrypt_blocks(KEY, blocks, 2)
     out, _ = scenario.run_client_server_aes_scenario(
         client, ctx, KEY, IV, 2, rounds=2)
     assert out == expect, "PARAMS_TEST output mismatch"
@@ -387,6 +523,38 @@ def phase_test_params() -> None:
         f"under (glue_out, partials) with a compressed response in "
         f"{time.time() - t0:.1f} s")
 
+    # the server as a second process on the card, holding only the bundle
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle, addr = f"{tmp}/server_keys.npz", f"{tmp}/fhe.sock"
+        serialization.save_server_keys(bundle, raw, pt)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tfhe_aes2_tpu_torch.serve", "--keys",
+             bundle, "--address", addr, "--max-requests", "1"],
+            env=dict(os.environ, TFHE_BR_KERNEL="merged"), cwd=ROOT,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            wait_for_socket(addr, lambda: proc.poll() is None,
+                            "the server process")
+            key_ct = STRATEGY.encrypt_key_client(client, KEY)
+            block_cts = STRATEGY.encrypt_client(client, blocks[:1])
+            _, arrays = serve.request_keystream(
+                addr, key_ct, block_cts, rounds=2, compress=16,
+                fhe_counter_count=2)
+            _, err = proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    got = compression.decrypt_blocks_compressed(client, arrays["comp"], 16)
+    assert got == expect, "the server process's keystream mismatch"
+    if proc.returncode != 0 or "lowering br=merged" not in err:
+        raise AssertionError(f"server process rc {proc.returncode}: "
+                             f"{err[-2000:]}")
+    log("second-process server (TFHE_BR_KERNEL=merged, bundle from disk) "
+        "derived 2 blocks from 1 and answered compressed; verified, exit 0, "
+        f"in {time.time() - t0:.1f} s")
+
 
 def phase_full_width():
     """The user's entry points at full width under the default lowering:
@@ -394,14 +562,14 @@ def phase_full_width():
     encrypt_blocks_staged, 10 rounds), then 1 block through the same three
     steps the scenario is made of (encrypt_request, serve_request ->
     encrypt_block_latency, read_response), each decrypted and checked
-    against the AES authority. Returns what phase 5 runs again: the keys,
-    the single block's encrypted request and its output ciphertext, and the
-    launch counts of both runs."""
+    against the AES authority. Returns what phases 5 and 6 run again: the
+    keys (raw and prepared), the single block's encrypted request and its
+    output ciphertext, and the launch counts of both runs."""
     log("== phase 4: full width, PARAMS_SQRD_LVL_64, 10 rounds, lowering "
         "(gridg, fused)")
     t0 = time.time()
-    client, ctx = model.generate_keys(P, seed=0, device=DEV,
-                                      lowering=Lowering())
+    client, raw = keys_mod.generate_keys(P, seed=0, device=DEV)
+    ctx = model.context_from_keys(P, raw, lowering=Lowering())
     sync()
     log(f"keygen (seeded) + key preparation: {time.time() - t0:.1f} s")
     blocks = scenario.ctr_blocks(IV, 2)
@@ -428,7 +596,7 @@ def phase_full_width():
         f"included): {t1['fused_latency_s']:.2f} s")
     log("2-block batch path and 1-block latency path decrypt to the AES "
         "authority's keystream")
-    return client, ctx, request, out1.array, batch, latency
+    return client, raw, ctx, request, out1.array, batch, latency
 
 
 def phase_second_path(client, ctx, request, out_default, latency_default):
@@ -509,6 +677,145 @@ def phase_second_path(client, ctx, request, out_default, latency_default):
     return grid, glue
 
 
+class _Tee(io.TextIOBase):
+    """Writes to a stream and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.kept = stream, io.StringIO()
+
+    def write(self, text):
+        self.kept.write(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def require_counts(what: str, counts: dict, wanted: dict) -> None:
+    log(f"launches, {what}: {counts}")
+    for name, count in wanted.items():
+        if counts[name] != count:
+            raise AssertionError(f"{name}: {counts[name]} launches in "
+                                 f"{what}, expected {count}")
+
+
+def phase_server(client, raw, ctx, request, out_default):
+    """The keystream server at full width under Lowering("merged"), then
+    the counter derivation under the default, "longk" and "bucket"
+    lowerings. Returns the launch counts of the two requests and the three
+    derivations."""
+    log("== phase 6: full width, third path: the keystream server under "
+        "lowering (merged, fused), then the counter derivation under longk "
+        "and bucket")
+    n_lwe = P.lwe_dimension
+    blocks = scenario.ctr_blocks(IV, 2)
+    expect = aes_lib.encrypt_blocks(KEY, blocks)
+    key_np, block_np = (torus.to_numpy(x) for x in request)
+    want_a = compression.wire_array(
+        compression.compress_bits(out_default, ctx.sks, P, 16), 16)
+    off = {"extprod_step2g": 0, "rot_diff_digits": 0, "extprod_step2": 0,
+           "rot_diff_digits_flat": 0, "extprod_step_longk": 0,
+           "extprod_step3": 0}
+    tee = _Tee(sys.stderr)
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stderr(tee):
+        bundle, addr = f"{tmp}/server_keys.npz", f"{tmp}/fhe.sock"
+        t0 = time.time()
+        serialization.save_server_keys(bundle, raw, P)
+        log(f"key bundle saved: {os.path.getsize(bundle) / 1e6:.0f} MB in "
+            f"{time.time() - t0:.1f} s")
+        failed = []
+
+        def run():
+            try:
+                serve.serve(bundle, addr, max_requests=2, device=DEV,
+                            lowering=Lowering("merged"))
+            except BaseException as e:
+                failed.append(e)
+                raise
+
+        server = threading.Thread(target=run, daemon=True)
+        t0 = time.time()
+        server.start()
+        wait_for_socket(addr, server.is_alive, "the server thread")
+        # (a) a fresh key with one block: the latency path fills the cache
+        reset_counters()
+        meta_a, arr_a = serve.request_keystream(addr, key_np, block_np,
+                                                rounds=10, compress=16)
+        sync()
+        t_a = time.time() - t0
+        served_a = read_counters()
+        # (b) the same key, two blocks derived from the one uploaded
+        t0 = time.time()
+        reset_counters()
+        meta_b, arr_b = serve.request_keystream(
+            addr, key_np, block_np, rounds=10, compress=16,
+            fhe_counter_count=2)
+        sync()
+        t_b = time.time() - t0
+        served_b = read_counters()
+        server.join(timeout=120)
+        if server.is_alive() or failed:
+            raise AssertionError(f"the server thread did not end: {failed}")
+    notes = tee.kept.getvalue()
+    got_a = compression.decrypt_blocks_compressed(client, arr_a["comp"], 16)
+    got_b = compression.decrypt_blocks_compressed(client, arr_b["comp"], 16)
+    assert got_a == expect[:1], "keystream mismatch, served request (a)"
+    assert got_b == expect, "keystream mismatch, served request (b)"
+    if not (arr_a["comp"].dtype == want_a.dtype
+            and np.array_equal(arr_a["comp"], want_a)):
+        raise AssertionError("request (a)'s compressed answer differs from "
+                             "the default lowering's")
+    if (notes.count("cache miss") != 1 or "fused latency path" not in notes
+            or notes.count("expanded-key cache hit") != 1):
+        raise AssertionError(f"server log: {notes[-2000:]}")
+    require_counts("served request (a), latency path under merged", served_a,
+                   dict(off, cmux_step_merged=11 * n_lwe))
+    require_counts("served request (b), cache hit + 1 increment + 10 rounds "
+                   "under merged", served_b,
+                   dict(off, cmux_step_merged=(8 + 10) * n_lwe))
+    for counts in (served_a, served_b):
+        if min(counts["extprod_grouped_fused"],
+               counts["fused_limb_matmul"]) <= 0:
+            raise AssertionError("a served request ran no K3 or no K4")
+    log(f"server: bundle loaded + request (a) {t_a:.2f} s (latency path, "
+        f"answer byte-equal to the default lowering's); request (b) "
+        f"{t_b:.2f} s (cache hit, 2 blocks derived from 1, 10 rounds); both "
+        "decrypt to the AES authority's keystream")
+
+    # the counter derivation alone, under three lowerings
+    block0 = request[1][0]
+    outs, counts, secs = {}, {}, {}
+    for br in ("gridg", "longk", "bucket"):
+        ctx_br = dataclasses.replace(ctx, lowering=Lowering(br))
+        reset_counters()
+        t0 = time.time()
+        outs[br] = ctr_fhe.derive_ctr_blocks(ctx_br, block0, 2)
+        sync()
+        secs[br] = time.time() - t0
+        counts[br] = read_counters()
+    for br in ("longk", "bucket"):
+        if not torch.equal(outs[br], outs["gridg"]):
+            raise AssertionError(f"derived blocks under {br} differ from "
+                                 "the default lowering's")
+    steps = 8 * n_lwe
+    require_counts("derivation under gridg", counts["gridg"],
+                   dict(off, extprod_step2g=steps, rot_diff_digits=8,
+                        cmux_step_merged=0))
+    require_counts("derivation under longk", counts["longk"],
+                   dict(off, rot_diff_digits_flat=steps,
+                        extprod_step_longk=steps, cmux_step_merged=0))
+    require_counts("derivation under bucket", counts["bucket"],
+                   dict(off, rot_diff_digits=steps, extprod_step3=steps,
+                        cmux_step_merged=0))
+    got = STRATEGY.decrypt_client(client, torus.to_numpy(outs["gridg"]))
+    assert got == blocks, "derived counter blocks decrypt wrong"
+    log("counter derivation (1 increment = 8 bootstraps of 9 lanes): "
+        + ", ".join(f"{br} {secs[br]:.2f} s" for br in outs)
+        + "; the three arrays bit-equal, decrypting to counters 1 and 2")
+    return [served_a, served_b] + list(counts.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -516,12 +823,17 @@ def main() -> int:
     smi = phase_device()
     rows = phase_kernels()
     phase_test_params()
-    client, ctx, request, out1, batch, latency = phase_full_width()
+    client, raw, ctx, request, out1, batch, latency = phase_full_width()
     grid, glue = phase_second_path(client, ctx, request, out1, latency)
+    third = phase_server(client, raw, ctx, request, out1)
     # each kernel's launches on the main paths: the default lowering's two
     # runs (phase 4), the (grid, partials) run and the glue_out rotation
-    launches = {name: batch[name] + latency[name] + grid[name] + glue[name]
-                for name in KERNELS}
+    # (phase 5), the two served requests and the three derivations (phase 6)
+    launches = {name: sum(c[name] for c in [batch, latency, grid, glue]
+                          + third) for name in KERNELS}
+    missing = [name for name, count in launches.items() if count <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on a path: {missing}")
     kernels = []
     for name, spec in KERNELS.items():
         last = rows[name][-1]

@@ -48,6 +48,24 @@ def test_cuda_kernels_match_plain():
     a6 = kx.extprod_step(dig_bm, ext, acc_bm, js)
     assert torch.equal(a6, kx.extprod_step_plain(dig_bm, ext, acc_bm, js))
     assert torch.equal(a6.permute(1, 0, 2), a1)
+    # K9 / K10a + K10b / K2 + K11: the same step, one launch / flat digits,
+    # plane-major loop / one bucket per block with atomics; ragged last tile
+    a9 = kx.cmux_step_merged(t, ext, acc, base_log, levels, js)
+    assert torch.equal(a9, kx.cmux_step_merged_plain(t, ext, acc, base_log,
+                                                     levels, js))
+    d2 = kx.rot_diff_digits(acc, t, base_log, levels, n_d)
+    want = kx.extprod_step2(d2, ext, acc.clone(), js)
+    assert torch.equal(a9, want)
+    flat = kx.rot_diff_digits_flat(acc, t, base_log, levels, n_d)
+    assert torch.equal(flat, kx.rot_diff_digits_flat_plain(acc, t, base_log,
+                                                           levels, n_d))
+    a10 = kx.extprod_step_longk(flat, ext, acc.clone(), js)
+    assert torch.equal(a10, kx.extprod_step_longk_plain(flat, ext,
+                                                        acc.clone(), js))
+    assert torch.equal(a10, want)
+    a11 = kx.extprod_step3(d2, ext, acc.clone(), js)
+    assert torch.equal(a11, kx.extprod_step3_plain(d2, ext, acc.clone(), js))
+    assert torch.equal(a11, want)
     # K7: all 8 key planes; recombined over zeroed low planes it is K6
     ext8 = r8(8, k1 * levels, k1, 2 * n)
     parts = kx.extprod_partials(dig_bm, ext8)

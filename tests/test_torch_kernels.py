@@ -1,6 +1,6 @@
-"""Kernels K1-K8 of the PyTorch port: each plain version against the JAX
+"""Kernels K1-K11 of the PyTorch port: each plain version against the JAX
 package's Pallas function (interpret mode) on the same numpy-made int8
-inputs, at j_start 0 and at a truncated j_start; K5-K8 also at N=256, at an
+inputs, at j_start 0 and at a truncated j_start; K5-K11 also at N=256, at an
 odd batch and at a batch of 1. Both sides are exact
 integer arithmetic mod 2^64, so the tolerance is 0 (bit-equality). The
 CUDA kernels themselves are held against these plain versions on the card
@@ -195,6 +195,102 @@ def test_k2_then_k5_equals_k1(js):
         dig1.numpy())
 
 
+def _cmux_inputs(seed, n, b, js, k1=2, levels=2, base_log=12):
+    """Component-major operands of one whole CMux step: acc uint64
+    [O, B, N], t int32 [B], the prepared BSK entry ext_or int8
+    [O, R, 8-js, 2N]; base_log 12 gives n_d = 2 digit limbs."""
+    rng = np.random.default_rng(seed)
+    acc = rng.integers(0, 2 ** 64, (k1, b, n), dtype=np.uint64)
+    t = rng.integers(0, 2 * n, (b,), dtype=np.int32)
+    ext_or = rng.integers(-128, 128, (k1, k1 * levels, 8 - js, 2 * n)
+                          ).astype(np.int8)
+    return acc, t, ext_or, levels, base_log, 2
+
+
+@pytest.mark.parametrize("js", [0, 2])
+@pytest.mark.parametrize("n,b", STEP_SHAPES)
+def test_k9_cmux_step_merged_matches_pallas(n, b, js):
+    acc, t, ext_or, levels, base_log, _ = _cmux_inputs(200 + js, n, b, js)
+    ref = np.asarray(jx.cmux_step_merged(
+        jnp.asarray(t), jnp.asarray(ext_or), _acc_pair(acc), base_log, levels,
+        interpret=True, j_start=js))
+    acc_t = t64(acc)
+    got = kx.cmux_step_merged(torch.from_numpy(t), t8(ext_or), acc_t,
+                              base_log, levels, js)
+    assert got is not acc_t              # a second buffer, not the TPU alias
+    np.testing.assert_array_equal(u64(acc_t), acc)      # input untouched
+    np.testing.assert_array_equal(u64(got), _from_pair(ref[:, 0], ref[:, 1]))
+
+
+@pytest.mark.parametrize("n,b", STEP_SHAPES)
+def test_k10a_rot_diff_digits_flat_matches_pallas(n, b):
+    acc, t, _, levels, base_log, n_d = _cmux_inputs(210, n, b, 0, k1=3)
+    ref = np.asarray(jx.rot_diff_digits_flat(
+        _acc_pair(acc), jnp.asarray(t), base_log, levels, n_d,
+        interpret=True))
+    got = kx.rot_diff_digits_flat(t64(acc), torch.from_numpy(t), base_log,
+                                  levels, n_d)
+    assert got.shape == (n_d, b, 3 * levels * n) and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("js", [0, 2])
+@pytest.mark.parametrize("n,b", STEP_SHAPES)
+def test_k10b_extprod_step_longk_matches_pallas(n, b, js):
+    """The Pallas function gets its own plane-major key layout ext_oj
+    [O, 8-js, R, 2N]; the port's takes the prepared entry ext_or."""
+    acc, _, ext_or, levels, _, n_d = _cmux_inputs(220 + js, n, b, js)
+    rng = np.random.default_rng(225 + js)
+    dig = rng.integers(-128, 128, (n_d, b, ext_or.shape[1] * n)
+                       ).astype(np.int8)
+    ref = np.asarray(jx.extprod_step_longk(
+        jnp.asarray(dig), jnp.asarray(ext_or.transpose(0, 2, 1, 3)),
+        _acc_pair(acc), interpret=True, j_start=js))
+    acc_t = t64(acc)
+    got = kx.extprod_step_longk(t8(dig), t8(ext_or), acc_t, js)
+    assert got is acc_t                  # in place, like the TPU kernel
+    np.testing.assert_array_equal(u64(got), _from_pair(ref[:, 0], ref[:, 1]))
+
+
+@pytest.mark.parametrize("js", [0, 2])
+@pytest.mark.parametrize("n,b", STEP_SHAPES)
+def test_k11_extprod_step3_matches_pallas(n, b, js):
+    acc, _, ext_or, levels, _, n_d = _cmux_inputs(230 + js, n, b, js)
+    rng = np.random.default_rng(235 + js)
+    k1, r = ext_or.shape[:2]
+    dig = rng.integers(-128, 128, (r, n_d, b, n)).astype(np.int8)
+    ref = np.asarray(jx.extprod_step3(
+        jnp.asarray(dig), jnp.asarray(ext_or), _acc_pair(acc),
+        interpret=True, j_start=js))
+    acc_t = t64(acc)
+    got = kx.extprod_step3(t8(dig).reshape(k1, levels, n_d, b, n),
+                           t8(ext_or), acc_t, js)
+    assert got is acc_t                  # in place, like the TPU kernel
+    np.testing.assert_array_equal(u64(got), _from_pair(ref[:, 0], ref[:, 1]))
+
+
+@pytest.mark.parametrize("js", [0, 2])
+def test_merged_longk_bucket_steps_equal_k2_then_k5(js):
+    """One step of each schedule takes the accumulator to the same value:
+    K9 = K10b after K10a = K11 after K2 = K5 after K2."""
+    acc, t, ext_or, levels, base_log, n_d = _cmux_inputs(240 + js, 64, 5, js,
+                                                         k1=3)
+    t, ext = torch.from_numpy(t), t8(ext_or)
+    dig = kx.rot_diff_digits(t64(acc), t, base_log, levels, n_d)
+    want = u64(kx.extprod_step2(dig, ext, t64(acc), js))
+    np.testing.assert_array_equal(
+        u64(kx.cmux_step_merged(t, ext, t64(acc), base_log, levels, js)),
+        want)
+    flat = kx.rot_diff_digits_flat(t64(acc), t, base_log, levels, n_d)
+    np.testing.assert_array_equal(
+        flat.reshape(n_d, 5, 3, levels, 64).permute(2, 3, 0, 1, 4).numpy(),
+        dig.numpy())
+    np.testing.assert_array_equal(
+        u64(kx.extprod_step_longk(flat, ext, t64(acc), js)), want)
+    np.testing.assert_array_equal(
+        u64(kx.extprod_step3(dig, ext, t64(acc), js)), want)
+
+
 @pytest.mark.parametrize("b,k,n,n_d,js", [
     (256, 256, 128, 1, 5),     # keyswitch-like: base-3 digits, 3 key planes
     (256, 384, 256, 3, 1),     # pfKS-like: base-16 digits, 7 key planes
@@ -239,3 +335,13 @@ def test_wrappers_refuse_bad_shapes():
                         torch.zeros((2, 3, 8), dtype=torch.int64), 2)
     with pytest.raises(ValueError):      # K8: plane count != 8 - j_start
         kx.extprod_partials_grouped(z8(2, 3, 5, 4, 8), z8(6, 3, 4, 2, 16), 4)
+    z64 = lambda *shape: torch.zeros(shape, dtype=torch.int64)
+    z32 = lambda *shape: torch.zeros(shape, dtype=torch.int32)
+    with pytest.raises(ValueError):      # K9: R must be O·levels
+        kx.cmux_step_merged(z32(3), z8(2, 5, 6, 16), z64(2, 3, 8), 12, 2, 2)
+    with pytest.raises(ValueError):      # K10a: one t per lane
+        kx.rot_diff_digits_flat(z64(2, 3, 8), z32(4), 12, 2, 2)
+    with pytest.raises(ValueError):      # K10b: flat row length must be R·N
+        kx.extprod_step_longk(z8(2, 3, 24), z8(2, 4, 6, 16), z64(2, 3, 8), 2)
+    with pytest.raises(ValueError):      # K11: acc must be component-major
+        kx.extprod_step3(z8(2, 2, 2, 3, 8), z8(2, 4, 6, 16), z64(3, 2, 8), 2)

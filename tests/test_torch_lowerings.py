@@ -1,5 +1,5 @@
 """The port's lowerings (ops/lowering.py): every schedule of the blind
-rotation (K1 | K2 + K5 | torch glue + K6) and both forms of the vertical
+rotation (K1 | K2 + K5 | K9 | K10a + K10b | K2 + K11 | torch glue + K6) and both forms of the vertical
 packing (K3 | K8 + recombination) against the JAX package under the
 environment that selects the counterpart there, and against each other
 through the whole AES slice. Exact integer arithmetic on both sides:
@@ -32,6 +32,9 @@ ENV_NAMES = ("TFHE_BR_KERNEL", "TFHE_BR_GLUE", "TFHE_VP_FUSED")
 # Lowering.br -> the JAX package's environment for the same schedule
 BR_ENV = {"gridg": {"TFHE_BR_KERNEL": "gridg"},
           "grid": {"TFHE_BR_KERNEL": "grid"},
+          "merged": {"TFHE_BR_KERNEL": "merged"},
+          "longk": {"TFHE_BR_KERNEL": "longk"},
+          "bucket": {"TFHE_BR_KERNEL": "bucket"},
           "glue_out": {"TFHE_BR_GLUE": "xla"}}
 
 
@@ -47,6 +50,12 @@ def _set_env(monkeypatch, env):
 @pytest.mark.parametrize("env,expect", [
     ({}, Lowering("gridg", "fused")),
     ({"TFHE_BR_KERNEL": "grid"}, Lowering("grid", "fused")),
+    ({"TFHE_BR_KERNEL": "merged"}, Lowering("merged", "fused")),
+    ({"TFHE_BR_KERNEL": "longk", "TFHE_VP_FUSED": "0"},
+     Lowering("longk", "partials")),
+    ({"TFHE_BR_KERNEL": "bucket"}, Lowering("bucket", "fused")),
+    ({"TFHE_BR_GLUE": "xla", "TFHE_BR_KERNEL": "merged"},
+     Lowering("glue_out", "fused")),
     ({"TFHE_BR_GLUE": "xla"}, Lowering("glue_out", "fused")),
     ({"TFHE_BR_GLUE": "xla", "TFHE_BR_KERNEL": "grid", "TFHE_VP_FUSED": "0"},
      Lowering("glue_out", "partials")),
@@ -59,17 +68,20 @@ def test_from_env_maps_the_jax_names(monkeypatch, env, expect):
     assert Lowering() == Lowering("gridg", "fused")
 
 
-@pytest.mark.parametrize("kernel", ["merged", "longk", "bucket", "fastest"])
+@pytest.mark.parametrize("kernel", ["fastest", "glue_out"])
 def test_from_env_refuses_what_the_port_lacks(monkeypatch, kernel):
+    """No schedule of that name: `glue_out` is the port's own word, chosen
+    in the environment by TFHE_BR_GLUE=xla."""
     _set_env(monkeypatch, {"TFHE_BR_KERNEL": kernel})
-    match = "schedule" if kernel == "fastest" else "ROADMAP.md Queue 2"
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match="schedule"):
         Lowering.from_env()
 
 
 def test_lowering_refuses_unknown_values_and_is_frozen():
     with pytest.raises(ValueError):
-        Lowering(br="merged")
+        Lowering(br="fastest")
+    for br in ("merged", "longk", "bucket"):
+        assert Lowering(br=br).vp == "fused"
     with pytest.raises(ValueError):
         Lowering(vp="int32")
     with pytest.raises(AttributeError):
@@ -106,7 +118,8 @@ def setup(keys_test):
     return jclient, p, sks, jsks, cts, dual, ggsw
 
 
-@pytest.mark.parametrize("br", ["gridg", "grid", "glue_out"])
+@pytest.mark.parametrize("br", ["gridg", "grid", "glue_out", "merged",
+                                "longk", "bucket"])
 def test_blind_rotate_matches_jax_under_matching_env(setup, monkeypatch, br):
     jclient, p, sks, jsks, _, dual, _ = setup
     rng = np.random.default_rng(31)
@@ -189,7 +202,10 @@ def test_slice_default_lowering_decrypts_to_aes(slice_default):
 
 
 @pytest.mark.parametrize("br,vp", [("grid", "partials"),
-                                   ("glue_out", "partials")])
+                                   ("glue_out", "partials"),
+                                   ("merged", "fused"),
+                                   ("longk", "partials"),
+                                   ("bucket", "fused")])
 def test_slice_ciphertexts_equal_under_every_lowering(slice_default, br, vp):
     client, raw, _, key_ct, block_cts, default = slice_default
     ctx = tm1.context_from_keys(client.params, raw, True, Lowering(br, vp))

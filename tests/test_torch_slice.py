@@ -76,7 +76,6 @@ def test_truncated_paths_decrypt_to_oracles(keys_test):
 
 
 @pytest.mark.parametrize("flag", [["--implementation", "shortint-woppbs-8bit"],
-                                  ["--fhe-counter"],
                                   ["--implementation", "shortint-1bit"]])
 def test_cli_refuses_unported_options(flag):
     argv = ["--key", KEY.hex(), "--iv", "00" * 8, "--number-of-outputs", "2",

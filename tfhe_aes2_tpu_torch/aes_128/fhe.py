@@ -66,16 +66,24 @@ def key_schedule_staged(strategy, ctx: FheContext,
 
 
 def encrypt_blocks_staged(strategy, ctx: FheContext, eks: BitCt,
-                          blocks_arr: torch.Tensor, rounds: int) -> BitCt:
+                          blocks_arr: torch.Tensor, rounds: int,
+                          blocks_meta=None) -> BitCt:
     """AES rounds on a batch of blocks [B, 16, 8, kN+1] under the expanded
-    key from key_schedule_staged -> BitCt [B | 16, 8]."""
-    blocks = fresh_bitct(blocks_arr, ctx, lane_ndim=2)
+    key from key_schedule_staged -> BitCt [B | 16, 8].
+
+    blocks_meta: optional (noise_sq, comps), each of lane shape [16, 8], for
+    input blocks that are not fresh encryptions (the homomorphically derived
+    CTR batch, aes_128/ctr_fhe.derive_ctr_batch)."""
+    if blocks_meta is None:
+        blocks = fresh_bitct(blocks_arr, ctx, lane_ndim=2)
+    else:
+        blocks = BitCt(blocks_arr, blocks_meta[0], blocks_meta[1], ctx)
     return strategy.pipeline.encrypt_block_for_rounds(ctx, eks, blocks,
                                                       rounds)
 
 
 def encrypt_block_latency(strategy, ctx: FheContext, key_arr: torch.Tensor,
-                          block_arr: torch.Tensor) -> BitCt:
+                          block_arr: torch.Tensor, return_eks: bool = False):
     """Single-block minimum-latency path: key expansion AND all ten rounds
     in 11 fused circuit bootstraps. Round g's SubBytes lanes ride the same
     blind rotation as key-schedule group g's boot and group g+1's SubWord
@@ -83,7 +91,11 @@ def encrypt_block_latency(strategy, ctx: FheContext, key_arr: torch.Tensor,
     booted in that bootstrap.
 
     key_arr [16, 8, kN+1]; block_arr [16, 8, kN+1] or [1, 16, 8, kN+1].
-    Returns a BitCt with lanes [16, 8] (and the input's batch axis)."""
+    Returns a BitCt with lanes [16, 8] (and the input's batch axis).
+    return_eks=True returns (that BitCt, the expanded key BitCt [44, 4, 8])
+    instead: the fresh key group and the ten groups booted along the way,
+    which is key_schedule_staged's result on the same key — a server caches
+    it so that later requests under this key skip the expansion."""
     pipe = strategy.pipeline
     batched = block_arr.ndim == 4
     if batched:
@@ -96,11 +108,16 @@ def encrypt_block_latency(strategy, ctx: FheContext, key_arr: torch.Tensor,
         ^ key_ct.reshape_lanes(16, 8)
     prev = key_ct.slice_lanes(slice(3, 4), axis=0).reshape_lanes(4, 8)
     pre = pipe.key_schedule_group_preboot(ctx, key_ct, prev, _rc(ctx, 1))
+    groups = [key_ct]
     for g in range(1, 10):
-        pre, state, _booted = pipe.latency_fused_middle(ctx, pre, state,
-                                                        _rc(ctx, g + 1))
-    out, _booted10 = pipe.latency_fused_final(ctx, pre, state)
+        pre, state, booted = pipe.latency_fused_middle(ctx, pre, state,
+                                                       _rc(ctx, g + 1))
+        groups.append(booted)
+    out, booted = pipe.latency_fused_final(ctx, pre, state)
+    groups.append(booted)
     if batched:
         out = BitCt(out.array[None], out.noise_sq, out.comps, ctx,
                     out.degree)
+    if return_eks:
+        return out, BitCt.concat_lanes(groups, axis=0)
     return out

@@ -14,7 +14,7 @@ import time
 
 import torch
 
-from tfhe_aes2_tpu_torch.aes_128 import aes_lib, fhe as fhe_mod, plain
+from tfhe_aes2_tpu_torch.aes_128 import aes_lib, ctr_fhe, fhe as fhe_mod, plain
 from tfhe_aes2_tpu_torch.models.shortint_woppbs_1bit import FheContext
 from tfhe_aes2_tpu_torch.ops import compression
 from tfhe_aes2_tpu_torch.ops.keys import ClientKey
@@ -45,16 +45,22 @@ def encrypt_request(client: ClientKey, ctx: FheContext, strategy,
 
 
 def serve_request(ctx: FheContext, strategy, key_ct: torch.Tensor,
-                  block_cts: torch.Tensor, rounds: int = 10):
+                  block_cts: torch.Tensor, rounds: int = 10,
+                  fhe_counter_count: int = 0):
     """Server: expand the key and run the rounds under FHE ->
     (output BitCt [B | 16, 8], timings dict).
 
     A single block at 10 rounds takes the fused latency path and reports
     only `fused_latency_s`: that path has no expansion/rounds split.
+
+    fhe_counter_count = C > 0: block_cts holds ONE encrypted iv‖ctr block;
+    the server derives blocks 1..C-1 by homomorphic counter increments
+    (aes_128/ctr_fhe) and runs the rounds on all C with their true metadata,
+    reporting `ctr_derive_s`. Such a request never takes the latency path.
     """
     dev = ctx.device
-    block_count = block_cts.shape[0]
-    if block_count == 1 and rounds == 10:
+    block_count = fhe_counter_count or block_cts.shape[0]
+    if block_count == 1 and rounds == 10 and not fhe_counter_count:
         t0 = time.time()
         out = fhe_mod.encrypt_block_latency(strategy, ctx, key_ct, block_cts)
         _sync(dev)
@@ -67,14 +73,28 @@ def serve_request(ctx: FheContext, strategy, key_ct: torch.Tensor,
     _sync(dev)
     t_expand = time.time() - t0
     print(f"AES key expansion took: {t_expand:.3f}s")
+    timings = {"key_expansion_s": t_expand}
+    blocks_meta = None
+    if fhe_counter_count:
+        t0 = time.time()
+        derived = ctr_fhe.derive_ctr_batch(ctx, block_cts[0], block_count)
+        _sync(dev)
+        timings["ctr_derive_s"] = time.time() - t0
+        # derived blocks are not fresh (the adder's bootstrap noise on the
+        # counter bits): their metadata goes into the rounds
+        block_cts, blocks_meta = derived.array, (derived.noise_sq,
+                                                 derived.comps)
+        print(f"CTR keystream of #{block_count} blocks derived "
+              f"homomorphically in: {timings['ctr_derive_s']:.3f}s")
     t0 = time.time()
-    out = fhe_mod.encrypt_blocks_staged(strategy, ctx, eks, block_cts, rounds)
+    out = fhe_mod.encrypt_blocks_staged(strategy, ctx, eks, block_cts, rounds,
+                                        blocks_meta=blocks_meta)
     _sync(dev)
     t_blocks = time.time() - t0
     print(f"AES of #{block_count} outputs computed in: {t_blocks:.3f}s "
           f"({block_count / t_blocks:.4f} blocks/s)")
-    return out, {"key_expansion_s": t_expand, "blocks_s": t_blocks,
-                 "blocks_per_s": block_count / t_blocks}
+    timings.update(blocks_s=t_blocks, blocks_per_s=block_count / t_blocks)
+    return out, timings
 
 
 def read_response(client: ClientKey, ctx: FheContext, strategy, out,
@@ -105,14 +125,20 @@ def run_client_server_aes_scenario(
         block_count: int,
         strategy=fhe_mod.ShortintWoppbs1BitSboxGalMulPbsAesEncrypt,
         verify: bool = True, rounds: int = 10,
-        compress_log2q: int | None = None):
+        compress_log2q: int | None = None, fhe_counter: bool = False):
     """encrypt_request -> serve_request -> read_response, verified against
-    the AES authority. Returns (decrypted blocks, timings dict)."""
+    the AES authority. Returns (decrypted blocks, timings dict).
+
+    fhe_counter: the client uploads only the FIRST encrypted iv‖ctr block
+    and the server derives the other block_count - 1 homomorphically."""
     blocks_clear = ctr_blocks(iv, block_count)
-    key_ct, block_cts = encrypt_request(client, ctx, strategy, key_clear,
-                                        blocks_clear)
+    key_ct, block_cts = encrypt_request(
+        client, ctx, strategy, key_clear,
+        blocks_clear[:1] if fhe_counter else blocks_clear)
     log.info("aes key and blocks fhe encrypted")
-    out, timings = serve_request(ctx, strategy, key_ct, block_cts, rounds)
+    out, timings = serve_request(
+        ctx, strategy, key_ct, block_cts, rounds,
+        fhe_counter_count=block_count if fhe_counter else 0)
     decrypted = read_response(client, ctx, strategy, out, compress_log2q)
     if verify:
         if rounds == 10:

@@ -2,11 +2,12 @@
 
     python -m tfhe_aes2_tpu_torch.cli --key <hex16> --iv <hex8> \
         --number-of-outputs N [--implementation shortint-woppbs-1bit] \
-        [--seed S] [--compress-output {16,32}]
+        [--seed S] [--compress-output {16,32}] [--fhe-counter]
 
 Same flags as `python -m tfhe_aes2_tpu.cli`. This port runs the
-shortint-woppbs-1bit model only; --fhe-counter is not ported yet
-(ROADMAP.md Queue 1). The kernels the bootstraps run follow the JAX
+shortint-woppbs-1bit model only. With --fhe-counter the client uploads one
+encrypted iv‖ctr block and the server derives the rest by homomorphic
+counter increments (aes_128/ctr_fhe.py). The kernels the bootstraps run follow the JAX
 package's TFHE_BR_KERNEL / TFHE_BR_GLUE / TFHE_VP_FUSED environment
 (ops/lowering.py); the lowering in use is printed.
 """
@@ -48,17 +49,15 @@ def main(argv=None, device: str = "cuda") -> int:
                          "plain oracle)")
     ap.add_argument("--compress-output", type=int, default=None,
                     choices=[16, 32])
-    ap.add_argument("--fhe-counter", action="store_true")
+    ap.add_argument("--fhe-counter", action="store_true",
+                    help="upload one block; the server derives the CTR "
+                         "blocks homomorphically")
     args = ap.parse_args(argv)
 
     if args.implementation != "shortint-woppbs-1bit":
         raise NotImplementedError(
             f"--implementation {args.implementation} is not ported yet "
             "(ROADMAP.md Queue 1, 'the other FHE models')")
-    if args.fhe_counter:
-        raise NotImplementedError(
-            "--fhe-counter is not ported yet (ROADMAP.md Queue 1, "
-            "'homomorphic CTR counter')")
 
     logging.basicConfig(level=args.log_level,
                         format="%(asctime)s %(levelname)s %(name)s %(message)s")
@@ -80,7 +79,8 @@ def main(argv=None, device: str = "cuda") -> int:
     print(f"lowering: br={ctx.lowering.br} vp={ctx.lowering.vp}")
     run_client_server_aes_scenario(client, ctx, key, iv,
                                    args.number_of_outputs, rounds=args.rounds,
-                                   compress_log2q=args.compress_output)
+                                   compress_log2q=args.compress_output,
+                                   fhe_counter=args.fhe_counter)
     oracle = ("AES authority" if args.rounds == 10
               else f"plain {args.rounds}-round oracle")
     print(f"ok: FHE keystream verified against {oracle}")

@@ -26,40 +26,6 @@
 
 namespace {
 
-// Glue for one accumulator row held in shared memory: digits of
-// X^t·acc - acc at column m, split into ND int8 limb planes and written to
-// out[(l*ND + i)*plane_stride + m].
-template <int ND>
-__device__ __forceinline__ void glue(const uint64_t* row, int t, int m, int n,
-                                     int levels, int base_log, int8_t* out,
-                                     size_t plane_stride) {
-  const int two_n = 2 * n;
-  const int src = (m - t) & (two_n - 1);   // (X^t·acc)[m] = ext[(m - t) mod 2N]
-  const uint64_t rot = src < n ? row[src] : (uint64_t)0 - row[src - n];
-  const uint64_t diff = rot - row[m];
-  const int b = base_log;
-  const int shift = 64 - b * levels;
-  const uint64_t r = shift > 0 ? (diff + (1ull << (shift - 1))) >> shift : diff;
-  uint64_t h = 0;
-  for (int l = 0; l < levels; ++l) h += 1ull << (b - 1 + b * l);
-  const uint64_t y = r + h;
-  const uint64_t mask = (1ull << b) - 1;
-  int32_t off = 0;
-#pragma unroll
-  for (int i = 0; i < ND - 1; ++i) off += 128 << (8 * i);
-  for (int l = 0; l < levels; ++l) {
-    const int pos = b * (levels - 1 - l);
-    const int32_t digit = (int32_t)((y >> pos) & mask) - (1 << (b - 1));
-    const int32_t yy = digit + off;
-#pragma unroll
-    for (int i = 0; i < ND; ++i) {
-      const int32_t p = i < ND - 1 ? ((yy >> (8 * i)) & 0xFF) - 128
-                                   : (yy >> (8 * i));
-      out[(size_t)(l * ND + i) * plane_stride + m] = (int8_t)p;
-    }
-  }
-}
-
 // Grid (ceil(B/ROWS), O), block N/2.
 // dig     int8  [R][ND][B][N]       this step's digit limb planes (R = O·L)
 // ext     int8  [O][R][8-JS][2N]    this step's BSK limb planes
@@ -108,9 +74,9 @@ extprod_step2g_kernel(const int8_t* __restrict__ dig,
     const int t = t_next[b0 + row];
     for (int c = 0; c < nc::COLS; ++c) {
       const int m = threadIdx.x + c * blockDim.x;
-      glue<ND>(tile + row * n, t, m, n, levels, base_log,
-               dig_out + (((size_t)o * levels * ND) * B + b0 + row) * n,
-               (size_t)B * n);
+      nc::glue<ND>(tile + row * n, t, m, n, levels, base_log,
+                   dig_out + (((size_t)o * levels * ND) * B + b0 + row) * n,
+                   (size_t)ND * B * n, (size_t)B * n);
     }
   }
 }
@@ -133,9 +99,9 @@ rot_diff_digits_kernel(const uint64_t* __restrict__ acc,
   for (int row = 0; row < rows; ++row) {
     for (int c = 0; c < nc::COLS; ++c) {
       const int m = threadIdx.x + c * blockDim.x;
-      glue<ND>(tile + row * n, t[b0 + row], m, n, levels, base_log,
-               dig_out + (((size_t)o * levels * ND) * B + b0 + row) * n,
-               (size_t)B * n);
+      nc::glue<ND>(tile + row * n, t[b0 + row], m, n, levels, base_log,
+                   dig_out + (((size_t)o * levels * ND) * B + b0 + row) * n,
+                   (size_t)ND * B * n, (size_t)B * n);
     }
   }
 }

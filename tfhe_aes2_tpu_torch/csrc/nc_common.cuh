@@ -1,4 +1,5 @@
-// Shared device code of the negacirculant limb-plane kernels (K1, K3, K5-K8).
+// Shared device code of the negacirculant limb-plane kernels (K1, K3, K5-K11)
+// and of the glue that K1, K2, K9 and K10a run.
 //
 // The contraction these kernels evaluate, for one output component o:
 //
@@ -169,6 +170,41 @@ __device__ __forceinline__ uint64_t recombine(const int32_t (&bucket)[8 - JS]) {
   for (int s = 0; s < 8 - JS; ++s)
     sum += (uint64_t)(int64_t)bucket[s] << (8 * (s + JS));
   return sum;
+}
+
+// The glue of the blind rotation for one accumulator row held in shared
+// memory: the gadget digits of (X^t·acc - acc)[m], each split into ND balanced
+// int8 limbs; limb i of level l goes to out[l*level_stride + i*limb_stride + m]
+// (strides in bytes; `out` may be device or shared memory).
+template <int ND>
+__device__ __forceinline__ void glue(const uint64_t* row, int t, int m, int n,
+                                     int levels, int base_log, int8_t* out,
+                                     size_t level_stride, size_t limb_stride) {
+  const int two_n = 2 * n;
+  const int src = (m - t) & (two_n - 1);   // (X^t·acc)[m] = ext[(m - t) mod 2N]
+  const uint64_t rot = src < n ? row[src] : (uint64_t)0 - row[src - n];
+  const uint64_t diff = rot - row[m];
+  const int b = base_log;
+  const int shift = 64 - b * levels;
+  const uint64_t r = shift > 0 ? (diff + (1ull << (shift - 1))) >> shift : diff;
+  uint64_t h = 0;
+  for (int l = 0; l < levels; ++l) h += 1ull << (b - 1 + b * l);
+  const uint64_t y = r + h;
+  const uint64_t mask = (1ull << b) - 1;
+  int32_t off = 0;
+#pragma unroll
+  for (int i = 0; i < ND - 1; ++i) off += 128 << (8 * i);
+  for (int l = 0; l < levels; ++l) {
+    const int pos = b * (levels - 1 - l);
+    const int32_t digit = (int32_t)((y >> pos) & mask) - (1 << (b - 1));
+    const int32_t yy = digit + off;
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      const int32_t p = i < ND - 1 ? ((yy >> (8 * i)) & 0xFF) - 128
+                                   : (yy >> (8 * i));
+      out[(size_t)l * level_stride + (size_t)i * limb_stride + m] = (int8_t)p;
+    }
+  }
 }
 
 }  // namespace nc

@@ -1,6 +1,6 @@
 """Blind rotation + programmable bootstrap (the hot loop).
 
-The CMux chain of the blind rotation runs one of three schedules of the
+The CMux chain of the blind rotation runs one of six schedules of the
 JAX package (tfhe_aes2_tpu/ops/blind_rotate.py:229-364), chosen by
 `Lowering.br`; all give the same bits:
 
@@ -10,6 +10,11 @@ JAX package (tfhe_aes2_tpu/ops/blind_rotate.py:229-364), chosen by
       the NEXT step's rotation difference; the last step's glue is fed t = 0
       and its digits are discarded.
   "grid": two launches a step, K2 (the glue) then K5 (dots + recombine).
+  "merged": one launch a step, K9 (glue, dots and recombine; no digits
+      between the steps).
+  "longk": K10a (the glue, row-flattened) then K10b (one long contraction
+      per key plane) per step, on the prepared BSK entry as it lies.
+  "bucket": K2 then K11 (one weight bucket per block) per step.
   "glue_out": the glue in plain torch on the batch-major accumulator
       (rotate, subtract, decompose, split: a few dozen small launches),
       then K6.
@@ -79,19 +84,31 @@ def blind_rotate_glwe(lwe: torch.Tensor, bsk: torch.Tensor,
         return acc.reshape(batch + (k1, n))
 
     acc_of = acc.permute(1, 0, 2).contiguous()                 # [O, B, N]
-    if lowering.br == "grid":
-        for i in range(n_lwe):
-            dig = extprod.rot_diff_digits(acc_of, a_steps[i], p.pbs_base_log,
-                                          p.pbs_level, n_d)
-            acc_of = extprod.extprod_step2(dig, bsk[i], acc_of, js)
-    else:
-        dig = extprod.rot_diff_digits(acc_of, a_steps[0], p.pbs_base_log,
-                                      p.pbs_level, n_d)
+    base_log, levels = p.pbs_base_log, p.pbs_level
+    if lowering.br == "gridg":
+        dig = extprod.rot_diff_digits(acc_of, a_steps[0], base_log, levels,
+                                      n_d)
         zero = torch.zeros_like(a_steps[0])
         for i in range(n_lwe):
             t_next = a_steps[i + 1] if i + 1 < n_lwe else zero
             acc_of, dig = extprod.extprod_step2g(
-                dig, bsk[i], acc_of, t_next, p.pbs_base_log, p.pbs_level, js)
+                dig, bsk[i], acc_of, t_next, base_log, levels, js)
+    elif lowering.br == "merged":
+        for i in range(n_lwe):
+            acc_of = extprod.cmux_step_merged(a_steps[i], bsk[i], acc_of,
+                                              base_log, levels, js)
+    elif lowering.br == "longk":
+        for i in range(n_lwe):
+            dig = extprod.rot_diff_digits_flat(acc_of, a_steps[i], base_log,
+                                               levels, n_d)
+            acc_of = extprod.extprod_step_longk(dig, bsk[i], acc_of, js)
+    else:                                          # "grid" | "bucket"
+        dots = (extprod.extprod_step3 if lowering.br == "bucket"
+                else extprod.extprod_step2)
+        for i in range(n_lwe):
+            dig = extprod.rot_diff_digits(acc_of, a_steps[i], base_log,
+                                          levels, n_d)
+            acc_of = dots(dig, bsk[i], acc_of, js)
     return acc_of.permute(1, 0, 2).reshape(batch + (k1, n))
 
 

@@ -43,12 +43,17 @@ def compress_bits(cts_big: torch.Tensor, sks: PreparedServerKeys,
     return mod_switch_q(ksw.keyswitch(cts_big, sks.ksk, params), log2q)
 
 
-def pack_bytes(comp, log2q: int) -> bytes:
-    """Serialize a compressed tensor (or array) to little-endian words of 16
-    bits when log2q <= 16, else 32."""
+def wire_array(comp, log2q: int) -> np.ndarray:
+    """A compressed tensor (or array) as the numpy words that travel:
+    little-endian, 16 bits when log2q <= 16, else 32."""
     if isinstance(comp, torch.Tensor):
         comp = comp.detach().to("cpu").numpy()
-    return np.asarray(comp).astype(_wire_dtype(log2q)).tobytes()
+    return np.asarray(comp).astype(_wire_dtype(log2q))
+
+
+def pack_bytes(comp, log2q: int) -> bytes:
+    """Serialize a compressed tensor (or array) to its wire words."""
+    return wire_array(comp, log2q).tobytes()
 
 
 def unpack_bytes(data: bytes, shape, log2q: int) -> np.ndarray:

@@ -21,7 +21,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("cmux.cu", "step.cu", "partials.cu", "vp.cu", "matmul.cu")
+SOURCES = ("cmux.cu", "step.cu", "partials.cu", "vp.cu", "matmul.cu",
+           "merged.cu", "longk.cu", "bucket.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -91,15 +92,17 @@ def build_all() -> dict[str, ctypes.CDLL]:
 
 
 def ptxas_report() -> str:
-    """nvcc's -Xptxas -v lines (registers, shared memory, spills) of the
-    last build, empty when the libraries came from an earlier build."""
+    """nvcc's -Xptxas -v lines of the last build — per kernel its entry
+    function's name, then its spills, then its registers and shared memory
+    — empty when the libraries came from an earlier build."""
     tag = _digest()
     lines = []
     for src in SOURCES:
         log = BUILD_DIR / f"{Path(src).stem}-{tag}.log"
         if log.exists():
             lines += [ln for ln in log.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln]
+                      if "registers" in ln or "spill" in ln
+                      or "Compiling entry function" in ln]
     return "\n".join(lines)
 
 

@@ -1,4 +1,4 @@
-"""K1-K3, K5-K8: the negacirculant external-product kernels and their plain
+"""K1-K3, K5-K11: the negacirculant external-product kernels and their plain
 versions.
 
 K1 `extprod_step2g` — one whole blind-rotate CMux step (dots + recombine +
@@ -21,6 +21,18 @@ K7 `extprod_partials` — the shared-key product over all 8 key planes as raw
 K8 `extprod_partials_grouped` — the per-lane product of the vertical packing
    as raw int32 sums. Replaces extprod.py::extprod_partials_grouped; source
    csrc/partials.cu.
+K9 `cmux_step_merged` — one whole CMux step in one launch (glue of all
+   components, digits kept in shared memory, dots + recombine), into a new
+   accumulator. Replaces extprod.py::cmux_step_merged; source csrc/merged.cu.
+K10a `rot_diff_digits_flat` — K2's glue in the row-flattened layout
+   [n_d, B, R·N]. Replaces extprod.py::rot_diff_digits_flat; source
+   csrc/longk.cu.
+K10b `extprod_step_longk` — the CMux update with the key plane as the outer
+   loop, one length-R·N contraction per (o, plane, digit limb), in place.
+   Replaces extprod.py::extprod_step_longk; source csrc/longk.cu.
+K11 `extprod_step3` — the CMux update one weight bucket at a time, the
+   buckets added into the accumulator in place. Replaces
+   extprod.py::extprod_step3; source csrc/bucket.cu.
 
 What bounds them on the H100 is int8 operations (K1 at 256 lanes: ~5.5e10
 multiply-adds a step on ~15 MB of operands). This first version runs the
@@ -35,8 +47,9 @@ Layouts (int64 torus values; the TPU's (lo, hi) u32 pairs do not exist):
   ext_or int8  [O, R, 8-js, 2N]      one BSK entry's limb planes of [p, -p]
   acc    int64 [O, B, N]             the component-major accumulator
 K6-K8 keep the TPU kernels' batch-major operand layouts (each wrapper's
-docstring), read by the kernels through their own strides; only K6's key
-operand differs: it is ext_or, the prepared BSK entry, not a transposed key.
+docstring), read by the kernels through their own strides; only the key
+operands of K6 and K10b differ: each is ext_or, the prepared BSK entry, not
+a transposed key.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. `launches` counts kernel launches only.
@@ -377,6 +390,192 @@ def extprod_partials_grouped(digit_planes: torch.Tensor,
 
 
 extprod_partials_grouped.launches = 0
+
+
+# ------------------------------------- K9 the whole CMux step, one launch
+
+SMEM_LIMIT = 232448      # bytes of shared memory a block may take on sm_90
+
+
+def _check_smem(name: str, nbytes: int) -> None:
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(f"{name}: a block would need {nbytes} bytes of "
+                         f"shared memory (limit {SMEM_LIMIT})")
+
+
+def cmux_step_merged_plain(t, ext_or, acc, base_log: int, levels: int,
+                           j_start: int):
+    """acc + Σ_r digits(X^t·acc - acc)[r] ⊛ BSK rows, a new tensor."""
+    n_d = torus.limbs_for_bound(decomposition.digit_bound(base_log))
+    dig = rot_diff_digits_plain(acc, t, base_log, levels, n_d)
+    return extprod_step2_plain(dig, ext_or, acc.clone(), j_start)
+
+
+def cmux_step_merged(t: torch.Tensor, ext_or: torch.Tensor, acc: torch.Tensor,
+                     base_log: int, levels: int, j_start: int) -> torch.Tensor:
+    """K9. t int32 [B] in [0, 2N); ext_or int8 [O, R, 8-js, 2N]; acc int64
+    [O, B, N], left untouched -> new acc int64 [O, B, N]. (The TPU kernel
+    aliases its output with acc behind a sequential grid; here every block
+    reads the old accumulator of all components, so the result is a second
+    buffer.)"""
+    o, b, n = acc.shape
+    o2, r, nj, two_n = ext_or.shape
+    if (o2 != o or r != o * levels or nj != 8 - j_start or two_n != 2 * n
+            or t.shape != (b,)):
+        raise ValueError(
+            f"cmux_step_merged: shapes t {tuple(t.shape)}, ext_or "
+            f"{tuple(ext_or.shape)}, acc {tuple(acc.shape)} "
+            f"(levels={levels}, j_start={j_start})")
+    if _on_cpu(t, ext_or, acc):
+        return cmux_step_merged_plain(t, ext_or, acc, base_log, levels,
+                                      j_start)
+    n_d = torus.limbs_for_bound(decomposition.digit_bound(base_log))
+    _check_geometry("cmux_step_merged", n, n_d, r, j_start)
+    _check_smem("cmux_step_merged",
+                max(nj * 2 * n * 4, 8 * n * 8) + r * n_d * 8 * n)
+    _require_cuda("cmux_step_merged", [(t, torch.int32), (ext_or, torch.int8),
+                                       (acc, torch.int64)])
+    out = torch.empty_like(acc)
+    f = _fn("merged", "tfhe_cmux_step_merged", [_P] * 4 + [_I] * 7 + [_P])
+    rc = f(t.data_ptr(), ext_or.data_ptr(), acc.data_ptr(), out.data_ptr(),
+           b, n, o, levels, n_d, j_start, base_log,
+           build.stream_ptr(acc.device))
+    build.check(rc, "cmux_step_merged")
+    cmux_step_merged.launches += 1
+    return out
+
+
+cmux_step_merged.launches = 0
+
+
+# ---------------------------------------- K10a the glue, row-flattened
+
+def rot_diff_digits_flat_plain(acc, t, base_log: int, levels: int, n_d: int):
+    """K2's plain output [O, L, n_d, B, N] laid out as int8 [n_d, B, R·N],
+    column (u·L + l)·N + m."""
+    o, b, n = acc.shape
+    dig = rot_diff_digits_plain(acc, t, base_log, levels, n_d)
+    return dig.permute(2, 3, 0, 1, 4).reshape(n_d, b, o * levels * n)
+
+
+def rot_diff_digits_flat(acc: torch.Tensor, t: torch.Tensor, base_log: int,
+                         levels: int, n_d: int) -> torch.Tensor:
+    """K10a. acc int64 [O, B, N]; t int32 [B] -> int8 [n_d, B, R·N], the
+    digit limb planes of X^t·acc - acc with a lane's R = O·L digit
+    polynomials side by side (column r·N + m, r = u·L + l)."""
+    o, b, n = acc.shape
+    if t.shape != (b,):
+        raise ValueError(
+            f"rot_diff_digits_flat: t shape {tuple(t.shape)} != ({b},)")
+    if _on_cpu(acc, t):
+        return rot_diff_digits_flat_plain(acc, t, base_log, levels, n_d)
+    _check_geometry("rot_diff_digits_flat", n, n_d, 1, 0)
+    _require_cuda("rot_diff_digits_flat",
+                  [(acc, torch.int64), (t, torch.int32)])
+    out = torch.empty((n_d, b, o * levels * n), dtype=torch.int8,
+                      device=acc.device)
+    f = _fn("longk", "tfhe_rot_diff_digits_flat",
+            [_P, _P, _P] + [_I] * 6 + [_P])
+    rc = f(acc.data_ptr(), t.data_ptr(), out.data_ptr(), b, n, o, levels,
+           n_d, base_log, build.stream_ptr(acc.device))
+    build.check(rc, "rot_diff_digits_flat")
+    rot_diff_digits_flat.launches += 1
+    return out
+
+
+rot_diff_digits_flat.launches = 0
+
+
+# ------------------------- K10b the CMux update, one long contraction a plane
+
+def extprod_step_longk_plain(dig_flat, ext_or, acc, j_start: int):
+    """acc += Σ_r dig[r] ⊛ BSK rows on the flat digit layout, in place."""
+    n_d, b, rn = dig_flat.shape
+    r = ext_or.shape[1]
+    prod = polynomial.nc_limb_product(
+        dig_flat.reshape(n_d, 1, b, r, rn // r),
+        ext_or.permute(1, 0, 2, 3)[None], j_start)          # [1, B, O, N]
+    acc += prod[0].permute(1, 0, 2)
+    return acc
+
+
+def extprod_step_longk(dig_flat: torch.Tensor, ext_or: torch.Tensor,
+                       acc: torch.Tensor, j_start: int) -> torch.Tensor:
+    """K10b. dig_flat int8 [n_d, B, R·N] (K10a's output); ext_or int8
+    [O, R, 8-js, 2N] — the prepared BSK entry, NOT the plane-major ext_oj
+    [O, 8-js, R, 2N] that the TPU kernel takes: the kernel walks plane by
+    plane through ext_or's strides, so no key is transposed; acc int64
+    [O, B, N], updated in place (the TPU kernel aliases it) and returned."""
+    n_d, b, rn = dig_flat.shape
+    o, r, nj, two_n = ext_or.shape
+    n = two_n // 2
+    if (rn != r * n or two_n != 2 * n or nj != 8 - j_start
+            or acc.shape != (o, b, n)):
+        raise ValueError(
+            f"extprod_step_longk: shapes dig_flat {tuple(dig_flat.shape)}, "
+            f"ext_or {tuple(ext_or.shape)}, acc {tuple(acc.shape)} "
+            f"(j_start={j_start})")
+    if _on_cpu(dig_flat, ext_or, acc):
+        return extprod_step_longk_plain(dig_flat, ext_or, acc, j_start)
+    _check_geometry("extprod_step_longk", n, n_d, r, j_start)
+    _check_smem("extprod_step_longk", 2 * n * 4 + n_d * 8 * r * n)
+    _require_cuda("extprod_step_longk",
+                  [(dig_flat, torch.int8), (ext_or, torch.int8),
+                   (acc, torch.int64)])
+    f = _fn("longk", "tfhe_extprod_step_longk", [_P] * 3 + [_I] * 6 + [_P])
+    rc = f(dig_flat.data_ptr(), ext_or.data_ptr(), acc.data_ptr(), b, n, o, r,
+           n_d, j_start, build.stream_ptr(acc.device))
+    build.check(rc, "extprod_step_longk")
+    extprod_step_longk.launches += 1
+    return acc
+
+
+extprod_step_longk.launches = 0
+
+
+# ------------------------------ K11 the CMux update, bucket by bucket
+
+def extprod_step3_plain(dig, ext_or, acc, j_start: int):
+    """acc += Σ_s sext(bucket_s) << 8s with bucket_s = Σ_r Σ_{i+j=s}
+    dig_i[r] ⊛ plane_j[r], in place: the int32 buckets of
+    `polynomial.nc_limb_partials`, folded one after the other."""
+    k1, lv, n_d, b, n = dig.shape
+    dig_planes = dig.reshape(k1 * lv, n_d, b, n).permute(1, 2, 0, 3)[:, None]
+    parts = polynomial.nc_limb_partials(
+        dig_planes, ext_or.permute(1, 0, 2, 3)[None], j_start)[:, 0]
+    for s in range(j_start, 8):                       # [8, B, O, N]
+        acc += (parts[s].to(torch.int64) << (8 * s)).permute(1, 0, 2)
+    return acc
+
+
+def extprod_step3(dig: torch.Tensor, ext_or: torch.Tensor, acc: torch.Tensor,
+                  j_start: int) -> torch.Tensor:
+    """K11. dig int8 [k+1, L, n_d, B, N] (K2's output; row r = u·L + l);
+    ext_or int8 [O, R, 8-js, 2N]; acc int64 [O, B, N], updated in place (the
+    kernel adds each bucket with 64-bit atomics, exact mod 2^64 in any
+    order) and returned."""
+    k1, lv, n_d, b, n = dig.shape
+    o, r, nj, two_n = ext_or.shape
+    if (o != k1 or r != k1 * lv or nj != 8 - j_start or two_n != 2 * n
+            or acc.shape != (o, b, n)):
+        raise ValueError(
+            f"extprod_step3: shapes dig {tuple(dig.shape)}, ext_or "
+            f"{tuple(ext_or.shape)}, acc {tuple(acc.shape)} "
+            f"(j_start={j_start})")
+    if _on_cpu(dig, ext_or, acc):
+        return extprod_step3_plain(dig, ext_or, acc, j_start)
+    _check_geometry("extprod_step3", n, n_d, r, j_start)
+    _require_cuda("extprod_step3", [(dig, torch.int8), (ext_or, torch.int8),
+                                    (acc, torch.int64)])
+    f = _fn("bucket", "tfhe_extprod_step3", [_P] * 3 + [_I] * 6 + [_P])
+    rc = f(dig.data_ptr(), ext_or.data_ptr(), acc.data_ptr(), b, n, o, r,
+           n_d, j_start, build.stream_ptr(acc.device))
+    build.check(rc, "extprod_step3")
+    extprod_step3.launches += 1
+    return acc
+
+
+extprod_step3.launches = 0
 
 
 def split_polys_ext(polys: torch.Tensor) -> torch.Tensor:

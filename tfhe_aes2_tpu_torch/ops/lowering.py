@@ -11,6 +11,12 @@ schedule in both packages:
                   step's glue in one launch); TFHE_BR_KERNEL=gridg, default
       "grid"      K2 then K5 per step (glue and dots as two launches);
                   TFHE_BR_KERNEL=grid
+      "merged"    K9 per step (glue, dots and recombine in one launch, the
+                  digits never in device memory); TFHE_BR_KERNEL=merged
+      "longk"     K10a then K10b per step (row-flattened digits, one long
+                  contraction per key plane); TFHE_BR_KERNEL=longk
+      "bucket"    K2 then K11 per step (one weight bucket per block, added
+                  with atomics); TFHE_BR_KERNEL=bucket
       "glue_out"  rotate, subtract, decompose and split in plain torch, then
                   K6 per step on batch-major layouts; TFHE_BR_GLUE=xla
   vp  "fused"     K3 per CMux stage (u64 recombination in the kernel);
@@ -24,10 +30,8 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 
-BR_CHOICES = ("gridg", "grid", "glue_out")
+BR_CHOICES = ("gridg", "grid", "merged", "longk", "bucket", "glue_out")
 VP_CHOICES = ("fused", "partials")
-# the JAX package's TFHE_BR_KERNEL values whose kernels the port lacks
-_BR_UNPORTED = ("merged", "longk", "bucket")
 
 
 @dataclass(frozen=True)
@@ -51,11 +55,7 @@ class Lowering:
         kernel = env.get("TFHE_BR_KERNEL", "gridg")
         if env.get("TFHE_BR_GLUE", "pallas") == "xla":
             br = "glue_out"
-        elif kernel in _BR_UNPORTED:
-            raise ValueError(
-                f"TFHE_BR_KERNEL={kernel} is not ported yet (ROADMAP.md "
-                "Queue 2: K9 merged, K10a/K10b longk, K11 bucket)")
-        elif kernel in ("gridg", "grid"):
+        elif kernel in BR_CHOICES and kernel != "glue_out":
             br = kernel
         else:
             raise ValueError(f"TFHE_BR_KERNEL={kernel!r} is not a schedule "
