@@ -11,7 +11,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      kernel's bound; and the cross-checks: K7's partial sums recombined
      equal K6's update, K2 then K5 equals K1, and one step of each of the
      schedules `merged` (K9), `longk` (K10a then K10b) and `bucket` (K2 then
-     K11) equals K2 then K5, at B in {9, 128, 160, 256, 288};
+     K11) equals K2 then K5, at B in {9, 128, 160, 256, 288}; K1 and K9,
+     whose products run on the tensor cores, again over a grid of small and
+     ragged shapes (N in {64, 256, 512}, B in {1, 9, 13, 288}, js in {0, 2},
+     n_d in {1, 2, 3}) and at the extreme value -128 in every operand byte;
+     and, as a yardstick printed beside them, the int8 rate one
+     `torch._int_mm` reaches at K1's size (the port never calls it);
   3. fast end-to-end runs at PARAMS_TEST (2 rounds), decrypt-verified: the
      default lowering, then ("glue_out", "partials") with a compressed
      response, then the keystream server as a second OS process on the card
@@ -46,6 +51,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      counters reset and read around each request and each derivation.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or tfhe_aes2_tpu.
+
+    python3 chip_smoke.py --kernels-only
+
+stops after phase 2 and prints the kernels' measurements without the launch
+counts and without the last line: the quick way to time a kernel change.
 """
 
 from __future__ import annotations
@@ -217,6 +227,10 @@ def phase_device() -> str:
               if "spill" in ln and " 0 bytes spill" not in ln]
     log(f"ptxas: {len(spills)} kernel instantiations report spills"
         + "".join(f"\n  {name}" for name in spills))
+    # the blind rotation's instantiations (ND=2, JS=2) of K1 and K9
+    for i, ln in enumerate(report):
+        if ("step2g_kernelILi2ELi2E" in ln or "merged_kernelILi2ELi2E" in ln):
+            log("ptxas: " + " | ".join(x.strip() for x in report[i:i + 3]))
     return smi
 
 
@@ -294,6 +308,60 @@ def check_step_schedules(rows: dict, b: int, acc, t, ext, js: int, nd: int):
     rows["cmux_step_merged"][-1]["step_ms"] = dict(
         gridg=k1_ms, grid=grid_ms, merged=merged_ms, longk=longk_ms,
         bucket=bucket_ms)
+
+
+def check_tensor_core_steps(gen) -> int:
+    """K1 and K9 bit-equal to their plain versions over small, ragged and
+    full shapes, then at the extreme value: every digit and key byte -128 at
+    the blind rotation's R=15, N=512, n_d=2, js=2, where each int32 bucket
+    reaches n_d·R·N·2^14, the bound the wrappers admit (K9's digits come
+    from its own glue, so only its key is extreme). Returns the number of
+    comparisons made."""
+    def compare(k1, lv, nd, bl, b, n, js, fill=None):
+        acc = torch.randint(-2**62, 2**62, (k1, b, n), generator=gen,
+                            dtype=torch.int64).to(DEV)
+        t = torch.randint(0, 2 * n, (b,), generator=gen,
+                          dtype=torch.int32).to(DEV)
+        lo, hi = (-128, 128) if fill is None else (fill, fill + 1)
+        dig = rand_i8(gen, (k1, lv, nd, b, n), lo, hi)
+        ext = rand_i8(gen, (k1, k1 * lv, 8 - js, 2 * n), lo, hi)
+        got = kx.extprod_step2g(dig, ext, acc.clone(), t, bl, lv, js)
+        ref = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, bl, lv, js)
+        got9 = kx.cmux_step_merged(t, ext, acc, bl, lv, js)
+        ref9 = kx.cmux_step_merged_plain(t, ext, acc, bl, lv, js)
+        sync()
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+                and torch.equal(got9, ref9)):
+            raise AssertionError(f"K1 or K9 differs from plain at N={n} "
+                                 f"B={b} js={js} n_d={nd} fill={fill}")
+        return 2
+
+    done = 0
+    for n in (64, 256, 512):
+        for b in (1, 9, 13, 288):
+            for js in (0, 2):
+                for nd, bl in ((1, 6), (2, 12), (3, 20)):   # limbs, base_log
+                    done += compare(2, 2, nd, bl, b, n, js)
+    return done + compare(5, 3, 2, 12, 13, 512, 2, fill=-128)
+
+
+def int8_library_rate(b: int, n: int, macs: int) -> None:
+    """A yardstick, not a reference: one `torch._int_mm` of [b, n] x [n, n]
+    int8 on the card, as the int8 tensor rate a library reaches at this M,
+    and the time K1's multiply-adds would take at that rate."""
+    try:
+        x = torch.zeros((b, n), dtype=torch.int8, device=DEV)
+        w = torch.zeros((n, n), dtype=torch.int8, device=DEV)
+        ms = time_ms(lambda: torch._int_mm(x, w), reps=50)
+    except (RuntimeError, AttributeError) as e:
+        log(f"  int8 rate probe skipped: torch._int_mm refused [{b}, {n}] x "
+            f"[{n}, {n}]: {str(e).splitlines()[0][:200]}")
+        return
+    rate = 2 * b * n * n / (ms * 1e-3)
+    log(f"  int8 rate probe: torch._int_mm [{b}, {n}] x [{n}, {n}] "
+        f"{ms:.4f} ms = {rate / 1e12:.2f} TOPS (one product of this size "
+        f"is near launch latency); K1's step at B={b} is "
+        f"{macs // (b * n * n)} such products")
 
 
 def phase_kernels() -> dict:
@@ -385,6 +453,11 @@ def phase_kernels() -> dict:
     log("  cross-check: K2 then K5 == K1, and K6 == K1's accumulator, at "
         "every B >= 128; K9 == K10b after K10a == K11 after K2 == K5 after "
         "K2 at every B")
+    done = check_tensor_core_steps(gen)
+    log(f"  K1 and K9 bit-equal to plain in {done} more comparisons: N in "
+        "{64, 256, 512} x B in {1, 9, 13, 288} x js in {0, 2} x n_d in "
+        "{1, 2, 3}, and every digit and key byte -128 at R=15, N=512")
+    int8_library_rate(288, n, 288 * k1 * r * n * n * pairs(nd, js))
 
     # K7 at B=288: all 8 key planes (js=0); with the planes the BSK drops
     # zeroed, its partial sums recombined must be K6's update at js
@@ -599,7 +672,8 @@ def phase_full_width():
     return client, raw, ctx, request, out1.array, batch, latency
 
 
-def phase_second_path(client, ctx, request, out_default, latency_default):
+def phase_second_path(client, ctx, request, out_default, latency_default,
+                      k1_ms_160):
     """The unfused lowerings at full width, held bit-for-bit against the
     default lowering on phase 4's keys and inputs."""
     log("== phase 5: full width, second path: lowering (grid, partials) "
@@ -643,6 +717,7 @@ def phase_second_path(client, ctx, request, out_default, latency_default):
     sync()
     t0 = time.time()
     ref = blind_rotate.blind_rotate_glwe(lwe, bsk, acc, P, Lowering())
+    t_host = time.time() - t0          # every launch enqueued, none awaited
     sync()
     t_default = time.time() - t0
     reset_counters()
@@ -672,6 +747,10 @@ def phase_second_path(client, ctx, request, out_default, latency_default):
     log(f"blind rotation, B={b}, {n_lwe} steps: default {t_default:.3f} s, "
         f"glue_out {t_glue:.3f} s, bit-equal; K6 == K7 recombined on its "
         "operands")
+    log(f"host share of the default rotation: wall {t_default:.4f} s, the "
+        f"host had enqueued all {n_lwe} steps after {t_host:.4f} s "
+        f"({1e6 * t_host / n_lwe:.1f} us a step), {n_lwe} x K1's "
+        f"{k1_ms_160:.4f} ms at B={b} = {n_lwe * k1_ms_160 / 1e3:.4f} s")
     require_launches("glue_out rotation", glue,
                      ("extprod_step", "extprod_partials"))
     return grid, glue
@@ -822,9 +901,18 @@ def main() -> int:
         return 1
     smi = phase_device()
     rows = phase_kernels()
+    if sys.argv[1:] == ["--kernels-only"]:
+        log(f"card: {smi}")
+        print(json.dumps({"kernels_only": {
+            name: [{k: v for k, v in x.items() if k not in ("macs", "nbytes")}
+                   for x in rows[name]] for name in KERNELS}}))
+        return 0
     phase_test_params()
     client, raw, ctx, request, out1, batch, latency = phase_full_width()
-    grid, glue = phase_second_path(client, ctx, request, out1, latency)
+    k1_ms_160 = next(x["ms"] for x in rows["extprod_step2g"]
+                     if x["name"].endswith("B=160"))
+    grid, glue = phase_second_path(client, ctx, request, out1, latency,
+                                   k1_ms_160)
     third = phase_server(client, raw, ctx, request, out1)
     # each kernel's launches on the main paths: the default lowering's two
     # runs (phase 4), the (grid, partials) run and the glue_out rotation

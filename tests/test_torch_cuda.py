@@ -89,3 +89,60 @@ def test_cuda_kernels_match_plain():
     assert torch.equal(kmm.fused_limb_matmul(d, m, 1),
                        kmm.fused_limb_matmul_plain(d, m, 1))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 256, 512])
+@pytest.mark.parametrize("b", [1, 9, 13, 288])
+def test_cuda_tensor_core_steps_match_plain(n, b):
+    """On the card: K1 and K9 (mma.sync int8) bit-equal to their plain
+    versions with a ragged last lane tile, for js in {0, 2} and one, two and
+    three limbs a digit."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(1000 * n + b)
+    k1, levels = 2, 2
+    for js in (0, 2):
+        for n_d, base_log in ((1, 6), (2, 12), (3, 20)):
+            acc = torch.randint(-2 ** 62, 2 ** 62, (k1, b, n), generator=gen,
+                                dtype=torch.int64).cuda()
+            t = torch.randint(0, 2 * n, (b,), generator=gen,
+                              dtype=torch.int32).cuda()
+            dig = torch.randint(-128, 128, (k1, levels, n_d, b, n),
+                                generator=gen, dtype=torch.int8).cuda()
+            ext = torch.randint(-128, 128, (k1, k1 * levels, 8 - js, 2 * n),
+                                generator=gen, dtype=torch.int8).cuda()
+            a1, d1 = kx.extprod_step2g(dig, ext, acc.clone(), t, base_log,
+                                       levels, js)
+            a2, d2 = kx.extprod_step2g_plain(dig, ext, acc.clone(), t,
+                                             base_log, levels, js)
+            assert torch.equal(a1, a2) and torch.equal(d1, d2)
+            assert torch.equal(
+                kx.cmux_step_merged(t, ext, acc, base_log, levels, js),
+                kx.cmux_step_merged_plain(t, ext, acc, base_log, levels, js))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_core_steps_extreme_values():
+    """On the card: every digit and key byte -128 at the blind rotation's
+    R=15, N=512, n_d=2, js=2 — each int32 bucket at the bound the wrappers
+    admit — still bit-equal to plain (K9's digits come from its own glue, so
+    only its key is extreme)."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(9)
+    k1, levels, n, b, n_d, js, base_log = 5, 3, 512, 13, 2, 2, 12
+    dig = torch.full((k1, levels, n_d, b, n), -128, dtype=torch.int8,
+                     device="cuda")
+    ext = torch.full((k1, k1 * levels, 8 - js, 2 * n), -128,
+                     dtype=torch.int8, device="cuda")
+    acc = torch.randint(-2 ** 62, 2 ** 62, (k1, b, n), generator=gen,
+                        dtype=torch.int64).cuda()
+    t = torch.randint(0, 2 * n, (b,), generator=gen, dtype=torch.int32).cuda()
+    a1, d1 = kx.extprod_step2g(dig, ext, acc.clone(), t, base_log, levels, js)
+    a2, d2 = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, base_log,
+                                     levels, js)
+    assert torch.equal(a1, a2) and torch.equal(d1, d2)
+    assert torch.equal(
+        kx.cmux_step_merged(t, ext, acc, base_log, levels, js),
+        kx.cmux_step_merged_plain(t, ext, acc, base_log, levels, js))
+    torch.cuda.synchronize()

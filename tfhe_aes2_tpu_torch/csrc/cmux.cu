@@ -16,17 +16,40 @@
 //
 // What bounds it on the H100: int8 operations. At B = 256 lanes a step is
 // 256·5·15·512²·11 ≈ 5.5e10 multiply-adds against ~15 MB of operands, far
-// above the card's operations-per-byte balance. This first version feeds
-// the products through __dp4a (4 int8 multiply-adds per instruction on the
-// CUDA cores) from shared-memory S-tables (nc_common.cuh), not through the
-// tensor cores, so it runs well below the 1,979 TOPS int8 tensor peak; the
-// negacirculant is built on chip from the 2N-byte ext row, never stored.
-// Moving the products onto mma/wgmma is the next step for this kernel.
-#include "nc_common.cuh"
+// above the card's operations-per-byte balance. K1's products therefore run
+// on the tensor cores: nc::contract_mma (nc_mma.cuh) emits
+// mma.sync.m16n8k32 int8 instructions whose A fragments are the words of the
+// shared-memory S-tables and whose B fragments are words of the digit tile,
+// so the negacirculant is still built on chip from the 2N-byte key row and
+// never stored. Key rows and digit tiles arrive by cp.async one contraction
+// row ahead. One block an SM: held to the 128 registers that two blocks
+// would leave a thread, the kernel spills, gains 5% at 288 lanes and loses
+// 12% at 160 and below (PERF.md), because what is left above the int8 bound
+// is not latency but the instruction rate of mma.sync itself: alone it reaches
+// 2/3 of the card's int8 peak at this N = 8 (probes/mma_rate.cu), and each
+// shared load or register move between two of them costs about a fifth of
+// one. The glue is about 1 us of a 140 us step. K2 is bound by bytes.
+#include "nc_mma.cuh"
 
 namespace {
 
-// Grid (ceil(B/ROWS), O), block N/2.
+// Blocks an SM that K1's register budget is held to; probes/step_variants.py
+// builds it with 2 (128 registers a thread) to time that against this.
+#ifndef NC_K1_MIN_BLOCKS
+#define NC_K1_MIN_BLOCKS 1
+#endif
+
+// Shared memory of a K1 block: the two stages of the contraction, or the
+// [ROWS][N] tile of the new accumulator that takes their place afterwards.
+inline size_t step_smem(int nd, int nj, int n) {
+  const size_t stages = 2 * (size_t)(nc::tab_bytes(nj, n) +
+                                     nc::raw_bytes(nj, n) +
+                                     nc::dig_tile_bytes(nd, n));
+  const size_t tile = (size_t)nc::ROWS * n * 8;
+  return stages > tile ? stages : tile;
+}
+
+// Grid (ceil(B/ROWS), O), block N/2 (one warp per 64 columns).
 // dig     int8  [R][ND][B][N]       this step's digit limb planes (R = O·L)
 // ext     int8  [O][R][8-JS][2N]    this step's BSK limb planes
 // acc     int64 [O][B][N]           updated in place
@@ -34,6 +57,7 @@ namespace {
 // dig_out int8  [O][L][ND][B][N]    next step's digits
 template <int ND, int JS>
 __global__ void
+__launch_bounds__(256, NC_K1_MIN_BLOCKS)
 extprod_step2g_kernel(const int8_t* __restrict__ dig,
                       const int8_t* __restrict__ ext,
                       uint64_t* __restrict__ acc,
@@ -46,38 +70,30 @@ extprod_step2g_kernel(const int8_t* __restrict__ dig,
   const int b0 = blockIdx.x * nc::ROWS;
   const int rows = min(nc::ROWS, B - b0);
 
-  int32_t part[nc::ROWS][nc::COLS][NJ];
-  const nc::Operands op{dig + (size_t)b0 * n, (size_t)ND * B * n,
-                        (size_t)B * n, (size_t)n,
-                        ext + (size_t)o * R * NJ * 2 * n,
-                        (size_t)NJ * 2 * n, (size_t)2 * n};
-  nc::contract<ND, JS>(part, smem, op, R, rows, n);
+  int32_t part[nc::MT][NJ][4];
+  const nc::Staged op{ext + (size_t)o * R * NJ * 2 * n, dig + (size_t)b0 * n,
+                      (unsigned)(ND * B * n), (unsigned)(B * n), nullptr};
+  nc::contract_mma<ND, JS, true>(part, smem, op, R, rows, n);
 
-  __syncthreads();                      // shared memory now holds the tile
+  // the stages are idle past the contraction's last barrier: shared memory
+  // now holds the tile of the new accumulator, zero rows past the batch edge
   uint64_t* tile = reinterpret_cast<uint64_t*>(smem);   // [ROWS][N]
-#pragma unroll
-  for (int row = 0; row < nc::ROWS; ++row) {
-#pragma unroll
-    for (int c = 0; c < nc::COLS; ++c) {
-      const int m = threadIdx.x + c * blockDim.x;
-      uint64_t v = 0;
-      if (row < rows) {
-        uint64_t* p = acc + ((size_t)o * B + b0 + row) * n + m;
-        v = *p + nc::recombine<JS>(part[row][c]);
-        *p = v;
-      }
-      tile[row * n + m] = v;
+  uint64_t* acc_o = acc + ((size_t)o * B + b0) * n;
+  nc::for_each_output<JS>(part, [&](int lane, int m, uint64_t sum) {
+    uint64_t v = 0;
+    if (lane < rows) {
+      v = acc_o[(size_t)lane * n + m] + sum;
+      acc_o[(size_t)lane * n + m] = v;
     }
-  }
+    tile[lane * n + m] = v;
+  });
   __syncthreads();
   for (int row = 0; row < rows; ++row) {
     const int t = t_next[b0 + row];
-    for (int c = 0; c < nc::COLS; ++c) {
-      const int m = threadIdx.x + c * blockDim.x;
+    for (int m = threadIdx.x; m < n; m += blockDim.x)
       nc::glue<ND>(tile + row * n, t, m, n, levels, base_log,
                    dig_out + (((size_t)o * levels * ND) * B + b0 + row) * n,
                    (size_t)ND * B * n, (size_t)B * n);
-    }
   }
 }
 
@@ -110,15 +126,13 @@ template <int ND, int JS>
 int launch_step(const int8_t* dig, const int8_t* ext, int64_t* acc,
                 const int32_t* t_next, int8_t* dig_out, int B, int n, int O,
                 int R, int levels, int base_log, cudaStream_t stream) {
-  const size_t smem_main = nc::contraction_smem(ND, 8 - JS, n);
-  const size_t smem_tile = (size_t)nc::ROWS * n * 8;
-  const size_t smem = smem_main > smem_tile ? smem_main : smem_tile;
+  const size_t smem = step_smem(ND, 8 - JS, n);
   auto kern = extprod_step2g_kernel<ND, JS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((B + nc::ROWS - 1) / nc::ROWS, O);
-  kern<<<grid, n / nc::COLS, smem, stream>>>(
+  kern<<<grid, nc::mma_threads(n), smem, stream>>>(
       dig, ext, reinterpret_cast<uint64_t*>(acc), t_next, dig_out, B, n, R,
       levels, base_log);
   return (int)cudaGetLastError();

@@ -35,12 +35,18 @@ K11 `extprod_step3` — the CMux update one weight bucket at a time, the
    extprod.py::extprod_step3; source csrc/bucket.cu.
 
 What bounds them on the H100 is int8 operations (K1 at 256 lanes: ~5.5e10
-multiply-adds a step on ~15 MB of operands). This first version runs the
-products as __dp4a from shared-memory S-tables that index the 2N-byte ext
-row, so the negacirculant (146 GB for the expanded BSK) never exists; the
-TPU's packed ladders, weight buckets in VMEM and sequential (n_bt, o, r)
-grid have no counterpart — a block owns ROWS lanes × all N columns of one
-component and loops over r itself (csrc/nc_common.cuh).
+multiply-adds a step on ~15 MB of operands). Every kernel reads the
+negacirculant from shared-memory S-tables that index the 2N-byte ext row,
+so it (146 GB for the expanded BSK) never exists; the TPU's packed ladders,
+weight buckets in VMEM and sequential (n_bt, o, r) grid have no counterpart
+— a block owns ROWS lanes × all N columns of one component and loops over r
+itself. K1 and K9, the steps the default and the server paths run, put
+their products on the tensor cores: `mma.sync.m16n8k32` int8 whose operand
+fragments are S-table and digit-tile words, the operands staged by
+`cp.async` one contraction row ahead (csrc/nc_mma.cuh); what is left above
+their bound is the instruction rate of `mma.sync` at N = 8 and, in K9, the glue.
+The others still run `__dp4a` on the CUDA cores, about 1/16 of that rate
+(csrc/nc_common.cuh).
 
 Layouts (int64 torus values; the TPU's (lo, hi) u32 pairs do not exist):
   dig    int8  [k+1, L, n_d, B, N]   digit limb planes, row r = u·L + l
@@ -68,10 +74,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+_fns: dict = {}
+
+
 def _fn(stem: str, name: str, argtypes):
-    f = getattr(build.library(stem), name)
-    f.argtypes = argtypes
-    f.restype = ctypes.c_int
+    """The C entry point `name` of library `stem`, prepared once."""
+    f = _fns.get((stem, name))
+    if f is None:
+        f = getattr(build.library(stem), name)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _fns[stem, name] = f
     return f
 
 
@@ -92,15 +105,49 @@ def _require_cuda(name: str, spec) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
-def _check_geometry(name: str, n: int, n_d: int, r: int, j_start: int):
-    if n & (n - 1) or not 8 <= n <= 512:
-        raise ValueError(f"{name}: N={n} must be a power of two in [8, 512]")
+def _check_geometry(name: str, n: int, n_d: int, r: int, j_start: int,
+                    n_min: int = 8):
+    """n_min: 8 for the `__dp4a` kernels; 64 for K1 and K9, whose warps own
+    64 columns each and index their S-tables unmasked."""
+    if n & (n - 1) or not n_min <= n <= 512:
+        raise ValueError(f"{name}: N={n} must be a power of two in "
+                         f"[{n_min}, 512]")
     if not 1 <= n_d <= 3 or not 0 <= j_start <= 7:
         raise ValueError(f"{name}: n_d={n_d}, j_start={j_start} unsupported")
     # int32 weight buckets: at most n_d (i, j) pairs of R·N products of
     # at most 2^7·2^7 each (csrc/nc_common.cuh)
     if n_d * r * n * (1 << 14) >= 1 << 31:
         raise ValueError(f"{name}: contraction too long for int32 buckets")
+
+
+SMEM_LIMIT = 232448      # bytes of shared memory a block may take on sm_90
+
+
+def _check_smem(name: str, nbytes: int) -> None:
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(f"{name}: a block would need {nbytes} bytes of "
+                         f"shared memory (limit {SMEM_LIMIT})")
+
+
+def _mma_stage_bytes(n: int, nj: int) -> int:
+    """Two stages of S-tables and raw key rows (csrc/nc_mma.cuh)."""
+    return 2 * (nj * 2 * n * 4 + nj * 2 * n)
+
+
+def _mma_dig_tile_bytes(n: int, n_d: int) -> int:
+    """One contraction row's digit tile, each row padded by 16 bytes."""
+    return n_d * 8 * (n + 16)
+
+
+def _check_staged(name: str, *tensors) -> None:
+    """Operands that csrc/nc_mma.cuh stages by cp.async: 16 bytes at a time,
+    through 32-bit byte strides."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+        if t.numel() >= 1 << 31:
+            raise ValueError(f"{name}: an int8 operand of {t.numel()} bytes "
+                             f"is past the kernel's 32-bit strides")
 
 
 # ----------------------------------------------------------------- K2 glue
@@ -167,10 +214,14 @@ def extprod_step2g(dig: torch.Tensor, ext_or: torch.Tensor, acc: torch.Tensor,
     if _on_cpu(dig, ext_or, acc, t_next):
         return extprod_step2g_plain(dig, ext_or, acc, t_next, base_log,
                                     levels, j_start)
-    _check_geometry("extprod_step2g", n, n_d, r, j_start)
+    _check_geometry("extprod_step2g", n, n_d, r, j_start, n_min=64)
+    _check_smem("extprod_step2g",
+                max(_mma_stage_bytes(n, nj) + 2 * _mma_dig_tile_bytes(n, n_d),
+                    8 * n * 8))
     _require_cuda("extprod_step2g",
                   [(dig, torch.int8), (ext_or, torch.int8),
                    (acc, torch.int64), (t_next, torch.int32)])
+    _check_staged("extprod_step2g", dig, ext_or)
     out = torch.empty_like(dig)
     f = _fn("cmux", "tfhe_extprod_step2g", [_P] * 5 + [_I] * 8 + [_P])
     rc = f(dig.data_ptr(), ext_or.data_ptr(), acc.data_ptr(),
@@ -394,15 +445,6 @@ extprod_partials_grouped.launches = 0
 
 # ------------------------------------- K9 the whole CMux step, one launch
 
-SMEM_LIMIT = 232448      # bytes of shared memory a block may take on sm_90
-
-
-def _check_smem(name: str, nbytes: int) -> None:
-    if nbytes > SMEM_LIMIT:
-        raise ValueError(f"{name}: a block would need {nbytes} bytes of "
-                         f"shared memory (limit {SMEM_LIMIT})")
-
-
 def cmux_step_merged_plain(t, ext_or, acc, base_log: int, levels: int,
                            j_start: int):
     """acc + Σ_r digits(X^t·acc - acc)[r] ⊛ BSK rows, a new tensor."""
@@ -430,11 +472,13 @@ def cmux_step_merged(t: torch.Tensor, ext_or: torch.Tensor, acc: torch.Tensor,
         return cmux_step_merged_plain(t, ext_or, acc, base_log, levels,
                                       j_start)
     n_d = torus.limbs_for_bound(decomposition.digit_bound(base_log))
-    _check_geometry("cmux_step_merged", n, n_d, r, j_start)
+    _check_geometry("cmux_step_merged", n, n_d, r, j_start, n_min=64)
     _check_smem("cmux_step_merged",
-                max(nj * 2 * n * 4, 8 * n * 8) + r * n_d * 8 * n)
+                max(_mma_stage_bytes(n, nj), 8 * n * 8)
+                + r * _mma_dig_tile_bytes(n, n_d))
     _require_cuda("cmux_step_merged", [(t, torch.int32), (ext_or, torch.int8),
                                        (acc, torch.int64)])
+    _check_staged("cmux_step_merged", ext_or)
     out = torch.empty_like(acc)
     f = _fn("merged", "tfhe_cmux_step_merged", [_P] * 4 + [_I] * 7 + [_P])
     rc = f(t.data_ptr(), ext_or.data_ptr(), acc.data_ptr(), out.data_ptr(),
