@@ -227,9 +227,13 @@ def phase_device() -> str:
               if "spill" in ln and " 0 bytes spill" not in ln]
     log(f"ptxas: {len(spills)} kernel instantiations report spills"
         + "".join(f"\n  {name}" for name in spills))
-    # the blind rotation's instantiations (ND=2, JS=2) of K1 and K9
+    # the main path's instantiations: K1 and K9 (ND=2, JS=2), K3 (ND=2,
+    # JS=4), K4's keyswitch (ND=1, JS=5) and pfKS (ND=3, JS=1)
     for i, ln in enumerate(report):
-        if ("step2g_kernelILi2ELi2E" in ln or "merged_kernelILi2ELi2E" in ln):
+        if any(key in ln for key in (
+                "step2g_kernelILi2ELi2E", "merged_kernelILi2ELi2E",
+                "grouped_fused_kernelILi2ELi4E",
+                "limb_matmul_kernelILi1ELi5E", "limb_matmul_kernelILi3ELi1E")):
             log("ptxas: " + " | ".join(x.strip() for x in report[i:i + 3]))
     return smi
 
@@ -520,33 +524,160 @@ def phase_kernels() -> dict:
                rows["extprod_partials_grouped"], macs,
                dig.numel() + ext.numel() + parts.numel() * 4, ms, pms, err)
         log(f"    torch recombination of its partial sums: {rms:.4f} ms")
+    # K3 at the extreme value: every digit and key byte -128 at (32, 24)
+    dig = torch.full((32, r_vp, nd_vp * 24, n), -128, dtype=torch.int8,
+                     device=DEV)
+    ext = torch.full((32, k1, r_vp, 8 - js_vp, 2 * n), -128,
+                     dtype=torch.int8, device=DEV)
+    if not torch.equal(kx.extprod_grouped_fused(dig, ext, nd_vp, js_vp),
+                       kx.extprod_grouped_fused_plain(dig, ext, nd_vp,
+                                                      js_vp)):
+        raise AssertionError("K3 differs from plain at the value -128")
+    log("  K3 bit-equal to plain with every digit and key byte -128 at "
+        "32 lanes x G=24")
 
-    # K4: keyswitch then pfKS at 256 lanes
+    check_limb_matmul(rows, gen)
+    sync()
+    return rows
+
+
+def k4_shapes():
+    """The keyswitch's and the pfKS's (name, n_d, K, N, js) at
+    PARAMS_SQRD_LVL_64."""
     kn = P.glwe_dimension * P.polynomial_size
-    shapes = [
+    k1 = P.glwe_dimension + 1
+    return [
         ("keyswitch", torus.limbs_for_bound(
             decomposition.digit_bound(P.ks_base_log)),
          kn * P.ks_level, P.lwe_dimension + 1, truncation.ksk_j_start(P)),
         ("pfKS", torus.limbs_for_bound(
             decomposition.digit_bound(P.pfks_base_log)),
-         (kn + 1) * P.pfks_level, k1 * k1 * n, truncation.pfpksk_j_start(P)),
+         (kn + 1) * P.pfks_level, k1 * k1 * P.polynomial_size,
+         truncation.pfpksk_j_start(P)),
     ]
-    for what, nd_m, kk, nn, js_m in shapes:
-        b = 256
-        d = rand_i8(gen, (nd_m, b, kk))
-        m = rand_i8(gen, (8 - js_m, kk, nn))
-        got = kmm.fused_limb_matmul(d, m, js_m)
-        ref = kmm.fused_limb_matmul_plain(d, m, js_m)
-        sync()
-        err = max_abs_err(got, ref)
-        ms = time_ms(lambda: kmm.fused_limb_matmul(d, m, js_m))
-        pms = time_ms(lambda: kmm.fused_limb_matmul_plain(d, m, js_m),
-                      reps=2)
-        record(f"fused_limb_matmul {what} B={b}", rows["fused_limb_matmul"],
-               b * kk * nn * pairs(nd_m, js_m),
-               d.numel() + m.numel() + got.numel() * 8, ms, pms, err)
-    sync()
-    return rows
+
+
+def int_mm_yardstick(d, m, js):
+    """A yardstick, not a reference, and never called by the port: K4's
+    function as one torch._int_mm per weight bucket s (the bucket's digit
+    planes and key planes concatenated along K, zero-padded to the call's
+    limits: more than 16 rows, K and N multiples of 8) and the int64
+    recombination. Returns `run`, which computes the product from operands
+    laid out beforehand (that layout, a key preparation, is not timed)."""
+    n_d, b, k = d.shape
+    nj, _, n = m.shape
+    bp, kp, np8 = max(b, 17), -(-k // 8) * 8, -(-n // 8) * 8
+    ops = []
+    for s in range(nj):
+        ij = [(i, s - i) for i in range(n_d) if 0 <= s - i < nj]
+        a = torch.zeros((bp, len(ij) * kp), dtype=torch.int8, device=DEV)
+        w = torch.zeros((len(ij) * kp, np8), dtype=torch.int8, device=DEV)
+        for q, (i, j) in enumerate(ij):
+            a[:b, q * kp:q * kp + k] = d[i]
+            w[q * kp:q * kp + k, :n] = m[j]
+        ops.append((a, w, 8 * (s + js)))
+
+    def run():
+        out = torch.zeros((bp, np8), dtype=torch.int64, device=DEV)
+        for a, w, shift in ops:
+            out += torch._int_mm(a, w).to(torch.int64) << shift
+        return out[:b, :n]
+    return run
+
+
+def yardstick(row: dict, what: str, d, m, js: int, ref) -> None:
+    """Times int_mm_yardstick beside K4's row (same function: checked
+    bit-equal to the plain version first); logs a refusal of torch._int_mm
+    and goes on."""
+    b = d.shape[1]
+    try:
+        run = int_mm_yardstick(d, m, js)
+        same = torch.equal(run(), ref)
+    except RuntimeError as e:
+        log(f"    yardstick skipped: torch._int_mm refused {what} B={b}: "
+            f"{str(e).splitlines()[0][:200]}")
+        return
+    if not same:
+        raise AssertionError(f"the _int_mm yardstick differs from K4's "
+                             f"plain version ({what} B={b})")
+    row["int_mm_yardstick_ms"] = yms = time_ms(run)
+    log(f"    yardstick (not the port's): torch._int_mm per weight bucket + "
+        f"int64 recombination, {what} B={b}: {yms:.4f} ms against K4's "
+        f"{row['ms']:.4f} ms")
+
+
+def check_limb_matmul(rows, gen) -> None:
+    """K4 at the keyswitch and pfKS shapes for B in {9, 160, 256, 288},
+    each bit-equal to its plain version and timed; a ragged shape; every
+    byte -128 at the longest K the wrapper admits for three digit limbs,
+    in one block a tile (no split); and the torch._int_mm yardstick."""
+    for what, nd_m, kk, nn, js_m in k4_shapes():
+        # K-major, as ops/keys.py prepares the keys the path passes
+        m = kmm.kmajor_key_planes(rand_i8(gen, (8 - js_m, kk, nn)))
+        for b in (9, 160, 256, 288):
+            d = rand_i8(gen, (nd_m, b, kk))
+            got = kmm.fused_limb_matmul(d, m, js_m)
+            ref = kmm.fused_limb_matmul_plain(d, m, js_m)
+            sync()
+            err = max_abs_err(got, ref)
+            ms = time_ms(lambda: kmm.fused_limb_matmul(d, m, js_m))
+            pms = time_ms(lambda: kmm.fused_limb_matmul_plain(d, m, js_m),
+                          reps=2)
+            record(f"fused_limb_matmul {what} B={b} (split "
+                   f"{kmm._splits(b, kk, nn)})", rows["fused_limb_matmul"],
+                   b * kk * nn * pairs(nd_m, js_m),
+                   d.numel() + m.numel() + got.numel() * 8, ms, pms, err)
+            if b in (9, 288):
+                yardstick(rows["fused_limb_matmul"][-1], what, d, m, js_m,
+                          ref)
+        del m
+    for b, kk, nn, nd_m, js_m in ((13, 130, 40, 3, 1), (70, 4098, 678, 1, 5),
+                                  (1, 77, 33, 2, 0), (289, 4098, 1000, 3, 1)):
+        d, m = rand_i8(gen, (nd_m, b, kk)), rand_i8(gen, (8 - js_m, kk, nn))
+        if not torch.equal(kmm.fused_limb_matmul(d, m, js_m),
+                           kmm.fused_limb_matmul_plain(d, m, js_m)):
+            raise AssertionError(f"K4 differs from plain at B={b} K={kk} "
+                                 f"N={nn} n_d={nd_m} js={js_m}")
+    # 3·K·2^14 < 2^31; 132 tiles of 96 x 64, so no split: one block holds
+    # each bucket at its bound
+    kk = ((1 << 31) - 1) // (3 << 14)
+    d = torch.full((3, 96, kk), -128, dtype=torch.int8, device=DEV)
+    m = torch.full((7, kk, 64 * 132), -128, dtype=torch.int8, device=DEV)
+    assert kmm._splits(96, kk, 64 * 132) == 1
+    if not torch.equal(kmm.fused_limb_matmul(d, m, 1),
+                       kmm.fused_limb_matmul_plain(d, m, 1)):
+        raise AssertionError("K4 differs from plain at the value -128")
+    del d, m
+    log("  K4 bit-equal to plain at 4 ragged shapes and with every byte -128 "
+        f"at K={kk}, B=96, N=8448, n_d=3, js=1 (unsplit)")
+
+
+@contextlib.contextmanager
+def launch_shapes():
+    """Tally K3's and K4's calls by operand shape while the block runs: the
+    module attributes the path calls through are wrapped. A wrapper counts
+    its launches on the function its module's name resolves to, so the
+    recorders carry the counts while installed and hand them back."""
+    tally: dict = {}
+    k3, k4 = kx.extprod_grouped_fused, kmm.fused_limb_matmul
+
+    def k3_seen(dig, ext, n_d, j_start):
+        key = f"K3 lanes={dig.shape[0]} G={dig.shape[2] // n_d}"
+        tally[key] = tally.get(key, 0) + 1
+        return k3(dig, ext, n_d, j_start)
+
+    def k4_seen(d_planes, m_planes, j_start=0):
+        what = "pfKS" if m_planes.shape[2] > P.lwe_dimension + 1 else "KS"
+        key = f"K4 {what} B={d_planes.shape[1]}"
+        tally[key] = tally.get(key, 0) + 1
+        return k4(d_planes, m_planes, j_start)
+    k3_seen.launches, k4_seen.launches = k3.launches, k4.launches
+    kx.extprod_grouped_fused, kmm.fused_limb_matmul = k3_seen, k4_seen
+    try:
+        yield tally
+    finally:
+        kx.extprod_grouped_fused, kmm.fused_limb_matmul = k3, k4
+        k3.launches, k4.launches = k3_seen.launches, k4_seen.launches
 
 
 def reset_counters() -> None:
@@ -659,8 +790,11 @@ def phase_full_width():
 
     request = scenario.encrypt_request(client, ctx, STRATEGY, KEY, blocks[:1])
     reset_counters()
-    out1, t1 = scenario.serve_request(ctx, STRATEGY, *request, rounds=10)
+    with launch_shapes() as shapes:
+        out1, t1 = scenario.serve_request(ctx, STRATEGY, *request, rounds=10)
     latency = read_counters()
+    log("latency path, K3 and K4 launches by shape: " + ", ".join(
+        f"{key}: {count}" for key, count in sorted(shapes.items())))
     assert scenario.read_response(client, ctx, STRATEGY, out1) == expect[:1], \
         "keystream mismatch on the latency path"
     require_launches("1-block latency path", latency, main_path)

@@ -146,3 +146,62 @@ def test_cuda_tensor_core_steps_extreme_values():
         kx.cmux_step_merged(t, ext, acc, base_log, levels, js),
         kx.cmux_step_merged_plain(t, ext, acc, base_log, levels, js))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 9, 13, 70, 288])
+def test_cuda_limb_matmul_tensor_cores_match_plain(b):
+    """On the card: K4 (mma.sync int8, K split across blocks where the
+    output has few tiles) bit-equal to its plain version at ragged K, N and
+    B, with one, two and three digit limbs, at the keyswitch's and the
+    pfKS's K and N, on N-major key planes (laid out K-major by the wrapper)
+    and on the K-major view the prepared keys hold."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(50 + b)
+    for k, n, n_d, js in ((130, 40, 3, 1), (4098, 678, 1, 5),
+                          (8192, 678, 1, 5), (4098, 1000, 3, 1),
+                          (77, 33, 2, 0), (4098, 12800, 3, 1)):
+        d = torch.randint(-128, 128, (n_d, b, k), generator=gen,
+                          dtype=torch.int8).cuda()
+        m = torch.randint(-128, 128, (8 - js, k, n), generator=gen,
+                          dtype=torch.int8).cuda()
+        ref = kmm.fused_limb_matmul_plain(d, m, js)
+        assert torch.equal(kmm.fused_limb_matmul(d, m, js), ref), (k, n)
+        assert torch.equal(kmm.fused_limb_matmul(
+            d, kmm.kmajor_key_planes(m), js), ref), (k, n)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_limb_matmul_extreme_values():
+    """On the card: every byte -128 at the longest K the wrapper admits for
+    three digit limbs, split across blocks and not."""
+    require_cuda()
+    k = ((1 << 31) - 1) // (3 << 14)
+    for b, n in ((13, 40), (96, 64 * 132)):
+        d = torch.full((3, b, k), -128, dtype=torch.int8, device="cuda")
+        m = torch.full((7, k, n), -128, dtype=torch.int8, device="cuda")
+        assert torch.equal(kmm.fused_limb_matmul(d, m, 1),
+                           kmm.fused_limb_matmul_plain(d, m, 1)), (b, n)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 512])
+@pytest.mark.parametrize("lanes,g", [(4, 8), (3, 11), (5, 1), (2, 24)])
+def test_cuda_grouped_tensor_cores_match_plain(n, lanes, g):
+    """On the card: K3 (nc::contract_mma, a lane's accumulators as the
+    instruction's columns) bit-equal to its plain version with ragged and
+    single-accumulator groups, for js in {0, 4} and one to three limbs."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(100 * n + 10 * lanes + g)
+    for js in (0, 4):
+        for n_d in (1, 2, 3):
+            dig = torch.randint(-128, 128, (lanes, 5, n_d * g, n),
+                                generator=gen, dtype=torch.int8).cuda()
+            ext = torch.randint(-128, 128, (lanes, 2, 5, 8 - js, 2 * n),
+                                generator=gen, dtype=torch.int8).cuda()
+            assert torch.equal(
+                kx.extprod_grouped_fused(dig, ext, n_d, js),
+                kx.extprod_grouped_fused_plain(dig, ext, n_d, js)), (js, n_d)
+    torch.cuda.synchronize()

@@ -1,5 +1,5 @@
-// The negacirculant contraction of K1 (cmux.cu) and K9 (merged.cu) on the
-// tensor cores: mma.sync.m16n8k32 (int8 x int8 -> int32) fed straight from
+// The negacirculant contraction of K1 (cmux.cu), K3 (vp.cu) and K9
+// (merged.cu) on the tensor cores: mma.sync.m16n8k32 (int8 x int8 -> int32) fed straight from
 // the shared-memory S-tables, with the key rows and digit tiles staged by
 // cp.async one contraction row ahead.
 //
@@ -212,7 +212,7 @@ __device__ __forceinline__ void mma_row(int32_t (&acc)[MT][8 - JS][4],
 // (R padded tiles of dig_tile_bytes each).
 struct Staged {
   const int8_t* ext;   // row r's NJ key rows are contiguous at ext + r*raw_bytes
-  const int8_t* dig;   // K1: digit plane i of lane `row` at row r is at
+  const int8_t* dig;   // K1, K3: digit plane i of lane `row` at row r is at
                        // dig + r*dig_r + i*dig_plane + row*n
   unsigned dig_r, dig_plane;
   const unsigned char* dig_res;   // K9: the resident digit tiles

@@ -13,6 +13,7 @@
 //          the loads replaced by integer adds;
 //   wgmma  wgmma.mma_async.m64n8k32.s8 with A from registers and B from
 //          shared memory, 8 accumulators a warp, one group in flight;
+//   wide   wgmma.m64nNk32.s8 for N = 32, 64, 128 (rates only);
 // and prints each as TOPS and as a share of the H100's 1,979 TOPS dense
 // int8 peak. Before timing it checks the wgmma operand forms against a host
 // reference: A's register fragment is mma.sync's with rows 16·warp + ..,
@@ -49,6 +50,37 @@ __device__ __forceinline__ void wgmma_n8(int32_t (&d)[4], uint32_t a0,
       "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, %8, p;\n}\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc), "r"(1));
+}
+// The same instruction at wider N: rates only (operands are not checked).
+__device__ __forceinline__ void wgmma_n32(int32_t (&d)[16], uint32_t a0,
+                                          uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc), "r"(1));
+}
+__device__ __forceinline__ void wgmma_n64(int32_t (&d)[32], uint32_t a0,
+                                          uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc), "r"(1));
+}
+__device__ __forceinline__ void wgmma_n128(int32_t (&d)[64], uint32_t a0,
+                                          uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc), "r"(1));
 }
 __device__ __forceinline__ void wg_fence() {
@@ -140,6 +172,38 @@ __global__ void wgmma_kernel(int iters, int32_t* out, uint32_t seed) {
   out[blockIdx.x * blockDim.x + threadIdx.x] = fold(acc);
 }
 
+// wgmma.m64nNk32 with A from registers, GROUPS independent accumulators a
+// warpgroup, one commit group in flight: does a wider N reach more of the
+// peak than N = 8?
+template <int N, int GROUPS>
+__global__ void wgmma_wide_kernel(int iters, int32_t* out, uint32_t seed) {
+  __shared__ __align__(128) uint8_t sb[8192];
+  for (int i = threadIdx.x; i < 8192; i += blockDim.x) sb[i] = i * seed;
+  __syncthreads();
+  int32_t acc[GROUPS][N / 2] = {};
+  const uint32_t a0 = seed + threadIdx.x, a1 = a0 * 3, a2 = a0 * 5, a3 = a0 * 7;
+  const uint64_t desc = smem_desc(sb, 128, 256);
+  for (int i = 0; i < iters; ++i) {
+    wg_fence();
+#pragma unroll
+    for (int q = 0; q < GROUPS; ++q) {
+      if constexpr (N == 32) wgmma_n32(acc[q], a0, a1, a2, a3, desc + q * 16);
+      if constexpr (N == 64) wgmma_n64(acc[q], a0, a1, a2, a3, desc + q * 16);
+      if constexpr (N == 128)
+        wgmma_n128(acc[q], a0, a1, a2, a3, desc + q * 16);
+    }
+    wg_commit();
+    wg_wait<1>();
+  }
+  wg_wait<0>();
+  int32_t s = 0;
+#pragma unroll
+  for (int q = 0; q < GROUPS; ++q)
+#pragma unroll
+    for (int c = 0; c < N / 2; ++c) s += acc[q][c];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
 // One warpgroup, one wgmma, for the layout check.
 __global__ void wgmma_once(const uint32_t* a_regs, const uint8_t* b_bytes,
                            int32_t* d_out) {
@@ -193,7 +257,7 @@ static int check_wgmma_layout() {
 
 template <typename K>
 static void run(const char* name, K kern, int threads, int blocks,
-                size_t smem) {
+                size_t smem, double macs_warp_iter = 8 * 4096) {
   int32_t* out;
   cudaMalloc(&out, 4 * (size_t)threads * blocks);
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -208,8 +272,8 @@ static void run(const char* name, K kern, int threads, int blocks,
   cudaEventSynchronize(e1);
   float ms;
   cudaEventElapsedTime(&ms, e0, e1);
-  // every variant does 8 x (16 x 8 x 32) multiply-adds a warp an iteration
-  const double macs = (double)iters * 8 * 4096 * (threads / 32) * blocks;
+  // multiply-adds a warp an iteration: 8 x (16 x 8 x 32) unless given
+  const double macs = (double)iters * macs_warp_iter * (threads / 32) * blocks;
   const double tops = 2 * macs / (ms * 1e-3) / 1e12;
   printf("%-22s %3d threads x %3d blocks: %8.3f ms  %7.1f TOPS  %5.1f%% of "
          "1979 (cudaError %d)\n", name, threads, blocks, ms, tops,
@@ -225,6 +289,16 @@ int main() {
       run("loop, shared loads", loop_kernel<true>, threads, blocks, 40000);
       run("loop, adds for loads", loop_kernel<false>, threads, blocks, 40000);
       run("wgmma m64n8k32 RS", wgmma_kernel, threads, blocks, 0);
+    }
+  // a warp's share of one m64nNk32 is 16 x N x 32 multiply-adds
+  for (int blocks : {132, 264})
+    for (int threads : {128, 256}) {
+      run("wgmma m64n32k32 RS x4", wgmma_wide_kernel<32, 4>, threads, blocks,
+          0, 4.0 * 16 * 32 * 32);
+      run("wgmma m64n64k32 RS x2", wgmma_wide_kernel<64, 2>, threads, blocks,
+          0, 2.0 * 16 * 64 * 32);
+      run("wgmma m64n128k32 RS x2", wgmma_wide_kernel<128, 2>, threads,
+          blocks, 0, 2.0 * 16 * 128 * 32);
     }
   return 0;
 }

@@ -40,12 +40,13 @@ negacirculant from shared-memory S-tables that index the 2N-byte ext row,
 so it (146 GB for the expanded BSK) never exists; the TPU's packed ladders,
 weight buckets in VMEM and sequential (n_bt, o, r) grid have no counterpart
 — a block owns ROWS lanes × all N columns of one component and loops over r
-itself. K1 and K9, the steps the default and the server paths run, put
-their products on the tensor cores: `mma.sync.m16n8k32` int8 whose operand
-fragments are S-table and digit-tile words, the operands staged by
+itself. K1, K3 and K9, the kernels the default and the server paths run,
+put their products on the tensor cores: `mma.sync.m16n8k32` int8 whose
+operand fragments are S-table and digit-tile words, the operands staged by
 `cp.async` one contraction row ahead (csrc/nc_mma.cuh); what is left above
-their bound is the instruction rate of `mma.sync` at N = 8 and, in K9, the glue.
-The others still run `__dp4a` on the CUDA cores, about 1/16 of that rate
+their bound is the instruction rate of `mma.sync` at N = 8 and, in K9, the
+glue. (K3's 8 instruction columns are 8 of a lane's G accumulators.) The
+others still run `__dp4a` on the CUDA cores, about 1/16 of that rate
 (csrc/nc_common.cuh).
 
 Layouts (int64 torus values; the TPU's (lo, hi) u32 pairs do not exist):
@@ -107,7 +108,7 @@ def _require_cuda(name: str, spec) -> None:
 
 def _check_geometry(name: str, n: int, n_d: int, r: int, j_start: int,
                     n_min: int = 8):
-    """n_min: 8 for the `__dp4a` kernels; 64 for K1 and K9, whose warps own
+    """n_min: 8 for the `__dp4a` kernels; 64 for K1, K3 and K9, whose warps own
     64 columns each and index their S-tables unmasked."""
     if n & (n - 1) or not n_min <= n <= 512:
         raise ValueError(f"{name}: N={n} must be a power of two in "
@@ -262,9 +263,12 @@ def extprod_grouped_fused(dig: torch.Tensor, ext: torch.Tensor, n_d: int,
                          f"n_d={n_d}, j_start={j_start}")
     if _on_cpu(dig, ext):
         return extprod_grouped_fused_plain(dig, ext, n_d, j_start)
-    _check_geometry("extprod_grouped_fused", n, n_d, r, j_start)
+    _check_geometry("extprod_grouped_fused", n, n_d, r, j_start, n_min=64)
+    _check_smem("extprod_grouped_fused",
+                _mma_stage_bytes(n, nj) + 2 * _mma_dig_tile_bytes(n, n_d))
     _require_cuda("extprod_grouped_fused",
                   [(dig, torch.int8), (ext, torch.int8)])
+    _check_staged("extprod_grouped_fused", dig, ext)
     g = ndg // n_d
     out = torch.empty((b, o, g, n), dtype=torch.int64, device=dig.device)
     f = _fn("vp", "tfhe_extprod_grouped_fused", [_P] * 3 + [_I] * 7 + [_P])

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from tfhe_aes2_tpu_torch.ops import truncation
+from tfhe_aes2_tpu_torch.ops.kernels.matmul import kmajor_key_planes
 from tfhe_aes2_tpu_torch.ops.params import WopbsParams
 from tfhe_aes2_tpu_torch.ops.torus import split_u64_signed, to_tensor
 
@@ -58,6 +59,9 @@ class PreparedServerKeys(NamedTuple):
     ksk:    [8-js, kN·L, n+1]                                 K4's m planes
     pfpksk: [8-js, (kN+1)·L, (k+1)·(k+1)·N]                   K4's m planes
     vp_js:  planes the vertical packing drops from its runtime GGSWs (K3)
+
+    ksk and pfpksk are views of K-major storage, the layout K4 reads
+    (kernels.matmul.kmajor_key_planes).
     """
 
     bsk: torch.Tensor
@@ -278,9 +282,10 @@ def prepare_server_keys(sks: ServerKeySet, params: WopbsParams,
     js_pf = truncation.pfpksk_j_start(p) if truncate else 0
     kn, lk, n1 = sks.ksk.shape
     kn1, lp, u_cnt, k1, big_n = sks.pfpksk.shape
-    ksk = split_u64_signed(sks.ksk.reshape(kn * lk, n1))[js_ksk:].contiguous()
-    pfpksk = split_u64_signed(
-        sks.pfpksk.reshape(kn1 * lp, u_cnt * k1 * big_n))[js_pf:].contiguous()
+    ksk = kmajor_key_planes(
+        split_u64_signed(sks.ksk.reshape(kn * lk, n1))[js_ksk:])
+    pfpksk = kmajor_key_planes(split_u64_signed(
+        sks.pfpksk.reshape(kn1 * lp, u_cnt * k1 * big_n))[js_pf:])
     return PreparedServerKeys(
         bsk=prepare_bsk(sks.bsk, js_bsk), ksk=ksk, pfpksk=pfpksk,
         vp_js=truncation.vp_ggsw_j_start(p) if truncate else 0)
