@@ -11,11 +11,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      kernel's bound; and the cross-checks: K7's partial sums recombined
      equal K6's update, K2 then K5 equals K1, and one step of each of the
      schedules `merged` (K9), `longk` (K10a then K10b) and `bucket` (K2 then
-     K11) equals K2 then K5, at B in {9, 128, 160, 256, 288}; K1 and K9,
-     whose products run on the tensor cores, again over a grid of small and
-     ragged shapes (N in {64, 256, 512}, B in {1, 9, 13, 288}, js in {0, 2},
-     n_d in {1, 2, 3}) and at the extreme value -128 in every operand byte;
-     and, as a yardstick printed beside them, the int8 rate one
+     K11) equals K2 then K5, at B in {9, 128, 160, 256, 288}, with the split
+     of K10b's rows at each B and the host's time to enqueue a `longk` and a
+     `grid` step; K1, K5, K9 and K10b, whose products run on the tensor
+     cores, again over a grid of small and ragged shapes (N in {64, 256,
+     512}, B in {1, 9, 13, 288}, js in {0, 2}, n_d in {1, 2, 3}) and at the
+     extreme value -128 in every operand byte (K10b split at B=13, unsplit
+     at B=201); and, as a yardstick printed beside them, the int8 rate one
      `torch._int_mm` reaches at K1's size (the port never calls it);
   3. fast end-to-end runs at PARAMS_TEST (2 rounds), decrypt-verified: the
      default lowering, then ("glue_out", "partials") with a compressed
@@ -108,7 +110,7 @@ KERNELS = {
         fn=kmm.fused_limb_matmul, source="tfhe_aes2_tpu_torch/csrc/matmul.cu",
         replaces="tfhe_aes2_tpu/ops/pallas/matmul.py:82"),
     "extprod_step2": dict(
-        fn=kx.extprod_step2, source="tfhe_aes2_tpu_torch/csrc/step.cu",
+        fn=kx.extprod_step2, source="tfhe_aes2_tpu_torch/csrc/cmux.cu",
         replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:439"),
     "extprod_step": dict(
         fn=kx.extprod_step, source="tfhe_aes2_tpu_torch/csrc/step.cu",
@@ -148,16 +150,38 @@ def sync() -> None:
 
 def _median_ms(fn, reps: int) -> float:
     """Median device time of `reps` launches of fn(), each between its own
-    pair of events, all enqueued between two synchronisations."""
+    pair of events, all enqueued between two synchronisations behind a spin
+    of the device (torch.cuda._sleep) that outlasts their enqueue: where the
+    host takes longer to enqueue fn() than the device to run it (a wrapper
+    costs ~30 us), events recorded on an idle device would time the host."""
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     sync()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    sync()
+    # ~2e6 cycles a ms at the H100's clock; a lower clock only spins longer
+    torch.cuda._sleep(int(2e6 * min(200.0, 1.0 + 1.5 * reps * host_ms)))
     for start, end in events:
         start.record()
         fn()
         end.record()
     sync()
     return float(np.median([a.elapsed_time(b) for a, b in events]))
+
+
+def enqueue_us(fn, reps: int = 50) -> float:
+    """Host microseconds to enqueue one fn(): `reps` calls, none awaited,
+    after one warm-up and a synchronisation."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    sync()
+    return 1e6 * t / reps
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -227,11 +251,13 @@ def phase_device() -> str:
               if "spill" in ln and " 0 bytes spill" not in ln]
     log(f"ptxas: {len(spills)} kernel instantiations report spills"
         + "".join(f"\n  {name}" for name in spills))
-    # the main path's instantiations: K1 and K9 (ND=2, JS=2), K3 (ND=2,
-    # JS=4), K4's keyswitch (ND=1, JS=5) and pfKS (ND=3, JS=1)
+    # the main path's instantiations: K1, K5 (K1 without glue), K9 and K10b
+    # (ND=2, JS=2), K3 (ND=2, JS=4), K4's keyswitch (ND=1, JS=5) and pfKS
+    # (ND=3, JS=1)
     for i, ln in enumerate(report):
         if any(key in ln for key in (
-                "step2g_kernelILi2ELi2E", "merged_kernelILi2ELi2E",
+                "step2g_kernelILi2ELi2ELb1E", "step2g_kernelILi2ELi2ELb0E",
+                "merged_kernelILi2ELi2E", "longk_kernelILi2ELi2E",
                 "grouped_fused_kernelILi2ELi4E",
                 "limb_matmul_kernelILi1ELi5E", "limb_matmul_kernelILi3ELi1E")):
             log("ptxas: " + " | ".join(x.strip() for x in report[i:i + 3]))
@@ -283,10 +309,21 @@ def check_step_schedules(rows: dict, b: int, acc, t, ext, js: int, nd: int):
     ms = time_ms(lambda: kx.extprod_step_longk(flat, ext, scratch, js))
     pms = time_ms(lambda: kx.extprod_step_longk_plain(flat, ext, scratch, js),
                   reps=2)
-    record(f"extprod_step_longk B={b}", rows["extprod_step_longk"], macs,
+    split = kx._longk_splits(b, k1, r)
+    record(f"extprod_step_longk B={b} (split {split})",
+           rows["extprod_step_longk"], macs,
            flat.numel() + ext.numel() + acc.numel() * 16, ms, pms, err)
-    longk_ms = time_ms(lambda: kx.extprod_step_longk(
-        kx.rot_diff_digits_flat(scratch, t, bl, lv, nd), ext, scratch, js))
+    rows["extprod_step_longk"][-1]["split"] = split
+
+    def longk_step():
+        kx.extprod_step_longk(kx.rot_diff_digits_flat(scratch, t, bl, lv, nd),
+                              ext, scratch, js)
+
+    def grid_step():
+        kx.extprod_step2(kx.rot_diff_digits(scratch, t, bl, lv, nd), ext,
+                         scratch, js)
+    longk_ms = time_ms(longk_step)
+    longk_us, grid_us = enqueue_us(longk_step), enqueue_us(grid_step)
     # K11 on K2's output
     got = kx.extprod_step3(dig, ext, acc.clone(), js)
     ref = kx.extprod_step3_plain(dig, ext, acc.clone(), js)
@@ -301,25 +338,27 @@ def check_step_schedules(rows: dict, b: int, acc, t, ext, js: int, nd: int):
            dig.numel() + ext.numel() + acc.numel() * 16, ms, pms, err)
     bucket_ms = time_ms(lambda: kx.extprod_step3(
         kx.rot_diff_digits(scratch, t, bl, lv, nd), ext, scratch, js))
-    grid_ms = time_ms(lambda: kx.extprod_step2(
-        kx.rot_diff_digits(scratch, t, bl, lv, nd), ext, scratch, js))
+    grid_ms = time_ms(grid_step)
     k1_ms = time_ms(lambda: kx.extprod_step2g(dig, ext, scratch, t, bl, lv,
                                               js))
     log(f"    one CMux step at B={b}: gridg (K1) {k1_ms:.4f} ms, grid (K2 "
         f"then K5) {grid_ms:.4f} ms, merged (K9) {merged_ms:.4f} ms, longk "
-        f"(K10a then K10b) {longk_ms:.4f} ms, bucket (K2 then K11) "
-        f"{bucket_ms:.4f} ms; all equal K2 then K5")
+        f"(K10a then K10b, K10b split {split}) {longk_ms:.4f} ms, bucket (K2 "
+        f"then K11) {bucket_ms:.4f} ms; all equal K2 then K5")
+    log(f"    host enqueue of one step at B={b}: longk {longk_us:.1f} us, "
+        f"grid {grid_us:.1f} us")
     rows["cmux_step_merged"][-1]["step_ms"] = dict(
         gridg=k1_ms, grid=grid_ms, merged=merged_ms, longk=longk_ms,
-        bucket=bucket_ms)
+        bucket=bucket_ms, longk_enqueue_us=longk_us, grid_enqueue_us=grid_us)
 
 
 def check_tensor_core_steps(gen) -> int:
-    """K1 and K9 bit-equal to their plain versions over small, ragged and
-    full shapes, then at the extreme value: every digit and key byte -128 at
-    the blind rotation's R=15, N=512, n_d=2, js=2, where each int32 bucket
-    reaches n_d·R·N·2^14, the bound the wrappers admit (K9's digits come
-    from its own glue, so only its key is extreme). Returns the number of
+    """K1, K5, K9 and K10b bit-equal to their plain versions over small,
+    ragged and full shapes, then at the extreme value: every digit and key
+    byte -128 at the blind rotation's R=15, N=512, n_d=2, js=2, where each
+    int32 bucket reaches n_d·R·N·2^14, the bound the wrappers admit (K9's
+    digits come from its own glue, so only its key is extreme), at B=13
+    (K10b split in 8) and B=201 (unsplit). Returns the number of
     comparisons made."""
     def compare(k1, lv, nd, bl, b, n, js, fill=None):
         acc = torch.randint(-2**62, 2**62, (k1, b, n), generator=gen,
@@ -333,12 +372,18 @@ def check_tensor_core_steps(gen) -> int:
         ref = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, bl, lv, js)
         got9 = kx.cmux_step_merged(t, ext, acc, bl, lv, js)
         ref9 = kx.cmux_step_merged_plain(t, ext, acc, bl, lv, js)
+        got5 = kx.extprod_step2(dig, ext, acc.clone(), js)
+        ref5 = kx.extprod_step2_plain(dig, ext, acc.clone(), js)
+        flat = dig.permute(2, 3, 0, 1, 4).reshape(nd, b, k1 * lv * n)
+        got10 = kx.extprod_step_longk(flat, ext, acc.clone(), js)
+        ref10 = kx.extprod_step_longk_plain(flat, ext, acc.clone(), js)
         sync()
         if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-                and torch.equal(got9, ref9)):
-            raise AssertionError(f"K1 or K9 differs from plain at N={n} "
-                                 f"B={b} js={js} n_d={nd} fill={fill}")
-        return 2
+                and torch.equal(got9, ref9) and torch.equal(got5, ref5)
+                and torch.equal(got10, ref10)):
+            raise AssertionError(f"K1, K5, K9 or K10b differs from plain at "
+                                 f"N={n} B={b} js={js} n_d={nd} fill={fill}")
+        return 4
 
     done = 0
     for n in (64, 256, 512):
@@ -346,7 +391,9 @@ def check_tensor_core_steps(gen) -> int:
             for js in (0, 2):
                 for nd, bl in ((1, 6), (2, 12), (3, 20)):   # limbs, base_log
                     done += compare(2, 2, nd, bl, b, n, js)
-    return done + compare(5, 3, 2, 12, 13, 512, 2, fill=-128)
+    assert [kx._longk_splits(b, 5, 15) for b in (13, 201)] == [8, 1]
+    return (done + compare(5, 3, 2, 12, 13, 512, 2, fill=-128)
+            + compare(5, 3, 2, 12, 201, 512, 2, fill=-128))
 
 
 def int8_library_rate(b: int, n: int, macs: int) -> None:
@@ -458,9 +505,10 @@ def phase_kernels() -> dict:
         "every B >= 128; K9 == K10b after K10a == K11 after K2 == K5 after "
         "K2 at every B")
     done = check_tensor_core_steps(gen)
-    log(f"  K1 and K9 bit-equal to plain in {done} more comparisons: N in "
-        "{64, 256, 512} x B in {1, 9, 13, 288} x js in {0, 2} x n_d in "
-        "{1, 2, 3}, and every digit and key byte -128 at R=15, N=512")
+    log(f"  K1, K5, K9 and K10b bit-equal to plain in {done} more "
+        "comparisons: N in {64, 256, 512} x B in {1, 9, 13, 288} x js in "
+        "{0, 2} x n_d in {1, 2, 3}, and every digit and key byte -128 at "
+        "R=15, N=512, B in {13, 201} (K10b split 8 and unsplit)")
     int8_library_rate(288, n, 288 * k1 * r * n * n * pairs(nd, js))
 
     # K7 at B=288: all 8 key planes (js=0); with the planes the BSK drops
@@ -697,8 +745,9 @@ def require_launches(what: str, counts: dict, names) -> None:
 
 
 def wait_for_socket(addr: str, alive, what: str) -> None:
-    """Until the server has bound `addr`; fails if `alive()` turns false or
-    after 120 s."""
+    """Until the server listens on `addr`; fails if `alive()` turns false or
+    after 120 s. The socket file appears at bind(), a moment before
+    listen(), and a connect in between is refused: so wait a moment more."""
     deadline = time.time() + 120
     while not os.path.exists(addr):
         if not alive():
@@ -706,6 +755,7 @@ def wait_for_socket(addr: str, alive, what: str) -> None:
         if time.time() > deadline:
             raise AssertionError(f"{what} never listened on {addr}")
         time.sleep(0.05)
+    time.sleep(0.5)
 
 
 def phase_test_params() -> None:

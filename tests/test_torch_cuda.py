@@ -49,7 +49,8 @@ def test_cuda_kernels_match_plain():
     assert torch.equal(a6, kx.extprod_step_plain(dig_bm, ext, acc_bm, js))
     assert torch.equal(a6.permute(1, 0, 2), a1)
     # K9 / K10a + K10b / K2 + K11: the same step, one launch / flat digits,
-    # plane-major loop / one bucket per block with atomics; ragged last tile
+    # rows split across blocks / one bucket per block with atomics; ragged
+    # last tile
     a9 = kx.cmux_step_merged(t, ext, acc, base_log, levels, js)
     assert torch.equal(a9, kx.cmux_step_merged_plain(t, ext, acc, base_log,
                                                      levels, js))
@@ -95,9 +96,9 @@ def test_cuda_kernels_match_plain():
 @pytest.mark.parametrize("n", [64, 256, 512])
 @pytest.mark.parametrize("b", [1, 9, 13, 288])
 def test_cuda_tensor_core_steps_match_plain(n, b):
-    """On the card: K1 and K9 (mma.sync int8) bit-equal to their plain
-    versions with a ragged last lane tile, for js in {0, 2} and one, two and
-    three limbs a digit."""
+    """On the card: K1, K5, K9 and K10b (mma.sync int8; K10b split across
+    blocks at B <= 13) bit-equal to their plain versions with a ragged last
+    lane tile, for js in {0, 2} and one, two and three limbs a digit."""
     require_cuda()
     gen = torch.Generator().manual_seed(1000 * n + b)
     k1, levels = 2, 2
@@ -119,7 +120,20 @@ def test_cuda_tensor_core_steps_match_plain(n, b):
             assert torch.equal(
                 kx.cmux_step_merged(t, ext, acc, base_log, levels, js),
                 kx.cmux_step_merged_plain(t, ext, acc, base_log, levels, js))
+            _assert_k5_k10b_match_plain(dig, ext, acc, js)
     torch.cuda.synchronize()
+
+
+def _assert_k5_k10b_match_plain(dig, ext, acc, js):
+    """K5 on K2's layout and K10b on the same digits laid flat (K10a's
+    layout), each bit-equal to its plain version."""
+    k1, levels, n_d, b, n = dig.shape
+    assert torch.equal(kx.extprod_step2(dig, ext, acc.clone(), js),
+                       kx.extprod_step2_plain(dig, ext, acc.clone(), js))
+    flat = dig.permute(2, 3, 0, 1, 4).reshape(n_d, b, k1 * levels * n)
+    assert torch.equal(kx.extprod_step_longk(flat, ext, acc.clone(), js),
+                       kx.extprod_step_longk_plain(flat, ext, acc.clone(),
+                                                   js))
 
 
 @pytest.mark.cuda
@@ -127,24 +141,30 @@ def test_cuda_tensor_core_steps_extreme_values():
     """On the card: every digit and key byte -128 at the blind rotation's
     R=15, N=512, n_d=2, js=2 — each int32 bucket at the bound the wrappers
     admit — still bit-equal to plain (K9's digits come from its own glue, so
-    only its key is extreme)."""
+    only its key is extreme); K5 and K10b too, K10b split in 8 at B=13 and
+    unsplit at B=201."""
     require_cuda()
     gen = torch.Generator().manual_seed(9)
-    k1, levels, n, b, n_d, js, base_log = 5, 3, 512, 13, 2, 2, 12
-    dig = torch.full((k1, levels, n_d, b, n), -128, dtype=torch.int8,
-                     device="cuda")
-    ext = torch.full((k1, k1 * levels, 8 - js, 2 * n), -128,
-                     dtype=torch.int8, device="cuda")
-    acc = torch.randint(-2 ** 62, 2 ** 62, (k1, b, n), generator=gen,
-                        dtype=torch.int64).cuda()
-    t = torch.randint(0, 2 * n, (b,), generator=gen, dtype=torch.int32).cuda()
-    a1, d1 = kx.extprod_step2g(dig, ext, acc.clone(), t, base_log, levels, js)
-    a2, d2 = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, base_log,
-                                     levels, js)
-    assert torch.equal(a1, a2) and torch.equal(d1, d2)
-    assert torch.equal(
-        kx.cmux_step_merged(t, ext, acc, base_log, levels, js),
-        kx.cmux_step_merged_plain(t, ext, acc, base_log, levels, js))
+    k1, levels, n, n_d, js, base_log = 5, 3, 512, 2, 2, 12
+    assert [kx._longk_splits(b, k1, k1 * levels) for b in (13, 201)] == [8, 1]
+    for b in (13, 201):
+        dig = torch.full((k1, levels, n_d, b, n), -128, dtype=torch.int8,
+                         device="cuda")
+        ext = torch.full((k1, k1 * levels, 8 - js, 2 * n), -128,
+                         dtype=torch.int8, device="cuda")
+        acc = torch.randint(-2 ** 62, 2 ** 62, (k1, b, n), generator=gen,
+                            dtype=torch.int64).cuda()
+        t = torch.randint(0, 2 * n, (b,), generator=gen,
+                          dtype=torch.int32).cuda()
+        a1, d1 = kx.extprod_step2g(dig, ext, acc.clone(), t, base_log, levels,
+                                   js)
+        a2, d2 = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, base_log,
+                                         levels, js)
+        assert torch.equal(a1, a2) and torch.equal(d1, d2)
+        assert torch.equal(
+            kx.cmux_step_merged(t, ext, acc, base_log, levels, js),
+            kx.cmux_step_merged_plain(t, ext, acc, base_log, levels, js))
+        _assert_k5_k10b_match_plain(dig, ext, acc, js)
     torch.cuda.synchronize()
 
 

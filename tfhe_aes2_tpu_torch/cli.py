@@ -9,7 +9,9 @@ shortint-woppbs-1bit model only. With --fhe-counter the client uploads one
 encrypted iv‖ctr block and the server derives the rest by homomorphic
 counter increments (aes_128/ctr_fhe.py). The kernels the bootstraps run follow the JAX
 package's TFHE_BR_KERNEL / TFHE_BR_GLUE / TFHE_VP_FUSED environment
-(ops/lowering.py); the lowering in use is printed.
+(ops/lowering.py); the lowering in use is printed. On a CUDA device the
+parameter sets with N = 1024 (lvl1, lvl4, lvl256) are refused before keygen:
+the kernels take N <= 512 (ROADMAP.md Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import logging
 import sys
 
 from tfhe_aes2_tpu_torch.ops import params as params_mod
+from tfhe_aes2_tpu_torch.ops.kernels.extprod import device_refusal
 
 PARAM_CHOICES = {"lvl1": params_mod.PARAMS_SQRD_LVL_1,
                  "lvl4": params_mod.PARAMS_SQRD_LVL_4,
@@ -53,6 +56,10 @@ def main(argv=None, device: str = "cuda") -> int:
                     help="upload one block; the server derives the CTR "
                          "blocks homomorphically")
     args = ap.parse_args(argv)
+    refusal = device_refusal(PARAM_CHOICES[args.params].polynomial_size,
+                             device)
+    if refusal:
+        ap.error(f"--params {args.params} on {device}: {refusal}")
 
     if args.implementation != "shortint-woppbs-1bit":
         raise NotImplementedError(

@@ -1,8 +1,9 @@
-// K1 and K2: the blind-rotate CMux step on Hopper.
+// K1, K2 and K5: the blind-rotate CMux step on Hopper.
 //
 // K1 (tfhe_extprod_step2g) replaces the Pallas kernel
 // tfhe_aes2_tpu/ops/pallas/extprod.py::extprod_step2g; K2
-// (tfhe_rot_diff_digits) replaces extprod.py::rot_diff_digits. One CMux step
+// (tfhe_rot_diff_digits) replaces extprod.py::rot_diff_digits; K5
+// (tfhe_extprod_step2) replaces extprod.py::extprod_step2. One CMux step
 // of the 677-step blind rotation at PARAMS_SQRD_LVL_64 is, per component o:
 //
 //   acc[o] += Σ_r Σ_{i, j>=js} 2^(8(i+j)) dig_i[r] · NC(BSK plane j)[r][o]
@@ -12,7 +13,10 @@
 // accumulator holds the whole polynomial (all N columns of its ROWS batch
 // lanes), so the next step's rotation, difference, gadget decomposition and
 // limb split (the "glue", K2's body) run from shared memory without another
-// pass over device memory. K2 is that glue alone, for step 0.
+// pass over device memory. K2 is that glue alone, for step 0, and K5 is K1
+// without it: the same kernel built with GLUE = false, whose epilogue only
+// adds the recombined sums into the accumulator, so that K2 then K5 (the
+// `grid` schedule) is K1 taken apart.
 //
 // What bounds it on the H100: int8 operations. At B = 256 lanes a step is
 // 256·5·15·512²·11 ≈ 5.5e10 multiply-adds against ~15 MB of operands, far
@@ -39,13 +43,14 @@ namespace {
 #define NC_K1_MIN_BLOCKS 1
 #endif
 
-// Shared memory of a K1 block: the two stages of the contraction, or the
-// [ROWS][N] tile of the new accumulator that takes their place afterwards.
-inline size_t step_smem(int nd, int nj, int n) {
+// Shared memory of a block: the two stages of the contraction and, with the
+// glue, the [ROWS][N] tile of the new accumulator that takes their place
+// afterwards.
+inline size_t step_smem(int nd, int nj, int n, bool glue) {
   const size_t stages = 2 * (size_t)(nc::tab_bytes(nj, n) +
                                      nc::raw_bytes(nj, n) +
                                      nc::dig_tile_bytes(nd, n));
-  const size_t tile = (size_t)nc::ROWS * n * 8;
+  const size_t tile = glue ? (size_t)nc::ROWS * n * 8 : 0;
   return stages > tile ? stages : tile;
 }
 
@@ -55,7 +60,8 @@ inline size_t step_smem(int nd, int nj, int n) {
 // acc     int64 [O][B][N]           updated in place
 // t_next  int32 [B]                 next step's mod-switched mask element
 // dig_out int8  [O][L][ND][B][N]    next step's digits
-template <int ND, int JS>
+// Without GLUE (K5) t_next, dig_out, levels and base_log are not read.
+template <int ND, int JS, bool GLUE>
 __global__ void
 __launch_bounds__(256, NC_K1_MIN_BLOCKS)
 extprod_step2g_kernel(const int8_t* __restrict__ dig,
@@ -72,13 +78,20 @@ extprod_step2g_kernel(const int8_t* __restrict__ dig,
 
   int32_t part[nc::MT][NJ][4];
   const nc::Staged op{ext + (size_t)o * R * NJ * 2 * n, dig + (size_t)b0 * n,
-                      (unsigned)(ND * B * n), (unsigned)(B * n), nullptr};
+                      (unsigned)(ND * B * n), (unsigned)(B * n), (unsigned)n,
+                      nullptr};
   nc::contract_mma<ND, JS, true>(part, smem, op, R, rows, n);
 
+  uint64_t* acc_o = acc + ((size_t)o * B + b0) * n;
+  if constexpr (!GLUE) {
+    nc::for_each_output<JS>(part, [&](int lane, int m, uint64_t sum) {
+      if (lane < rows) acc_o[(size_t)lane * n + m] += sum;
+    });
+    return;
+  }
   // the stages are idle past the contraction's last barrier: shared memory
   // now holds the tile of the new accumulator, zero rows past the batch edge
   uint64_t* tile = reinterpret_cast<uint64_t*>(smem);   // [ROWS][N]
-  uint64_t* acc_o = acc + ((size_t)o * B + b0) * n;
   nc::for_each_output<JS>(part, [&](int lane, int m, uint64_t sum) {
     uint64_t v = 0;
     if (lane < rows) {
@@ -122,12 +135,12 @@ rot_diff_digits_kernel(const uint64_t* __restrict__ acc,
   }
 }
 
-template <int ND, int JS>
+template <int ND, int JS, bool GLUE>
 int launch_step(const int8_t* dig, const int8_t* ext, int64_t* acc,
                 const int32_t* t_next, int8_t* dig_out, int B, int n, int O,
                 int R, int levels, int base_log, cudaStream_t stream) {
-  const size_t smem = step_smem(ND, 8 - JS, n);
-  auto kern = extprod_step2g_kernel<ND, JS>;
+  const size_t smem = step_smem(ND, 8 - JS, n, GLUE);
+  auto kern = extprod_step2g_kernel<ND, JS, GLUE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -162,10 +175,21 @@ extern "C" int tfhe_extprod_step2g(const int8_t* dig, const int8_t* ext,
                                    void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
 #define STEP_CALL(ND, JS)                                                   \
-  launch_step<ND, JS>(dig, ext, acc, t_next, dig_out, B, n, O, R, levels,  \
-                      base_log, s)
+  launch_step<ND, JS, true>(dig, ext, acc, t_next, dig_out, B, n, O, R,    \
+                            levels, base_log, s)
   NC_DISPATCH(nd, js, STEP_CALL)
 #undef STEP_CALL
+}
+
+extern "C" int tfhe_extprod_step2(const int8_t* dig, const int8_t* ext,
+                                  int64_t* acc, int B, int n, int O, int R,
+                                  int nd, int js, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+#define STEP2_CALL(ND, JS)                                                  \
+  launch_step<ND, JS, false>(dig, ext, acc, nullptr, nullptr, B, n, O, R,  \
+                             0, 0, s)
+  NC_DISPATCH(nd, js, STEP2_CALL)
+#undef STEP2_CALL
 }
 
 extern "C" int tfhe_rot_diff_digits(const int64_t* acc, const int32_t* t,

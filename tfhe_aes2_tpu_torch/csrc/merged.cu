@@ -104,6 +104,7 @@ cmux_step_merged_kernel(const int32_t* __restrict__ t,
 
   int32_t part[nc::MT][NJ][4];
   const nc::Staged op{ext + (size_t)o * R * NJ * 2 * n, nullptr, 0, 0,
+                      (unsigned)n,
                       reinterpret_cast<const unsigned char*>(dig_s)};
   nc::contract_mma<ND, JS, false>(part, smem, op, R, rows, n);
 

@@ -1,5 +1,5 @@
-// The negacirculant contraction of K1 (cmux.cu), K3 (vp.cu) and K9
-// (merged.cu) on the tensor cores: mma.sync.m16n8k32 (int8 x int8 -> int32) fed straight from
+// The negacirculant contraction of K1 and K5 (cmux.cu), K3 (vp.cu), K9
+// (merged.cu) and K10b (longk.cu) on the tensor cores: mma.sync.m16n8k32 (int8 x int8 -> int32) fed straight from
 // the shared-memory S-tables, with the key rows and digit tiles staged by
 // cp.async one contraction row ahead.
 //
@@ -111,11 +111,11 @@ __device__ __forceinline__ void copy_async(unsigned char* dst,
 
 // Start the copy of one contraction row's ND x ROWS digit rows of n bytes
 // into a padded tile; rows at or past rows_valid fill with zeros. Plane i
-// of lane `row` starts at src + i*plane_stride + row*n.
+// of lane `row` starts at src + i*plane_stride + row*lane_stride.
 template <int ND>
 __device__ __forceinline__ void copy_digits_async(
     unsigned char* tile, const int8_t* __restrict__ src,
-    unsigned plane_stride, int rows_valid, int n) {
+    unsigned plane_stride, unsigned lane_stride, int rows_valid, int n) {
   const int per_row = n >> 4;
   for (int idx = threadIdx.x; idx < ND * ROWS * per_row; idx += blockDim.x) {
     const int chunk = idx % per_row;
@@ -123,8 +123,8 @@ __device__ __forceinline__ void copy_digits_async(
     const int i = idx / (per_row * ROWS);
     const bool valid = row < rows_valid;
     cp_async16(tile + (i * ROWS + row) * (n + DIG_PAD) + 16 * chunk,
-               src + (size_t)i * plane_stride + (valid ? row : 0) * n +
-                   16 * chunk,
+               src + (size_t)i * plane_stride +
+                   (unsigned)(valid ? row : 0) * lane_stride + 16 * chunk,
                valid ? 16 : 0);
   }
 }
@@ -212,9 +212,11 @@ __device__ __forceinline__ void mma_row(int32_t (&acc)[MT][8 - JS][4],
 // (R padded tiles of dig_tile_bytes each).
 struct Staged {
   const int8_t* ext;   // row r's NJ key rows are contiguous at ext + r*raw_bytes
-  const int8_t* dig;   // K1, K3: digit plane i of lane `row` at row r is at
-                       // dig + r*dig_r + i*dig_plane + row*n
+  const int8_t* dig;   // K1, K3, K5, K10b: digit plane i of lane `row` at row
+                       // r is at dig + r*dig_r + i*dig_plane + row*dig_lane
   unsigned dig_r, dig_plane;
+  unsigned dig_lane;   // N where a lane's rows lie apart (K1, K3, K5), R·N in
+                       // K10b's flat layout
   const unsigned char* dig_res;   // K9: the resident digit tiles
 };
 
@@ -238,7 +240,8 @@ __device__ __forceinline__ void contract_mma(int32_t (&acc)[MT][8 - JS][4],
 
   copy_async(raw, op.ext, raw_b);
   if constexpr (STAGE_DIG)
-    copy_digits_async<ND>(dig, op.dig, op.dig_plane, rows_valid, n);
+    copy_digits_async<ND>(dig, op.dig, op.dig_plane, op.dig_lane,
+                          rows_valid, n);
   if (R > 1) copy_async(raw + raw_b, op.ext + raw_b, raw_b);
   cp_async_commit();
   cp_async_wait_all();
@@ -253,7 +256,7 @@ __device__ __forceinline__ void contract_mma(int32_t (&acc)[MT][8 - JS][4],
       if (r + 1 < R)
         copy_digits_async<ND>(dig + (s ^ 1) * dig_b,
                               op.dig + (size_t)(r + 1) * op.dig_r,
-                              op.dig_plane, rows_valid, n);
+                              op.dig_plane, op.dig_lane, rows_valid, n);
     }
     if (r + 2 < R)
       copy_async(raw + s * raw_b, op.ext + (r + 2) * raw_b, raw_b);

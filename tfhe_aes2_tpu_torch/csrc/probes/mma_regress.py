@@ -1,0 +1,94 @@
+"""Time K1 (cmux.cu), K3 (vp.cu) and K9 (merged.cu) of a checkout at their
+main-path shapes, on the card, so that two versions of the shared
+tensor-core contraction (csrc/nc_mma.cuh) can be compared in one call:
+
+    python3 tfhe_aes2_tpu_torch/csrc/probes/mma_regress.py [ROOT]
+
+ROOT is the root of the checkout whose tfhe_aes2_tpu_torch is imported and
+built (default: this one). Run it in turns on two checkouts (a, b, b, a) in
+one call. Each kernel is checked bit for bit against its plain version,
+then timed as the median device time of 50 launches enqueued behind a spin
+of the device, so that the events time the device, not the host's enqueue.
+Prints one line per shape and a JSON line of all times last.
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(sys.argv[1] if len(sys.argv) > 1
+            else Path(__file__).resolve().parents[3]).resolve()
+sys.path.insert(0, str(ROOT))
+from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx  # noqa: E402
+
+
+def device_ms(fn, reps=50):
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e6 * 20))              # ~20 ms at ~2 GHz
+    for a, b in ev:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in ev]))
+
+
+def main() -> int:
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(f"{card}; checkout {ROOT}", flush=True)
+    gen = torch.Generator().manual_seed(21)
+
+    def r8(*shape):
+        return torch.randint(-128, 128, shape, generator=gen,
+                             dtype=torch.int8).cuda()
+    times = {}
+    o, lv, n, nd, js, bl = 5, 3, 512, 2, 2, 12       # PARAMS_SQRD_LVL_64
+    ext = r8(o, o * lv, 8 - js, 2 * n)
+    for b in (9, 160, 288):
+        dig = r8(o, lv, nd, b, n)
+        acc = torch.randint(-2 ** 62, 2 ** 62, (o, b, n), generator=gen,
+                            dtype=torch.int64).cuda()
+        t = torch.randint(0, 2 * n, (b,), generator=gen,
+                          dtype=torch.int32).cuda()
+        got = kx.extprod_step2g(dig, ext, acc.clone(), t, bl, lv, js)
+        want = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, bl, lv, js)
+        got9 = kx.cmux_step_merged(t, ext, acc, bl, lv, js)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and torch.equal(got9, kx.cmux_step_merged_plain(
+                    t, ext, acc, bl, lv, js))):
+            raise AssertionError(f"K1 or K9 differs from plain at B={b}")
+        scratch = acc.clone()
+        times[f"K1 B={b}"] = device_ms(
+            lambda: kx.extprod_step2g(dig, ext, scratch, t, bl, lv, js))
+        times[f"K9 B={b}"] = device_ms(
+            lambda: kx.cmux_step_merged(t, ext, acc, bl, lv, js))
+        print(f"B={b}: K1 {times[f'K1 B={b}']:.4f} ms, K9 "
+              f"{times[f'K9 B={b}']:.4f} ms", flush=True)
+    nd_vp, js_vp, r_vp = 2, 4, o                    # CBS 1 level, k+1 = 5
+    for lanes, g in ((4, 8), (128, 1), (32, 24)):
+        dig = r8(lanes, r_vp, nd_vp * g, n)
+        ext3 = r8(lanes, o, r_vp, 8 - js_vp, 2 * n)
+        if not torch.equal(kx.extprod_grouped_fused(dig, ext3, nd_vp, js_vp),
+                           kx.extprod_grouped_fused_plain(dig, ext3, nd_vp,
+                                                          js_vp)):
+            raise AssertionError(f"K3 differs from plain at {lanes} x {g}")
+        key = f"K3 lanes={lanes} G={g}"
+        times[key] = device_ms(
+            lambda: kx.extprod_grouped_fused(dig, ext3, nd_vp, js_vp))
+        print(f"{key}: {times[key]:.4f} ms", flush=True)
+    print(json.dumps({"card": card, "root": str(ROOT), "ms": times}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

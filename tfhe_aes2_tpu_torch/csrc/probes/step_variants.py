@@ -56,8 +56,8 @@ def build_variants(out_dir: Path) -> dict:
             raise RuntimeError("\n".join(lines[-40:]))
         libs[name, stem] = ctypes.CDLL(str(out_dir / f"{tag}.so"))
         for i, ln in enumerate(lines):
-            if "kernelILi2ELi2E" in ln and "Compiling" in ln and (
-                    "step2g" in ln or "merged" in ln):
+            if "Compiling" in ln and ("step2g_kernelILi2ELi2ELb1E" in ln
+                                      or "merged_kernelILi2ELi2E" in ln):
                 print(f"{name}, {stem}.cu: {lines[i + 2].strip()}; "
                       f"{lines[i + 3].split(':', 1)[1].strip()}")
     return libs

@@ -1,68 +1,24 @@
-// K5 and K6: the CMux update without its glue, on Hopper.
+// K6: the CMux update without its glue on batch-major layouts, on Hopper.
 //
-// K5 (tfhe_extprod_step2) replaces the Pallas kernel
-// tfhe_aes2_tpu/ops/pallas/extprod.py::extprod_step2: the dots and the u64
-// recombination of one blind-rotate step on the component-major layouts of
-// K1, the accumulator updated in place. With K2 (cmux.cu) run before it, it
-// is K1 taken apart: K2's time plus K5's is how K1's step divides between
-// the glue and the dots.
-//
-// K6 (tfhe_extprod_step) replaces extprod.py::extprod_step: the same update
-// on the batch-major layouts that glue done outside the kernel produces
-// (digits [n_d, B, R, N], accumulator [B, O, N]), the result a new tensor.
-// The TPU kernel wanted the whole BSK transposed to [8-js, R, O, 2N] for this
-// path; here the kernel reads the prepared entry [O, R, 8-js, 2N] through
-// its own strides, so no key is ever re-laid out, and every B is taken (the
-// TPU kernel halves B into tiles of at most 256).
-//
-// Per component o both compute
+// K6 (tfhe_extprod_step) replaces the Pallas kernel
+// tfhe_aes2_tpu/ops/pallas/extprod.py::extprod_step: the dots and the u64
+// recombination of one blind-rotate step on the batch-major layouts that
+// glue done outside the kernel produces (digits [n_d, B, R, N], accumulator
+// [B, O, N]), the result a new tensor. The TPU kernel wanted the whole BSK
+// transposed to [8-js, R, O, 2N] for this path; here the kernel reads the
+// prepared entry [O, R, 8-js, 2N] through its own strides, so no key is ever
+// re-laid out, and every B is taken (the TPU kernel halves B into tiles of
+// at most 256). Per component o:
 //
 //   acc[o] += Σ_r Σ_{i, j>=js} 2^(8(i+j)) dig_i[r] · NC(BSK plane j)[r][o]
 //
-// What bounds them on the H100: int8 operations, exactly as for K1
-// (cmux.cu): the contraction is nc::contract of nc_common.cuh, __dp4a from
-// shared-memory S-tables, one block per ROWS lanes x all N columns of one
-// component. Only the addressing and the epilogue differ between K1, K5 and
-// K6; each is its own __global__ entry point, so a launch of K5 or K6 does
-// no glue.
+// It is K5's function (cmux.cu) on other strides. What bounds it on the
+// H100: int8 operations; the contraction is still nc::contract of
+// nc_common.cuh, __dp4a from shared-memory S-tables, one block per ROWS
+// lanes x all N columns of one component.
 #include "nc_common.cuh"
 
 namespace {
-
-// K5. Grid (ceil(B/ROWS), O), block N/2.
-// dig  int8  [R][ND][B][N]     this step's digit limb planes (K2's output)
-// ext  int8  [O][R][8-JS][2N]  this step's BSK limb planes
-// acc  int64 [O][B][N]         updated in place
-template <int ND, int JS>
-__global__ void extprod_step2_kernel(const int8_t* __restrict__ dig,
-                                     const int8_t* __restrict__ ext,
-                                     uint64_t* __restrict__ acc, int B, int n,
-                                     int R) {
-  constexpr int NJ = 8 - JS;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int o = blockIdx.y;
-  const int b0 = blockIdx.x * nc::ROWS;
-  const int rows = min(nc::ROWS, B - b0);
-
-  int32_t part[nc::ROWS][nc::COLS][NJ];
-  const nc::Operands op{dig + (size_t)b0 * n, (size_t)ND * B * n,
-                        (size_t)B * n, (size_t)n,
-                        ext + (size_t)o * R * NJ * 2 * n,
-                        (size_t)NJ * 2 * n, (size_t)2 * n};
-  nc::contract<ND, JS>(part, smem, op, R, rows, n);
-
-#pragma unroll
-  for (int row = 0; row < nc::ROWS; ++row) {
-    if (row < rows) {
-#pragma unroll
-      for (int c = 0; c < nc::COLS; ++c) {
-        const int m = threadIdx.x + c * blockDim.x;
-        acc[((size_t)o * B + b0 + row) * n + m] +=
-            nc::recombine<JS>(part[row][c]);
-      }
-    }
-  }
-}
 
 // K6. Grid (ceil(B/ROWS), O), block N/2.
 // dig     int8  [ND][B][R][N]     digit limb planes, batch-major
@@ -103,20 +59,6 @@ __global__ void extprod_step_kernel(const int8_t* __restrict__ dig,
 }
 
 template <int ND, int JS>
-int launch_step2(const int8_t* dig, const int8_t* ext, int64_t* acc, int B,
-                 int n, int O, int R, cudaStream_t stream) {
-  const size_t smem = nc::contraction_smem(ND, 8 - JS, n);
-  auto kern = extprod_step2_kernel<ND, JS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((B + nc::ROWS - 1) / nc::ROWS, O);
-  kern<<<grid, n / nc::COLS, smem, stream>>>(
-      dig, ext, reinterpret_cast<uint64_t*>(acc), B, n, R);
-  return (int)cudaGetLastError();
-}
-
-template <int ND, int JS>
 int launch_step(const int8_t* dig, const int8_t* ext, const int64_t* acc_in,
                 int64_t* acc_out, int B, int n, int O, int R,
                 cudaStream_t stream) {
@@ -133,15 +75,6 @@ int launch_step(const int8_t* dig, const int8_t* ext, const int64_t* acc_in,
 }
 
 }  // namespace
-
-extern "C" int tfhe_extprod_step2(const int8_t* dig, const int8_t* ext,
-                                  int64_t* acc, int B, int n, int O, int R,
-                                  int nd, int js, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define STEP2_CALL(ND, JS) launch_step2<ND, JS>(dig, ext, acc, B, n, O, R, s)
-  NC_DISPATCH(nd, js, STEP2_CALL)
-#undef STEP2_CALL
-}
 
 extern "C" int tfhe_extprod_step(const int8_t* dig, const int8_t* ext,
                                  const int64_t* acc_in, int64_t* acc_out,

@@ -47,7 +47,8 @@ extprod_grouped_fused_kernel(const int8_t* __restrict__ dig,
   // i at row r lies at dig + r·ND·G·N + i·G·N + row·N
   const nc::Staged op{ext + ((size_t)b * O + o) * R * NJ * 2 * n,
                       dig + ((size_t)b * R * ND * G + g0) * n,
-                      (unsigned)(ND * G * n), (unsigned)(G * n), nullptr};
+                      (unsigned)(ND * G * n), (unsigned)(G * n), (unsigned)n,
+                      nullptr};
   nc::contract_mma<ND, JS, true>(part, smem, op, R, rows, n);
 
   uint64_t* out_g = out + (((size_t)b * O + o) * G + g0) * n;

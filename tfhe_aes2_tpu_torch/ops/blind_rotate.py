@@ -13,7 +13,8 @@ JAX package (tfhe_aes2_tpu/ops/blind_rotate.py:229-364), chosen by
   "merged": one launch a step, K9 (glue, dots and recombine; no digits
       between the steps).
   "longk": K10a (the glue, row-flattened) then K10b (one long contraction
-      per key plane) per step, on the prepared BSK entry as it lies.
+      a lane, its rows split across blocks to fill the card) per step, on
+      the prepared BSK entry as it lies.
   "bucket": K2 then K11 (one weight bucket per block) per step.
   "glue_out": the glue in plain torch on the batch-major accumulator
       (rotate, subtract, decompose, split: a few dozen small launches),

@@ -10,8 +10,9 @@ K3 `extprod_grouped_fused` — the vertical-packing external product (one
    selector GGSW per lane, shared by its G accumulators). Replaces
    extprod.py::extprod_grouped_fused; source csrc/vp.cu.
 K5 `extprod_step2` — K1 without the glue: dots + recombine into the
-   accumulator in place, so that K2 + K5 is K1 taken apart. Replaces
-   extprod.py::extprod_step2; source csrc/step.cu.
+   accumulator in place, so that K2 + K5 is K1 taken apart (K1's kernel
+   built without its glue). Replaces extprod.py::extprod_step2; source
+   csrc/cmux.cu.
 K6 `extprod_step` — the same update on batch-major layouts (glue done
    outside the kernel), into a new tensor. Replaces extprod.py::extprod_step;
    source csrc/step.cu.
@@ -27,9 +28,10 @@ K9 `cmux_step_merged` — one whole CMux step in one launch (glue of all
 K10a `rot_diff_digits_flat` — K2's glue in the row-flattened layout
    [n_d, B, R·N]. Replaces extprod.py::rot_diff_digits_flat; source
    csrc/longk.cu.
-K10b `extprod_step_longk` — the CMux update with the key plane as the outer
-   loop, one length-R·N contraction per (o, plane, digit limb), in place.
-   Replaces extprod.py::extprod_step_longk; source csrc/longk.cu.
+K10b `extprod_step_longk` — the CMux update on K10a's flat digits, one
+   length-R·N contraction per lane, in place; its R rows split across
+   blocks where that fills the card's waves better (`_longk_splits`). Replaces
+   extprod.py::extprod_step_longk; source csrc/longk.cu.
 K11 `extprod_step3` — the CMux update one weight bucket at a time, the
    buckets added into the accumulator in place. Replaces
    extprod.py::extprod_step3; source csrc/bucket.cu.
@@ -40,14 +42,13 @@ negacirculant from shared-memory S-tables that index the 2N-byte ext row,
 so it (146 GB for the expanded BSK) never exists; the TPU's packed ladders,
 weight buckets in VMEM and sequential (n_bt, o, r) grid have no counterpart
 — a block owns ROWS lanes × all N columns of one component and loops over r
-itself. K1, K3 and K9, the kernels the default and the server paths run,
-put their products on the tensor cores: `mma.sync.m16n8k32` int8 whose
-operand fragments are S-table and digit-tile words, the operands staged by
-`cp.async` one contraction row ahead (csrc/nc_mma.cuh); what is left above
-their bound is the instruction rate of `mma.sync` at N = 8 and, in K9, the
-glue. (K3's 8 instruction columns are 8 of a lane's G accumulators.) The
-others still run `__dp4a` on the CUDA cores, about 1/16 of that rate
-(csrc/nc_common.cuh).
+itself. K1, K3, K5, K9 and K10b put their products on the tensor cores:
+`mma.sync.m16n8k32` int8 whose operand fragments are S-table and digit-tile
+words, the operands staged by `cp.async` one contraction row ahead
+(csrc/nc_mma.cuh); what is left above their bound is the instruction rate
+of `mma.sync` at N = 8 and, in K9, the glue. (K3's 8 instruction columns
+are 8 of a lane's G accumulators.) The others (K6, K7, K8, K11) still run
+`__dp4a` on the CUDA cores, about 1/16 of that rate (csrc/nc_common.cuh).
 
 Layouts (int64 torus values; the TPU's (lo, hi) u32 pairs do not exist):
   dig    int8  [k+1, L, n_d, B, N]   digit limb planes, row r = u·L + l
@@ -70,6 +71,7 @@ import torch
 
 from tfhe_aes2_tpu_torch.ops import decomposition, polynomial, torus
 from tfhe_aes2_tpu_torch.ops.kernels import build
+from tfhe_aes2_tpu_torch.ops.kernels.matmul import SMS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -106,13 +108,27 @@ def _require_cuda(name: str, spec) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
+N_MAX = 512     # the largest polynomial size N the CMux wrappers admit
+
+
+def device_refusal(n: int, device) -> str | None:
+    """Why a parameter set of polynomial size n cannot run on `device`, or
+    None: on a CUDA device the kernels take N <= N_MAX; on the CPU the plain
+    versions take any N."""
+    if torch.device(device).type != "cuda" or n <= N_MAX:
+        return None
+    return (f"polynomial_size {n} is above {N_MAX}, the largest the CUDA "
+            f"kernels take; N=1024 kernels are ROADMAP.md Queue 1 item 3 "
+            f"(on device 'cpu' the plain versions run it)")
+
+
 def _check_geometry(name: str, n: int, n_d: int, r: int, j_start: int,
                     n_min: int = 8):
-    """n_min: 8 for the `__dp4a` kernels; 64 for K1, K3 and K9, whose warps own
-    64 columns each and index their S-tables unmasked."""
-    if n & (n - 1) or not n_min <= n <= 512:
+    """n_min: 8 for the `__dp4a` kernels; 64 for K1, K3, K5, K9 and K10b,
+    whose warps own 64 columns each and index their S-tables unmasked."""
+    if n & (n - 1) or not n_min <= n <= N_MAX:
         raise ValueError(f"{name}: N={n} must be a power of two in "
-                         f"[{n_min}, 512]")
+                         f"[{n_min}, {N_MAX}]")
     if not 1 <= n_d <= 3 or not 0 <= j_start <= 7:
         raise ValueError(f"{name}: n_d={n_d}, j_start={j_start} unsupported")
     # int32 weight buckets: at most n_d (i, j) pairs of R·N products of
@@ -309,10 +325,13 @@ def extprod_step2(dig: torch.Tensor, ext_or: torch.Tensor, acc: torch.Tensor,
             f"(j_start={j_start})")
     if _on_cpu(dig, ext_or, acc):
         return extprod_step2_plain(dig, ext_or, acc, j_start)
-    _check_geometry("extprod_step2", n, n_d, r, j_start)
+    _check_geometry("extprod_step2", n, n_d, r, j_start, n_min=64)
+    _check_smem("extprod_step2",
+                _mma_stage_bytes(n, nj) + 2 * _mma_dig_tile_bytes(n, n_d))
     _require_cuda("extprod_step2", [(dig, torch.int8), (ext_or, torch.int8),
                                     (acc, torch.int64)])
-    f = _fn("step", "tfhe_extprod_step2", [_P] * 3 + [_I] * 6 + [_P])
+    _check_staged("extprod_step2", dig, ext_or)
+    f = _fn("cmux", "tfhe_extprod_step2", [_P] * 3 + [_I] * 6 + [_P])
     rc = f(dig.data_ptr(), ext_or.data_ptr(), acc.data_ptr(), b, n, o, r,
            n_d, j_start, build.stream_ptr(acc.device))
     build.check(rc, "extprod_step2")
@@ -534,7 +553,7 @@ def rot_diff_digits_flat(acc: torch.Tensor, t: torch.Tensor, base_log: int,
 rot_diff_digits_flat.launches = 0
 
 
-# ------------------------- K10b the CMux update, one long contraction a plane
+# ------------------------ K10b the CMux update, one long contraction a lane
 
 def extprod_step_longk_plain(dig_flat, ext_or, acc, j_start: int):
     """acc += Σ_r dig[r] ⊛ BSK rows on the flat digit layout, in place."""
@@ -547,13 +566,31 @@ def extprod_step_longk_plain(dig_flat, ext_or, acc, j_start: int):
     return acc
 
 
+LONGK_BLOCK_ROWS = 0.7   # a K10b block's launch, prologue and epilogue,
+                         # in contraction rows (csrc/probes/longk_splits.py)
+
+
+def _longk_splits(b: int, o: int, r: int) -> int:
+    """Blocks that share one (8-lane tile, component)'s R contraction rows
+    in K10b (csrc/longk.cu): the count s in 1..r that minimises the modelled
+    time ceil(tiles·s / SMS) · (ceil(r/s) + LONGK_BLOCK_ROWS) — waves of one
+    block an SM, each as long as its longest block — and the fewest among
+    equals. Block z takes rows [z·r/s, (z+1)·r/s): floor or ceiling of r/s,
+    none empty."""
+    tiles = -(-b // 8) * o
+    return min(range(1, r + 1), key=lambda s: (
+        -(-tiles * s // SMS) * (-(-r // s) + LONGK_BLOCK_ROWS), s))
+
+
 def extprod_step_longk(dig_flat: torch.Tensor, ext_or: torch.Tensor,
                        acc: torch.Tensor, j_start: int) -> torch.Tensor:
     """K10b. dig_flat int8 [n_d, B, R·N] (K10a's output); ext_or int8
     [O, R, 8-js, 2N] — the prepared BSK entry, NOT the plane-major ext_oj
-    [O, 8-js, R, 2N] that the TPU kernel takes: the kernel walks plane by
-    plane through ext_or's strides, so no key is transposed; acc int64
-    [O, B, N], updated in place (the TPU kernel aliases it) and returned."""
+    [O, 8-js, R, 2N] that the TPU kernel takes: the kernel reads row r's key
+    planes through ext_or's strides, so no key is transposed; acc int64
+    [O, B, N], updated in place (the TPU kernel aliases it; with more than
+    one split each block adds its partial by 64-bit atomics, exact mod 2^64
+    in any order) and returned."""
     n_d, b, rn = dig_flat.shape
     o, r, nj, two_n = ext_or.shape
     n = two_n // 2
@@ -565,14 +602,16 @@ def extprod_step_longk(dig_flat: torch.Tensor, ext_or: torch.Tensor,
             f"(j_start={j_start})")
     if _on_cpu(dig_flat, ext_or, acc):
         return extprod_step_longk_plain(dig_flat, ext_or, acc, j_start)
-    _check_geometry("extprod_step_longk", n, n_d, r, j_start)
-    _check_smem("extprod_step_longk", 2 * n * 4 + n_d * 8 * r * n)
+    _check_geometry("extprod_step_longk", n, n_d, r, j_start, n_min=64)
+    _check_smem("extprod_step_longk",
+                _mma_stage_bytes(n, nj) + 2 * _mma_dig_tile_bytes(n, n_d))
     _require_cuda("extprod_step_longk",
                   [(dig_flat, torch.int8), (ext_or, torch.int8),
                    (acc, torch.int64)])
-    f = _fn("longk", "tfhe_extprod_step_longk", [_P] * 3 + [_I] * 6 + [_P])
+    _check_staged("extprod_step_longk", dig_flat, ext_or)
+    f = _fn("longk", "tfhe_extprod_step_longk", [_P] * 3 + [_I] * 7 + [_P])
     rc = f(dig_flat.data_ptr(), ext_or.data_ptr(), acc.data_ptr(), b, n, o, r,
-           n_d, j_start, build.stream_ptr(acc.device))
+           n_d, j_start, _longk_splits(b, o, r), build.stream_ptr(acc.device))
     build.check(rc, "extprod_step_longk")
     extprod_step_longk.launches += 1
     return acc

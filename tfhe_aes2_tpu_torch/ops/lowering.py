@@ -14,7 +14,8 @@ schedule in both packages:
       "merged"    K9 per step (glue, dots and recombine in one launch, the
                   digits never in device memory); TFHE_BR_KERNEL=merged
       "longk"     K10a then K10b per step (row-flattened digits, one long
-                  contraction per key plane); TFHE_BR_KERNEL=longk
+                  contraction a lane, its rows split across blocks to
+                  fill the card); TFHE_BR_KERNEL=longk
       "bucket"    K2 then K11 per step (one weight bucket per block, added
                   with atomics); TFHE_BR_KERNEL=bucket
       "glue_out"  rotate, subtract, decompose and split in plain torch, then

@@ -140,7 +140,9 @@ def serve(keys_path: str, address: str, one_shot: bool = False,
     clients can connect (and queue a request) the moment the process starts;
     the heavy startup happens while the first request waits in the accept
     backlog. A request that fails is answered with ok: false and the server
-    goes on."""
+    goes on; a bundle whose parameters the kernels of `device` do not take
+    (N > 512 on CUDA) is refused with ValueError as it loads, before any
+    request is accepted."""
     from multiprocessing.connection import Listener
 
     with Listener(address, "AF_UNIX") as listener:
@@ -149,8 +151,12 @@ def serve(keys_path: str, address: str, one_shot: bool = False,
         from tfhe_aes2_tpu_torch.aes_128 import fhe as fhe_mod
         from tfhe_aes2_tpu_torch.models import shortint_woppbs_1bit as model
         from tfhe_aes2_tpu_torch.ops import serialization
+        from tfhe_aes2_tpu_torch.ops.kernels.extprod import device_refusal
 
         raw, params = serialization.load_server_keys(keys_path)
+        refusal = device_refusal(params.polynomial_size, device)
+        if refusal:
+            raise ValueError(f"key bundle {keys_path} on {device}: {refusal}")
         ctx = model.context_from_keys(
             params, serialization.server_keys_on(raw, device),
             lowering=lowering)
