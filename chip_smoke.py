@@ -9,13 +9,14 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      each held bit-for-bit against its plain PyTorch version on the card,
      with median times (50 launches for kernels under 0.2 ms) and each
      kernel's bound; and the cross-checks: K7's partial sums recombined
-     equal K6's update, K2 then K5 equals K1, and one step of each of the
-     schedules `merged` (K9), `longk` (K10a then K10b) and `bucket` (K2 then
-     K11) equals K2 then K5, at B in {9, 128, 160, 256, 288}, with the split
-     of K10b's rows at each B and the host's time to enqueue a `longk` and a
-     `grid` step; K1, K5, K9 and K10b, whose products run on the tensor
-     cores, again over a grid of small and ragged shapes (N in {64, 256,
-     512}, B in {1, 9, 13, 288}, js in {0, 2}, n_d in {1, 2, 3}) and at the
+     equal K6's update, K2 then K5 equals K1, and K6's update and one step
+     of each of the schedules `merged` (K9), `longk` (K10a then K10b) and
+     `bucket` (K2 then K11) equal K2 then K5, at B in {9, 128, 160, 256,
+     288}, with the split of K10b's and of K11's rows at each B and the
+     host's time to enqueue a `longk` and a `grid` step; K1, K5, K6, K9,
+     K10b and K11, whose products run on the tensor cores, again over a
+     grid of small and ragged shapes (N in {64, 256, 512}, B in {1, 9, 13,
+     288}, js in {0, 2}, n_d in {1, 2, 3}; K11 split and unsplit) and at the
      extreme value -128 in every operand byte (K10b split at B=13, unsplit
      at B=201); and, as a yardstick printed beside them, the int8 rate one
      `torch._int_mm` reaches at K1's size (the port never calls it);
@@ -96,45 +97,60 @@ PEAK_BYTES = 3.35e12         # H100 SXM HBM3 bytes/s
 KEY = bytes.fromhex("76b8e0ada0f13d90405d6ae55386bd28")
 IV = bytes.fromhex("bdd219b8a08ded1a")
 
+# int8_products: how each kernel computes its int8 products on the card —
+# "mma.sync" (the tensor cores: nc_mma.cuh, matmul.cu), "dp4a" (the CUDA
+# cores: nc_common.cuh) or None (the glue, no products)
 KERNELS = {
     "extprod_step2g": dict(
         fn=kx.extprod_step2g, source="tfhe_aes2_tpu_torch/csrc/cmux.cu",
-        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:542"),
+        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:542",
+        int8_products="mma.sync"),
     "rot_diff_digits": dict(
         fn=kx.rot_diff_digits, source="tfhe_aes2_tpu_torch/csrc/cmux.cu",
-        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:386"),
+        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:386",
+        int8_products=None),
     "extprod_grouped_fused": dict(
         fn=kx.extprod_grouped_fused, source="tfhe_aes2_tpu_torch/csrc/vp.cu",
-        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:1154"),
+        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:1154",
+        int8_products="mma.sync"),
     "fused_limb_matmul": dict(
         fn=kmm.fused_limb_matmul, source="tfhe_aes2_tpu_torch/csrc/matmul.cu",
-        replaces="tfhe_aes2_tpu/ops/pallas/matmul.py:82"),
+        replaces="tfhe_aes2_tpu/ops/pallas/matmul.py:82",
+        int8_products="mma.sync"),
     "extprod_step2": dict(
         fn=kx.extprod_step2, source="tfhe_aes2_tpu_torch/csrc/cmux.cu",
-        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:439"),
+        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:439",
+        int8_products="mma.sync"),
     "extprod_step": dict(
         fn=kx.extprod_step, source="tfhe_aes2_tpu_torch/csrc/step.cu",
-        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:307"),
+        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:307",
+        int8_products="mma.sync"),
     "extprod_partials": dict(
         fn=kx.extprod_partials, source="tfhe_aes2_tpu_torch/csrc/partials.cu",
-        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:127"),
+        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:127",
+        int8_products="dp4a"),
     "extprod_partials_grouped": dict(
         fn=kx.extprod_partials_grouped,
         source="tfhe_aes2_tpu_torch/csrc/partials.cu",
-        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:1071"),
+        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:1071",
+        int8_products="dp4a"),
     "cmux_step_merged": dict(
         fn=kx.cmux_step_merged, source="tfhe_aes2_tpu_torch/csrc/merged.cu",
-        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:737"),
+        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:737",
+        int8_products="mma.sync"),
     "rot_diff_digits_flat": dict(
         fn=kx.rot_diff_digits_flat,
         source="tfhe_aes2_tpu_torch/csrc/longk.cu",
-        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:807"),
+        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:807",
+        int8_products=None),
     "extprod_step_longk": dict(
         fn=kx.extprod_step_longk, source="tfhe_aes2_tpu_torch/csrc/longk.cu",
-        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:892"),
+        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:892",
+        int8_products="mma.sync"),
     "extprod_step3": dict(
         fn=kx.extprod_step3, source="tfhe_aes2_tpu_torch/csrc/bucket.cu",
-        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:988"),
+        replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:988",
+        int8_products="mma.sync"),
 }
 ROOT = Path(__file__).resolve().parent
 STRATEGY = fhe.ShortintWoppbs1BitSboxGalMulPbsAesEncrypt
@@ -251,12 +267,13 @@ def phase_device() -> str:
               if "spill" in ln and " 0 bytes spill" not in ln]
     log(f"ptxas: {len(spills)} kernel instantiations report spills"
         + "".join(f"\n  {name}" for name in spills))
-    # the main path's instantiations: K1, K5 (K1 without glue), K9 and K10b
-    # (ND=2, JS=2), K3 (ND=2, JS=4), K4's keyswitch (ND=1, JS=5) and pfKS
-    # (ND=3, JS=1)
+    # the main path's instantiations: K1, K5 (K1 without glue), K6, K9 and
+    # K10b (ND=2, JS=2), K11 (ND=2), K3 (ND=2, JS=4), K4's keyswitch (ND=1,
+    # JS=5) and pfKS (ND=3, JS=1)
     for i, ln in enumerate(report):
         if any(key in ln for key in (
                 "step2g_kernelILi2ELi2ELb1E", "step2g_kernelILi2ELi2ELb0E",
+                "step_kernelILi2ELi2E", "step3_kernelILi2E",
                 "merged_kernelILi2ELi2E", "longk_kernelILi2ELi2E",
                 "grouped_fused_kernelILi2ELi4E",
                 "limb_matmul_kernelILi1ELi5E", "limb_matmul_kernelILi3ELi1E")):
@@ -264,11 +281,16 @@ def phase_device() -> str:
     return smi
 
 
+def k11_split_of(b: int, n: int, nd: int, o: int, r: int, nj: int) -> int:
+    """The split the K11 wrapper takes at this shape on this card."""
+    return kx._bucket_splits(b, o, r, nj, kx._bucket_residency(n, nd))
+
+
 def check_step_schedules(rows: dict, b: int, acc, t, ext, js: int, nd: int):
-    """K9, K10a, K10b and K11 at batch b against their plain versions, and
-    one step of `merged`, `longk` and `bucket` against K2 then K5 on the
-    same accumulator, mask element and BSK entry; then each step timed as
-    its schedule runs it."""
+    """K6, K9, K10a, K10b and K11 at batch b against their plain versions,
+    K6's update and one step of `merged`, `longk` and `bucket` against K2
+    then K5 on the same accumulator, mask element and BSK entry; then each
+    step timed as its schedule runs it."""
     lv, bl = P.pbs_level, P.pbs_base_log
     k1, _, n = acc.shape
     r = k1 * lv
@@ -276,6 +298,20 @@ def check_step_schedules(rows: dict, b: int, acc, t, ext, js: int, nd: int):
     dig = kx.rot_diff_digits(acc, t, bl, lv, nd)
     want = kx.extprod_step2(dig, ext, acc.clone(), js)
     scratch = acc.clone()
+    # K6: the same update on the batch-major layouts, into a new tensor
+    dig_bm = dig.reshape(r, nd, b, n).permute(1, 2, 0, 3).contiguous()
+    acc_bm = acc.permute(1, 0, 2).contiguous()
+    acc_6 = kx.extprod_step(dig_bm, ext, acc_bm, js)
+    ref = kx.extprod_step_plain(dig_bm, ext, acc_bm, js)
+    sync()
+    err = max_abs_err(acc_6, ref)
+    if not torch.equal(acc_6.permute(1, 0, 2), want):
+        raise AssertionError(f"K6 differs from K2 then K5 at B={b}")
+    ms = time_ms(lambda: kx.extprod_step(dig_bm, ext, acc_bm, js))
+    pms = time_ms(lambda: kx.extprod_step_plain(dig_bm, ext, acc_bm, js),
+                  reps=2)
+    record(f"extprod_step B={b}", rows["extprod_step"], macs,
+           dig.numel() + ext.numel() + acc.numel() * 16, ms, pms, err)
     # K9: the digits never leave the chip, so its bytes lose them
     got = kx.cmux_step_merged(t, ext, acc, bl, lv, js)
     ref = kx.cmux_step_merged_plain(t, ext, acc, bl, lv, js)
@@ -324,18 +360,21 @@ def check_step_schedules(rows: dict, b: int, acc, t, ext, js: int, nd: int):
                          scratch, js)
     longk_ms = time_ms(longk_step)
     longk_us, grid_us = enqueue_us(longk_step), enqueue_us(grid_step)
-    # K11 on K2's output
+    # K11 on K2's output, at the wrapper's split and unsplit
     got = kx.extprod_step3(dig, ext, acc.clone(), js)
     ref = kx.extprod_step3_plain(dig, ext, acc.clone(), js)
+    one = kx._launch_step3(dig, ext, acc.clone(), js, 1)
     sync()
-    err = max_abs_err(got, ref)
+    err = max(max_abs_err(got, ref), max_abs_err(one, ref))
     if not torch.equal(got, want):
         raise AssertionError(f"K11 after K2 differs from K2 then K5 at B={b}")
     ms = time_ms(lambda: kx.extprod_step3(dig, ext, scratch, js))
     pms = time_ms(lambda: kx.extprod_step3_plain(dig, ext, scratch, js),
                   reps=2)
-    record(f"extprod_step3 B={b}", rows["extprod_step3"], macs,
-           dig.numel() + ext.numel() + acc.numel() * 16, ms, pms, err)
+    bsplit = k11_split_of(b, n, nd, k1, r, 8 - js)
+    record(f"extprod_step3 B={b} (split {bsplit})", rows["extprod_step3"],
+           macs, dig.numel() + ext.numel() + acc.numel() * 16, ms, pms, err)
+    rows["extprod_step3"][-1]["split"] = bsplit
     bucket_ms = time_ms(lambda: kx.extprod_step3(
         kx.rot_diff_digits(scratch, t, bl, lv, nd), ext, scratch, js))
     grid_ms = time_ms(grid_step)
@@ -344,7 +383,8 @@ def check_step_schedules(rows: dict, b: int, acc, t, ext, js: int, nd: int):
     log(f"    one CMux step at B={b}: gridg (K1) {k1_ms:.4f} ms, grid (K2 "
         f"then K5) {grid_ms:.4f} ms, merged (K9) {merged_ms:.4f} ms, longk "
         f"(K10a then K10b, K10b split {split}) {longk_ms:.4f} ms, bucket (K2 "
-        f"then K11) {bucket_ms:.4f} ms; all equal K2 then K5")
+        f"then K11, K11 split {bsplit}) {bucket_ms:.4f} ms; all equal K2 "
+        "then K5")
     log(f"    host enqueue of one step at B={b}: longk {longk_us:.1f} us, "
         f"grid {grid_us:.1f} us")
     rows["cmux_step_merged"][-1]["step_ms"] = dict(
@@ -353,8 +393,9 @@ def check_step_schedules(rows: dict, b: int, acc, t, ext, js: int, nd: int):
 
 
 def check_tensor_core_steps(gen) -> int:
-    """K1, K5, K9 and K10b bit-equal to their plain versions over small,
-    ragged and full shapes, then at the extreme value: every digit and key
+    """K1, K5, K6, K9, K10b and K11 bit-equal to their plain versions over
+    small, ragged and full shapes — K11 at the wrapper's split, unsplit and
+    with a row a block — then at the extreme value: every digit and key
     byte -128 at the blind rotation's R=15, N=512, n_d=2, js=2, where each
     int32 bucket reaches n_d·R·N·2^14, the bound the wrappers admit (K9's
     digits come from its own glue, so only its key is extreme), at B=13
@@ -377,13 +418,24 @@ def check_tensor_core_steps(gen) -> int:
         flat = dig.permute(2, 3, 0, 1, 4).reshape(nd, b, k1 * lv * n)
         got10 = kx.extprod_step_longk(flat, ext, acc.clone(), js)
         ref10 = kx.extprod_step_longk_plain(flat, ext, acc.clone(), js)
+        dig_bm = dig.reshape(k1 * lv, nd, b, n).permute(1, 2, 0,
+                                                        3).contiguous()
+        acc_bm = acc.permute(1, 0, 2).contiguous()
+        got6 = kx.extprod_step(dig_bm, ext, acc_bm, js)
+        ref6 = kx.extprod_step_plain(dig_bm, ext, acc_bm, js)
+        ref11 = kx.extprod_step3_plain(dig, ext, acc.clone(), js)
+        got11 = [kx.extprod_step3(dig, ext, acc.clone(), js)] + [
+            kx._launch_step3(dig, ext, acc.clone(), js, splits)
+            for splits in (1, k1 * lv)]
         sync()
         if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
                 and torch.equal(got9, ref9) and torch.equal(got5, ref5)
-                and torch.equal(got10, ref10)):
-            raise AssertionError(f"K1, K5, K9 or K10b differs from plain at "
-                                 f"N={n} B={b} js={js} n_d={nd} fill={fill}")
-        return 4
+                and torch.equal(got10, ref10) and torch.equal(got6, ref6)
+                and all(torch.equal(x, ref11) for x in got11)):
+            raise AssertionError(f"K1, K5, K6, K9, K10b or K11 differs from "
+                                 f"plain at N={n} B={b} js={js} n_d={nd} "
+                                 f"fill={fill}")
+        return 8
 
     done = 0
     for n in (64, 256, 512):
@@ -486,29 +538,18 @@ def phase_kernels() -> dict:
         log(f"    grid step (K2 then K5) B={b}: {pair_ms:.4f} ms against "
             f"K1's {rows['extprod_step2g'][-1]['ms']:.4f} ms")
         rows["extprod_step2"][-1]["grid_step_ms"] = pair_ms
-        # K6: the same update on the batch-major layouts
-        dig_bm = dig.reshape(r, nd, b, n).permute(1, 2, 0, 3).contiguous()
-        acc_bm = acc.permute(1, 0, 2).contiguous()
-        acc_6 = kx.extprod_step(dig_bm, ext, acc_bm, js)
-        ref = kx.extprod_step_plain(dig_bm, ext, acc_bm, js)
-        sync()
-        err = max_abs_err(acc_6, ref)
-        if not torch.equal(acc_6.permute(1, 0, 2), acc_k):
-            raise AssertionError(f"K6 differs from K1's accumulator at B={b}")
-        ms = time_ms(lambda: kx.extprod_step(dig_bm, ext, acc_bm, js))
-        pms = time_ms(lambda: kx.extprod_step_plain(dig_bm, ext, acc_bm, js),
-                      reps=2)
-        record(f"extprod_step B={b}", rows["extprod_step"], macs,
-               dig.numel() + ext.numel() + acc.numel() * 16, ms, pms, err)
         check_step_schedules(rows, b, acc, t, ext, js, nd)
-    log("  cross-check: K2 then K5 == K1, and K6 == K1's accumulator, at "
-        "every B >= 128; K9 == K10b after K10a == K11 after K2 == K5 after "
-        "K2 at every B")
+    log("  cross-check: K2 then K5 == K1 at every B >= 128; K6 == K9 == K10b "
+        "after K10a == K11 after K2 (split and unsplit) == K5 after K2 at "
+        "every B")
     done = check_tensor_core_steps(gen)
-    log(f"  K1, K5, K9 and K10b bit-equal to plain in {done} more "
+    log(f"  K1, K5, K6, K9, K10b and K11 bit-equal to plain in {done} more "
         "comparisons: N in {64, 256, 512} x B in {1, 9, 13, 288} x js in "
         "{0, 2} x n_d in {1, 2, 3}, and every digit and key byte -128 at "
-        "R=15, N=512, B in {13, 201} (K10b split 8 and unsplit)")
+        "R=15, N=512, B in {13, 201} (K10b split 8 and unsplit; K11 at its "
+        f"split ({k11_split_of(13, n, nd, k1, r, 8 - js)} and "
+        f"{k11_split_of(201, n, nd, k1, r, 8 - js)}), unsplit and a row a "
+        "block)")
     int8_library_rate(288, n, 288 * k1 * r * n * n * pairs(nd, js))
 
     # K7 at B=288: all 8 key planes (js=0); with the planes the BSK drops
@@ -1115,7 +1156,8 @@ def main() -> int:
             max_abs_err=max(x["max_abs_err"] for x in rows[name]),
             ms=last["ms"], plain_ms=last["plain_ms"],
             bound_ms=last["bound_ms"], bound_by=last["bound_by"],
-            library_ms=None, shape=last["name"],
+            library_ms=None, int8_products=spec["int8_products"],
+            shape=last["name"],
             shapes=[{k: v for k, v in x.items()
                      if k not in ("macs", "nbytes", "max_abs_err")}
                     for x in rows[name]]))

@@ -96,9 +96,10 @@ def test_cuda_kernels_match_plain():
 @pytest.mark.parametrize("n", [64, 256, 512])
 @pytest.mark.parametrize("b", [1, 9, 13, 288])
 def test_cuda_tensor_core_steps_match_plain(n, b):
-    """On the card: K1, K5, K9 and K10b (mma.sync int8; K10b split across
-    blocks at B <= 13) bit-equal to their plain versions with a ragged last
-    lane tile, for js in {0, 2} and one, two and three limbs a digit."""
+    """On the card: K1, K5, K6, K9, K10b and K11 (mma.sync int8; K10b split
+    across blocks at B <= 13, K11 at its split, unsplit and a row a block)
+    bit-equal to their plain versions with a ragged last lane tile, for js
+    in {0, 2} and one, two and three limbs a digit."""
     require_cuda()
     gen = torch.Generator().manual_seed(1000 * n + b)
     k1, levels = 2, 2
@@ -120,13 +121,15 @@ def test_cuda_tensor_core_steps_match_plain(n, b):
             assert torch.equal(
                 kx.cmux_step_merged(t, ext, acc, base_log, levels, js),
                 kx.cmux_step_merged_plain(t, ext, acc, base_log, levels, js))
-            _assert_k5_k10b_match_plain(dig, ext, acc, js)
+            _assert_undivided_steps_match_plain(dig, ext, acc, js)
     torch.cuda.synchronize()
 
 
-def _assert_k5_k10b_match_plain(dig, ext, acc, js):
-    """K5 on K2's layout and K10b on the same digits laid flat (K10a's
-    layout), each bit-equal to its plain version."""
+def _assert_undivided_steps_match_plain(dig, ext, acc, js):
+    """The step's update without its glue, each bit-equal to its plain
+    version: K5 and K11 on K2's layout (K11 at the wrapper's split, unsplit
+    and a row a block), K10b on the same digits laid flat (K10a's layout),
+    K6 on them batch-major."""
     k1, levels, n_d, b, n = dig.shape
     assert torch.equal(kx.extprod_step2(dig, ext, acc.clone(), js),
                        kx.extprod_step2_plain(dig, ext, acc.clone(), js))
@@ -134,6 +137,16 @@ def _assert_k5_k10b_match_plain(dig, ext, acc, js):
     assert torch.equal(kx.extprod_step_longk(flat, ext, acc.clone(), js),
                        kx.extprod_step_longk_plain(flat, ext, acc.clone(),
                                                    js))
+    dig_bm = dig.reshape(k1 * levels, n_d, b, n).permute(1, 2, 0,
+                                                         3).contiguous()
+    acc_bm = acc.permute(1, 0, 2).contiguous()
+    assert torch.equal(kx.extprod_step(dig_bm, ext, acc_bm, js),
+                       kx.extprod_step_plain(dig_bm, ext, acc_bm, js))
+    want = kx.extprod_step3_plain(dig, ext, acc.clone(), js)
+    assert torch.equal(kx.extprod_step3(dig, ext, acc.clone(), js), want)
+    for splits in (1, k1 * levels):
+        got = kx._launch_step3(dig, ext, acc.clone(), js, splits)
+        assert torch.equal(got, want), splits
 
 
 @pytest.mark.cuda
@@ -141,8 +154,9 @@ def test_cuda_tensor_core_steps_extreme_values():
     """On the card: every digit and key byte -128 at the blind rotation's
     R=15, N=512, n_d=2, js=2 — each int32 bucket at the bound the wrappers
     admit — still bit-equal to plain (K9's digits come from its own glue, so
-    only its key is extreme); K5 and K10b too, K10b split in 8 at B=13 and
-    unsplit at B=201."""
+    only its key is extreme); K5, K6, K10b and K11 too, K10b split in 8 at
+    B=13 and unsplit at B=201, K11 at its split, unsplit and a row a
+    block."""
     require_cuda()
     gen = torch.Generator().manual_seed(9)
     k1, levels, n, n_d, js, base_log = 5, 3, 512, 2, 2, 12
@@ -164,7 +178,7 @@ def test_cuda_tensor_core_steps_extreme_values():
         assert torch.equal(
             kx.cmux_step_merged(t, ext, acc, base_log, levels, js),
             kx.cmux_step_merged_plain(t, ext, acc, base_log, levels, js))
-        _assert_k5_k10b_match_plain(dig, ext, acc, js)
+        _assert_undivided_steps_match_plain(dig, ext, acc, js)
     torch.cuda.synchronize()
 
 
@@ -224,4 +238,29 @@ def test_cuda_grouped_tensor_cores_match_plain(n, lanes, g):
             assert torch.equal(
                 kx.extprod_grouped_fused(dig, ext, n_d, js),
                 kx.extprod_grouped_fused_plain(dig, ext, n_d, js)), (js, n_d)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [9, 288])
+def test_cuda_bucket_every_split_matches_plain(b):
+    """On the card: K11 at the blind rotation's O=5, R=15, N=512, n_d=2,
+    js=2 with every split count 1..15 of its rows, bit-equal to its plain
+    version; the wrapper's split is one of them."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(b)
+    k1, levels, n, n_d, js = 5, 3, 512, 2, 2
+    r = k1 * levels
+    dig = torch.randint(-128, 128, (k1, levels, n_d, b, n), generator=gen,
+                        dtype=torch.int8).cuda()
+    ext = torch.randint(-128, 128, (k1, r, 8 - js, 2 * n), generator=gen,
+                        dtype=torch.int8).cuda()
+    acc = torch.randint(-2 ** 62, 2 ** 62, (k1, b, n), generator=gen,
+                        dtype=torch.int64).cuda()
+    want = kx.extprod_step3_plain(dig, ext, acc.clone(), js)
+    for splits in range(1, r + 1):
+        got = kx._launch_step3(dig, ext, acc.clone(), js, splits)
+        assert torch.equal(got, want), splits
+    assert 1 <= kx._bucket_splits(
+        b, k1, r, 8 - js, kx._bucket_residency(n, n_d)) <= r
     torch.cuda.synchronize()

@@ -75,27 +75,38 @@ def unpack_s8(words):
         np.uint8).view(np.int8)
 
 
+def _fragment_slots():
+    """Where each fragment byte (or D register) sits in the instruction's
+    matrices (PTX ISA layouts), as flat positions: A [16 x 32] by (lane,
+    register, byte), B [32 x 8] likewise, D [16 x 8] by (lane, register)."""
+    lane, reg, q = np.meshgrid(LANE, np.arange(4), np.arange(4),
+                               indexing="ij")
+    a_at = ((GID[lane] + 8 * (reg & 1)) * 32
+            + 4 * TIG[lane] + q + 16 * (reg >> 1))
+    lane, reg, q = np.meshgrid(LANE, np.arange(2), np.arange(4),
+                               indexing="ij")
+    b_at = (4 * TIG[lane] + q + 16 * reg) * 8 + GID[lane]
+    lane, reg = np.meshgrid(LANE, np.arange(4), indexing="ij")
+    d_at = (GID[lane] + 8 * (reg >> 1)) * 8 + 2 * TIG[lane] + (reg & 1)
+    return a_at.reshape(-1), b_at.reshape(-1), d_at.reshape(-1)
+
+
+A_AT, B_AT, D_AT = _fragment_slots()
+
+
 def mma_m16n8k32(a_regs, b_regs):
     """One warp's mma.sync.m16n8k32.s8.s8.s32, batched over leading axes:
     a_regs uint32 [..., 32, 4], b_regs uint32 [..., 32, 2] -> the D
-    fragment int32 [..., 32, 4] of A·B (PTX ISA fragment layouts)."""
-    lead = a_regs.shape[:-2]
-    a = np.zeros(lead + (16, 32), dtype=np.int64)
-    b = np.zeros(lead + (32, 8), dtype=np.int64)
-    a_by, b_by = unpack_s8(a_regs), unpack_s8(b_regs)
-    for reg in range(4):
-        for q in range(4):
-            a[..., GID + 8 * (reg & 1), 4 * TIG + q + 16 * (reg >> 1)] = \
-                a_by[..., LANE, reg, q]
-    for reg in range(2):
-        for q in range(4):
-            b[..., 4 * TIG + q + 16 * reg, GID] = b_by[..., LANE, reg, q]
-    d = a @ b                                               # [..., 16, 8]
-    out = np.zeros(lead + (32, 4), dtype=np.int64)
-    for reg in range(4):
-        out[..., LANE, reg] = d[..., GID + 8 * (reg >> 1),
-                                2 * TIG + (reg & 1)]
-    return out
+    fragment int64 [..., 32, 4] of A·B (PTX ISA fragment layouts). The
+    products are exact in float64 (|A·B| <= 32·2^14)."""
+    lead = np.broadcast_shapes(a_regs.shape[:-2], b_regs.shape[:-2])
+    a = np.empty(lead + (16 * 32,))
+    b = np.empty(lead + (32 * 8,))
+    a[..., A_AT] = unpack_s8(a_regs).reshape(a_regs.shape[:-2] + (-1,))
+    b[..., B_AT] = unpack_s8(b_regs).reshape(b_regs.shape[:-2] + (-1,))
+    d = a.reshape(lead + (16, 32)) @ b.reshape(lead + (32, 8))
+    return d.reshape(lead + (-1,))[..., D_AT].reshape(
+        lead + (32, 4)).astype(np.int64)
 
 
 def window_word(tab, n, warp, kt, p):
@@ -107,56 +118,98 @@ def window_word(tab, n, warp, kt, p):
     return tab[idx]
 
 
-def contract_emulated(dig, ext, js):
-    """dig int8 [R, n_d, ROWS, N], ext int8 [R, 8-js, 2N] -> the block's
-    int64 [ROWS, N] sum, computed as the kernel computes it."""
-    r_cnt, n_d, _, n = dig.shape
-    nj = 8 - js
+def tile_words(dig_r):
+    """One contraction row's digit limbs int8 [n_d, ROWS, N] as the padded
+    shared-memory tile, in 32-bit words."""
+    n_d, _, n = dig_r.shape
+    tile = np.zeros((n_d, ROWS, n + PAD), dtype=np.int8)
+    tile[:, :, :n] = dig_r
+    return tile.reshape(-1).view(np.uint32)
+
+
+def plane_fragments(tab, tile_w, limbs, n):
+    """mma_row's k-loop over one key plane (its rotated S-table `tab`)
+    against each digit limb i in `limbs` of a padded tile: int64 [len(limbs),
+    warps, MT, 32, 4], the D fragments of every warp's MT column tiles."""
     warps = np.arange(max(1, n // 64))
     stride = (n + PAD) // 4                                   # words a row
-    acc = np.zeros((len(warps), MT, nj, 32, 4), dtype=np.int64)
-    for r in range(r_cnt):
-        tile = np.zeros((n_d, ROWS, n + PAD), dtype=np.int8)
-        tile[:, :, :n] = dig[r]
-        tile_w = tile.reshape(-1).view(np.uint32)
-        for j in range(js, 8):
-            tab = build_table(ext[r, j - js], n)
-            assert np.array_equal(tab, table_by_definition(ext[r, j - js], n))
-            v = [None] * 10
-            for p in range(4, 10):
-                v[p] = window_word(tab, n, warps, 0, p)
-            for kt in range(n // 32):
-                for p in range(4):
-                    v[p] = window_word(tab, n, warps, kt, p)
-                for p in range(4, 10):      # carried from the last k-step
-                    assert np.array_equal(
-                        v[p], window_word(tab, n, warps, kt, p))
-                for i in range(n_d):
-                    if i + j >= 8:
-                        continue
-                    word = (i * ROWS + GID) * stride + 8 * kt + TIG
-                    b_regs = np.stack([tile_w[word], tile_w[word + 4]], -1)
-                    for q in range(MT):
-                        a_regs = np.stack([v[2 * q + 2], v[2 * q + 3],
-                                           v[2 * q], v[2 * q + 1]], -1)
-                        acc[:, q, i + j - js] += mma_m16n8k32(
-                            a_regs, b_regs[None])
-                for p in range(9, 3, -1):
-                    v[p] = v[p - 4]
-    assert np.abs(acc).max() < 2 ** 31       # the int32 buckets hold it
+    out = np.zeros((len(limbs), len(warps), MT, 32, 4), dtype=np.int64)
+    v = [None] * 10
+    for p in range(4, 10):
+        v[p] = window_word(tab, n, warps, 0, p)
+    for kt in range(n // 32):
+        for p in range(4):
+            v[p] = window_word(tab, n, warps, kt, p)
+        for p in range(4, 10):              # carried from the last k-step
+            assert np.array_equal(v[p], window_word(tab, n, warps, kt, p))
+        a_regs = np.stack([np.stack([v[2 * q + 2], v[2 * q + 3], v[2 * q],
+                                     v[2 * q + 1]], -1) for q in range(MT)],
+                          1)                             # [warps, MT, 32, 4]
+        for x, i in enumerate(limbs):
+            word = (i * ROWS + GID) * stride + 8 * kt + TIG
+            b_regs = np.stack([tile_w[word], tile_w[word + 4]], -1)
+            out[x] += mma_m16n8k32(a_regs, b_regs)
+        for p in range(9, 3, -1):
+            v[p] = v[p - 4]
+    return out
+
+
+def block_output(frags, n):
+    """The epilogue's map: frags int64 [warps, MT, 32, 4], one value per D
+    register -> [ROWS, N]: register c of tile q of a thread is column
+    64·warp + 16·q + gid + 8·(c / 2) of batch lane 2·tig + c % 2."""
     out = np.zeros((ROWS, n), dtype=np.int64)
-    for w in warps:
+    for w in range(frags.shape[0]):
         for q in range(MT):
             for reg in range(4):
                 m = 64 * w + 16 * q + GID + 8 * (reg >> 1)
                 lane = 2 * TIG + (reg & 1)
                 keep = m < n
-                total = np.zeros(32, dtype=np.int64)
-                for s in range(nj):
-                    with np.errstate(over="ignore"):
-                        total += acc[w, q, s, :, reg] << (8 * (s + js))
-                out[lane[keep], m[keep]] = total[keep]
+                out[lane[keep], m[keep]] = frags[w, q, :, reg][keep]
     return out
+
+
+def checked_table(raw_plane, n):
+    tab = build_table(raw_plane, n)
+    assert np.array_equal(tab, table_by_definition(raw_plane, n))
+    return tab
+
+
+def contract_emulated(dig, ext, js):
+    """dig int8 [R, n_d, ROWS, N], ext int8 [R, 8-js, 2N] -> the block's
+    int64 [ROWS, N] sum, computed as the kernel computes it."""
+    r_cnt, n_d, _, n = dig.shape
+    nj = 8 - js
+    acc = np.zeros((nj, max(1, n // 64), MT, 32, 4), dtype=np.int64)
+    for r in range(r_cnt):
+        tile_w = tile_words(dig[r])
+        for j in range(js, 8):
+            limbs = [i for i in range(n_d) if i + j < 8]
+            frags = plane_fragments(checked_table(ext[r, j - js], n), tile_w,
+                                    limbs, n)
+            for x, i in enumerate(limbs):
+                acc[i + j - js] += frags[x]
+    assert np.abs(acc).max() < 2 ** 31       # the int32 buckets hold it
+    total = np.zeros(acc.shape[1:], dtype=np.uint64)
+    for s in range(nj):
+        total += acc[s].view(np.uint64) << np.uint64(8 * (s + js))
+    return block_output(total.view(np.int64), n)
+
+
+def bucket_emulated(dig, key):
+    """K11's block: dig int8 [R, limbs, ROWS, N] (digit limbs 0..limbs-1),
+    key int8 [R, limbs, 2N] (the key planes s-limbs+1 .. s of the block's
+    bucket s) -> the int32 bucket int64 [ROWS, N], plane t against limb
+    limbs-1-t (mma_row<1, 7> once a plane)."""
+    r_cnt, limbs, _, n = dig.shape
+    acc = np.zeros((max(1, n // 64), MT, 32, 4), dtype=np.int64)
+    for r in range(r_cnt):
+        tile_w = tile_words(dig[r])
+        for t in range(limbs):
+            acc += plane_fragments(checked_table(key[r, t], n), tile_w,
+                                   [limbs - 1 - t], n)[0]
+    assert np.abs(acc).max() < 2 ** 31       # the int32 bucket holds it
+    return block_output(acc, n)
 
 
 @pytest.mark.parametrize("n", [64, 512])

@@ -1,16 +1,20 @@
-"""The per-block addressing of K5 (csrc/cmux.cu, K1's kernel without its
-glue) and K10b (csrc/longk.cu) through nc_mma.cuh's `Staged` record,
-emulated in numpy and held against the plain versions.
+"""The per-block addressing of the tensor-core CMux steps that run
+`nc::contract_mma` through nc_mma.cuh's `Staged` record — K5 (csrc/cmux.cu,
+K1's kernel without its glue), K6 (csrc/step.cu) and K10b (csrc/longk.cu) —
+and of K11 (csrc/bucket.cu), which runs its own row loop one weight bucket
+a block, emulated in numpy and held against the plain versions.
 
-Both run `nc::contract_mma`, whose fragment map `contract_emulated`
-(tests/test_torch_mma_layout.py) follows register by register. What is new
-here is where each block's operands lie: the `Staged` record's base
-pointers and its three digit strides (row, plane, lane), the zero fill of
-the lanes past the batch edge, and for K10b the split of the R contraction
-rows across blocks, whose recombined partials the kernel adds into the
+The contraction's fragment map is `contract_emulated`'s
+(tests/test_torch_mma_layout.py), followed register by register; K11's
+single bucket is its `bucket_emulated`. What is new here is where each
+block's operands lie: the `Staged` record's base pointers and its three
+digit strides (row, plane, lane), the zero fill of the lanes past the batch
+edge, K6's batch-major layouts, K11's key planes s-limbs+1..s of each row
+and its digit limbs below `limbs`, and for K10b and K11 the split of the R
+contraction rows across blocks, whose partials the kernels add into the
 accumulator with 64-bit atomics (wrapping u64 here). Change an index in
-cmux.cu, longk.cu or nc_mma.cuh -> change it here first. Needs nothing of
-the JAX package.
+cmux.cu, step.cu, longk.cu, bucket.cu or nc_mma.cuh -> change it here
+first. Needs nothing of the JAX package.
 """
 
 import numpy as np
@@ -18,7 +22,8 @@ import pytest
 import torch
 
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
-from tests.test_torch_mma_layout import ROWS, contract_emulated
+from tests.test_torch_mma_layout import (ROWS, bucket_emulated,
+                                         contract_emulated)
 
 N = 64
 
@@ -108,6 +113,64 @@ def k10b_emulated(flat, ext, acc, js, splits):
     return out
 
 
+def k6_emulated(dig_bm, ext, acc_bm, js):
+    """K6: grid (ceil(B/8), O) over the batch-major digits [n_d, B, R, N]
+    (lanes R·N bytes apart, rows N); block (tile, o)'s Staged record as
+    extprod_step_kernel builds it, the epilogue acc_out = acc_in + sum
+    into [B, O, N], a new array."""
+    n_d, b, r_cnt, n = dig_bm.shape
+    o_cnt, _, nj, _ = ext.shape
+    dig_f, ext_f = dig_bm.reshape(-1), ext.reshape(-1)
+    out = np.zeros_like(acc_bm)
+    for o in range(o_cnt):
+        for b0 in range(0, b, ROWS):
+            rows = min(ROWS, b - b0)
+            rec = (o * r_cnt * nj * 2 * n, b0 * r_cnt * n, n,
+                   b * r_cnt * n, r_cnt * n)
+            tile, key = staged_block(dig_f, ext_f, rec, r_cnt, rows, n_d, nj,
+                                     n)
+            block = contract_emulated(tile, key, js)
+            out[b0:b0 + rows, o] = wrap_add(acc_bm[b0:b0 + rows, o],
+                                            block[:rows])
+    return out
+
+
+def k11_emulated(dig, ext, acc, js, splits):
+    """K11: grid (ceil(B/8), O, (8-js)·splits); block (tile, o, z) takes
+    bucket s = js + z % (8-js) over its rows [r0, r1) of split z // (8-js):
+    per row the `limbs` = min(n_d, s-js+1) key planes from plane
+    s-limbs+1 (key rows (8-js)·2N bytes apart) and digit limbs 0..limbs-1
+    of K2's [R][n_d][B][N] digits; sign_extend(bucket) << 8s added into acc
+    as wrapping u64 (the kernel's atomicAdd)."""
+    k1, levels, n_d, b, n = dig.shape
+    o_cnt, r_cnt, nj, two_n = ext.shape
+    dig_f, ext_f = dig.reshape(-1), ext.reshape(-1)
+    out = acc.copy()
+    for o in range(o_cnt):
+        for b0 in range(0, b, ROWS):
+            rows = min(ROWS, b - b0)
+            for z in range(nj * splits):
+                s, split = js + z % nj, z // nj
+                r0, r1 = longk_rows(split, splits, r_cnt)
+                limbs = min(n_d, s - js + 1)
+                key = np.zeros((r1 - r0, limbs, two_n), dtype=np.int8)
+                tile = np.zeros((r1 - r0, limbs, ROWS, n), dtype=np.int8)
+                for r in range(r0, r1):
+                    at = ((o * r_cnt + r) * nj + s - limbs + 1 - js) * two_n
+                    assert at >= 0 and at + limbs * two_n <= ext_f.size
+                    key[r - r0] = ext_f[at:at + limbs * two_n].reshape(
+                        limbs, two_n)
+                    for i in range(limbs):
+                        for row in range(rows):
+                            at = ((r * n_d + i) * b + b0 + row) * n
+                            tile[r - r0, i, row] = dig_f[at:at + n]
+                bucket = bucket_emulated(tile, key)[:rows]
+                part = bucket.view(np.uint64) << np.uint64(8 * s)
+                out[o, b0:b0 + rows] = wrap_add(out[o, b0:b0 + rows],
+                                                part.view(np.int64))
+    return out
+
+
 @pytest.mark.parametrize("b", [1, 9, 13])
 @pytest.mark.parametrize("js", [0, 2])
 @pytest.mark.parametrize("n_d", [1, 2, 3])
@@ -187,3 +250,85 @@ def test_longk_splits_cover_every_row_once():
                 if tiles % 132 == 0:
                     assert s == 1
                 assert waves_rows(tiles, s, r) <= waves_rows(tiles, 1, r)
+
+
+@pytest.mark.parametrize("b", [1, 9, 13])
+@pytest.mark.parametrize("js", [0, 2])
+@pytest.mark.parametrize("n_d", [1, 2, 3])
+def test_k6_staged_addressing_matches_plain(b, js, n_d):
+    """K6's Staged record on the batch-major digits [n_d, B, R, N] (lanes
+    R·N bytes apart, rows N) and its epilogue into a new [B, O, N] array,
+    emulated by the fragment map, equal to extprod_step_plain bit for bit
+    (and to K5's update), ragged last lane tile included."""
+    dig, ext, acc = operands(b, n_d, js, seed=300 * b + 10 * js + n_d)
+    k1, levels, _, _, n = dig.shape
+    dig_bm = np.ascontiguousarray(
+        dig.reshape(k1 * levels, n_d, b, n).transpose(1, 2, 0, 3))
+    acc_bm = np.ascontiguousarray(acc.transpose(1, 0, 2))
+    want = kx.extprod_step_plain(torch.from_numpy(dig_bm),
+                                 torch.from_numpy(ext),
+                                 torch.from_numpy(acc_bm), js).numpy()
+    assert np.array_equal(
+        want.transpose(1, 0, 2),
+        kx.extprod_step2_plain(torch.from_numpy(dig), torch.from_numpy(ext),
+                               torch.from_numpy(acc.copy()), js).numpy())
+    got = k6_emulated(dig_bm, ext, acc_bm, js)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("b", [1, 9, 13])
+@pytest.mark.parametrize("js", [0, 2])
+@pytest.mark.parametrize("n_d", [1, 2, 3])
+def test_k11_bucket_blocks_match_plain(b, js, n_d):
+    """K11's bucket blocks — per bucket s only the key planes s-limbs+1..s
+    of each row and the digit limbs below limbs — each block's bucket
+    sign-extended, shifted by 8s and added as wrapping u64: equal to
+    extprod_step3_plain bit for bit unsplit, with three blocks a bucket
+    (rows 1, 1, 2) and with a row a block."""
+    dig, ext, acc = operands(b, n_d, js, seed=400 * b + 10 * js + n_d)
+    want = kx.extprod_step3_plain(torch.from_numpy(dig), torch.from_numpy(ext),
+                                  torch.from_numpy(acc.copy()), js).numpy()
+    r_cnt = ext.shape[1]
+    for splits in (1, 3, r_cnt):
+        assert np.array_equal(k11_emulated(dig, ext, acc, js, splits),
+                              want), splits
+
+
+@pytest.mark.parametrize("b,split", [(1, 8), (9, 5), (13, 5), (64, 3),
+                                     (128, 3), (160, 3), (200, 1), (256, 2),
+                                     (288, 1)])
+def test_bucket_split_choice(b, split):
+    """At the blind rotation's O=5, R=15, js=2 (6 buckets) with the 3 K11
+    blocks an SM that the H100 holds at N=512, n_d=2: B=9 is 60 blocks on
+    396 slots, so 5 splits of 3 rows fill one wave; B=200 (750 blocks)
+    stays unsplit; the picks csrc/probes/bucket_splits.py measured best or
+    within 3% of it at 8 of these 9 batches (B=9: 8% off the best, 4)."""
+    assert kx._bucket_splits(b, 5, 15, 6, 3) == split
+
+
+def test_bucket_splits_cover_every_row_once():
+    """Over a range of batches, components, rows, buckets and residencies:
+    each split's rows are contiguous and non-empty and every row is taken
+    exactly once; where all blocks of one row each fit in one wave of the
+    SMs' slots every row is its own block; a split never models slower
+    than none."""
+    def waves_rows(blocks, s, r, resident):
+        return (-(-blocks * s // (132 * resident))
+                * (-(-r // s) + kx.BUCKET_BLOCK_ROWS))
+    for resident in (1, 3, 8):
+        for o, nj in ((1, 8), (2, 6), (5, 6), (5, 4)):
+            for r in (1, 2, 4, 6, 15, 16):
+                for b in (1, 8, 9, 13, 40, 64, 160, 288, 1056):
+                    s = kx._bucket_splits(b, o, r, nj, resident)
+                    assert 1 <= s <= r
+                    taken = []
+                    for z in range(s):
+                        r0, r1 = longk_rows(z, s, r)
+                        assert r1 > r0
+                        taken += range(r0, r1)
+                    assert taken == list(range(r))
+                    blocks = -(-b // 8) * o * nj
+                    if blocks * r <= 132 * resident:
+                        assert s == r
+                    assert (waves_rows(blocks, s, r, resident)
+                            <= waves_rows(blocks, 1, r, resident))

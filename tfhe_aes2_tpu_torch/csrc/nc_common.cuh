@@ -1,5 +1,7 @@
 // Shared device code of the negacirculant limb-plane kernels (K1, K3, K5-K11)
-// and of the glue that K1, K2, K9 and K10a run.
+// and of the glue that K1, K2, K9 and K10a run. The __dp4a contraction below
+// (nc::contract) is K7's and K8's; the others contract on the tensor cores
+// (nc_mma.cuh) from the same S-tables.
 //
 // The contraction these kernels evaluate, for one output component o:
 //

@@ -1,7 +1,9 @@
-// The negacirculant contraction of K1 and K5 (cmux.cu), K3 (vp.cu), K9
-// (merged.cu) and K10b (longk.cu) on the tensor cores: mma.sync.m16n8k32 (int8 x int8 -> int32) fed straight from
+// The negacirculant contraction of K1 and K5 (cmux.cu), K3 (vp.cu), K6
+// (step.cu), K9 (merged.cu), K10b (longk.cu) and K11 (bucket.cu) on the
+// tensor cores: mma.sync.m16n8k32 (int8 x int8 -> int32) fed straight from
 // the shared-memory S-tables, with the key rows and digit tiles staged by
-// cp.async one contraction row ahead.
+// cp.async one contraction row ahead. K11 runs its own row loop over the
+// pieces below (one weight bucket a block).
 //
 // The function is nc_common.cuh's:
 //
@@ -212,11 +214,12 @@ __device__ __forceinline__ void mma_row(int32_t (&acc)[MT][8 - JS][4],
 // (R padded tiles of dig_tile_bytes each).
 struct Staged {
   const int8_t* ext;   // row r's NJ key rows are contiguous at ext + r*raw_bytes
-  const int8_t* dig;   // K1, K3, K5, K10b: digit plane i of lane `row` at row
-                       // r is at dig + r*dig_r + i*dig_plane + row*dig_lane
+  const int8_t* dig;   // K1, K3, K5, K6, K10b: digit plane i of lane `row`
+                       // at row r is at dig + r*dig_r + i*dig_plane +
+                       // row*dig_lane
   unsigned dig_r, dig_plane;
   unsigned dig_lane;   // N where a lane's rows lie apart (K1, K3, K5), R·N in
-                       // K10b's flat layout
+                       // K6's batch-major and K10b's flat layouts
   const unsigned char* dig_res;   // K9: the resident digit tiles
 };
 
@@ -273,26 +276,31 @@ __device__ __forceinline__ void contract_mma(int32_t (&acc)[MT][8 - JS][4],
   }
 }
 
-// The epilogue's map: register c of tile q of this thread is output column
-// 64·warp + 16·q + gid + 8·(c / 2) of batch lane 2·tig + c % 2. Calls
-// f(lane, column, sum) with the buckets recombined.
-template <int JS, typename F>
-__device__ __forceinline__ void for_each_output(
-    const int32_t (&acc)[MT][8 - JS][4], F f) {
+// The D fragment's map: register c of tile q of this thread is output
+// column 64·warp + 16·q + gid + 8·(c / 2) of batch lane 2·tig + c % 2.
+// Calls f(q, c, lane, column) for each of the thread's MT·4 registers.
+template <typename F>
+__device__ __forceinline__ void for_each_fragment(F f) {
   const int lane_id = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int gid = lane_id >> 2, tig = lane_id & 3;
 #pragma unroll
-  for (int q = 0; q < MT; ++q) {
+  for (int q = 0; q < MT; ++q)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      int32_t bucket[8 - JS];
+    for (int c = 0; c < 4; ++c)
+      f(q, c, 2 * tig + (c & 1), 64 * warp + 16 * q + gid + 8 * (c >> 1));
+}
+
+// The epilogue: f(lane, column, sum) with the buckets recombined.
+template <int JS, typename F>
+__device__ __forceinline__ void for_each_output(
+    const int32_t (&acc)[MT][8 - JS][4], F f) {
+  for_each_fragment([&](int q, int c, int lane, int m) {
+    int32_t bucket[8 - JS];
 #pragma unroll
-      for (int s = 0; s < 8 - JS; ++s) bucket[s] = acc[q][s][c];
-      f(2 * tig + (c & 1), 64 * warp + 16 * q + gid + 8 * (c >> 1),
-        recombine<JS>(bucket));
-    }
-  }
+    for (int s = 0; s < 8 - JS; ++s) bucket[s] = acc[q][s][c];
+    f(lane, m, recombine<JS>(bucket));
+  });
 }
 
 }  // namespace nc

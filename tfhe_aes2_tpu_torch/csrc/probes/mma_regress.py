@@ -1,6 +1,8 @@
-"""Time K1 (cmux.cu), K3 (vp.cu) and K9 (merged.cu) of a checkout at their
-main-path shapes, on the card, so that two versions of the shared
-tensor-core contraction (csrc/nc_mma.cuh) can be compared in one call:
+"""Time the CMux-step kernels of a checkout at their main-path shapes, on the
+card, so that two versions of the shared tensor-core contraction
+(csrc/nc_mma.cuh) can be compared in one call: K1 and K5 (cmux.cu), K3
+(vp.cu), K9 (merged.cu) and K10b (longk.cu), which share it, and K6
+(step.cu) and K11 (bucket.cu) beside them:
 
     python3 tfhe_aes2_tpu_torch/csrc/probes/mma_regress.py [ROOT]
 
@@ -67,13 +69,33 @@ def main() -> int:
                 and torch.equal(got9, kx.cmux_step_merged_plain(
                     t, ext, acc, bl, lv, js))):
             raise AssertionError(f"K1 or K9 differs from plain at B={b}")
+        # K5, K10b, K6 and K11: the same update on their own layouts
+        flat = dig.permute(2, 3, 0, 1, 4).reshape(nd, b, o * lv * n)
+        dig_bm = dig.reshape(o * lv, nd, b, n).permute(1, 2, 0,
+                                                       3).contiguous()
+        acc_bm = acc.permute(1, 0, 2).contiguous()
+        upd = want[0]
+        if not (torch.equal(kx.extprod_step2(dig, ext, acc.clone(), js), upd)
+                and torch.equal(kx.extprod_step_longk(flat, ext, acc.clone(),
+                                                      js), upd)
+                and torch.equal(kx.extprod_step(dig_bm, ext, acc_bm, js),
+                                upd.permute(1, 0, 2))
+                and torch.equal(kx.extprod_step3(dig, ext, acc.clone(), js),
+                                upd)):
+            raise AssertionError(f"K5, K10b, K6 or K11 differs from K1's "
+                                 f"update at B={b}")
         scratch = acc.clone()
-        times[f"K1 B={b}"] = device_ms(
-            lambda: kx.extprod_step2g(dig, ext, scratch, t, bl, lv, js))
-        times[f"K9 B={b}"] = device_ms(
-            lambda: kx.cmux_step_merged(t, ext, acc, bl, lv, js))
-        print(f"B={b}: K1 {times[f'K1 B={b}']:.4f} ms, K9 "
-              f"{times[f'K9 B={b}']:.4f} ms", flush=True)
+        step = {
+            "K1": lambda: kx.extprod_step2g(dig, ext, scratch, t, bl, lv, js),
+            "K9": lambda: kx.cmux_step_merged(t, ext, acc, bl, lv, js),
+            "K5": lambda: kx.extprod_step2(dig, ext, scratch, js),
+            "K10b": lambda: kx.extprod_step_longk(flat, ext, scratch, js),
+            "K6": lambda: kx.extprod_step(dig_bm, ext, acc_bm, js),
+            "K11": lambda: kx.extprod_step3(dig, ext, scratch, js)}
+        for name, fn in step.items():
+            times[f"{name} B={b}"] = device_ms(fn)
+        print(f"B={b}: " + ", ".join(f"{name} {times[f'{name} B={b}']:.4f} "
+                                     "ms" for name in step), flush=True)
     nd_vp, js_vp, r_vp = 2, 4, o                    # CBS 1 level, k+1 = 5
     for lanes, g in ((4, 8), (128, 1), (32, 24)):
         dig = r8(lanes, r_vp, nd_vp * g, n)

@@ -12,63 +12,65 @@
 //
 //   acc[o] += Σ_r Σ_{i, j>=js} 2^(8(i+j)) dig_i[r] · NC(BSK plane j)[r][o]
 //
-// It is K5's function (cmux.cu) on other strides. What bounds it on the
-// H100: int8 operations; the contraction is still nc::contract of
-// nc_common.cuh, __dp4a from shared-memory S-tables, one block per ROWS
-// lanes x all N columns of one component.
-#include "nc_common.cuh"
+// It is K5's function (cmux.cu) on other strides, and K5's kernel body:
+// what bounds it on the H100 is int8 operations, so the products run on the
+// tensor cores through nc::contract_mma (nc_mma.cuh: mma.sync.m16n8k32 int8
+// fed from the shared-memory S-tables, key rows and digit tiles staged by
+// cp.async one contraction row ahead). Only the Staged record differs: the
+// batch-major digits lie as K10b's flat ones (longk.cu) — a lane's R rows
+// side by side, rows N bytes apart, lanes R·N — so the tiles are read as
+// they lie. One block owns 8 lanes x all N columns of one component and all
+// R rows: the output is a new tensor, so a split of the rows would first
+// need acc_in copied into acc_out.
+#include "nc_mma.cuh"
 
 namespace {
 
-// K6. Grid (ceil(B/ROWS), O), block N/2.
+// K6. Grid (ceil(B/ROWS), O), block N/2 (one warp per 64 columns).
 // dig     int8  [ND][B][R][N]     digit limb planes, batch-major
 // ext     int8  [O][R][8-JS][2N]  this step's BSK limb planes
 // acc_in  int64 [B][O][N]         read only
 // acc_out int64 [B][O][N]         acc_in + the external product
 template <int ND, int JS>
-__global__ void extprod_step_kernel(const int8_t* __restrict__ dig,
-                                    const int8_t* __restrict__ ext,
-                                    const uint64_t* __restrict__ acc_in,
-                                    uint64_t* __restrict__ acc_out, int B,
-                                    int n, int R) {
+__global__ void __launch_bounds__(256)
+extprod_step_kernel(const int8_t* __restrict__ dig,
+                    const int8_t* __restrict__ ext,
+                    const uint64_t* __restrict__ acc_in,
+                    uint64_t* __restrict__ acc_out, int B, int n, int R) {
   constexpr int NJ = 8 - JS;
   extern __shared__ __align__(16) unsigned char smem[];
   const int o = blockIdx.y;
   const int O = gridDim.y;
   const int b0 = blockIdx.x * nc::ROWS;
   const int rows = min(nc::ROWS, B - b0);
+  const unsigned rn = (unsigned)R * n;
 
-  int32_t part[nc::ROWS][nc::COLS][NJ];
-  const nc::Operands op{dig + (size_t)b0 * R * n, (size_t)n,
-                        (size_t)B * R * n, (size_t)R * n,
-                        ext + (size_t)o * R * NJ * 2 * n,
-                        (size_t)NJ * 2 * n, (size_t)2 * n};
-  nc::contract<ND, JS>(part, smem, op, R, rows, n);
+  int32_t part[nc::MT][NJ][4];
+  const nc::Staged op{ext + (size_t)o * R * NJ * 2 * n, dig + (size_t)b0 * rn,
+                      (unsigned)n, (unsigned)B * rn, rn, nullptr};
+  nc::contract_mma<ND, JS, true>(part, smem, op, R, rows, n);
 
-#pragma unroll
-  for (int row = 0; row < nc::ROWS; ++row) {
-    if (row < rows) {
-#pragma unroll
-      for (int c = 0; c < nc::COLS; ++c) {
-        const int m = threadIdx.x + c * blockDim.x;
-        const size_t at = ((size_t)(b0 + row) * O + o) * n + m;
-        acc_out[at] = acc_in[at] + nc::recombine<JS>(part[row][c]);
-      }
+  nc::for_each_output<JS>(part, [&](int lane, int m, uint64_t sum) {
+    if (lane < rows) {
+      const size_t at = ((size_t)(b0 + lane) * O + o) * n + m;
+      acc_out[at] = acc_in[at] + sum;
     }
-  }
+  });
 }
 
 template <int ND, int JS>
 int launch_step(const int8_t* dig, const int8_t* ext, const int64_t* acc_in,
                 int64_t* acc_out, int B, int n, int O, int R,
                 cudaStream_t stream) {
-  const size_t smem = nc::contraction_smem(ND, 8 - JS, n);
+  constexpr int NJ = 8 - JS;
+  const int smem = 2 * (nc::tab_bytes(NJ, n) + nc::raw_bytes(NJ, n) +
+                        nc::dig_tile_bytes(ND, n));
   auto kern = extprod_step_kernel<ND, JS>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((B + nc::ROWS - 1) / nc::ROWS, O);
-  kern<<<grid, n / nc::COLS, smem, stream>>>(
+  kern<<<grid, nc::mma_threads(n), smem, stream>>>(
       dig, ext, reinterpret_cast<const uint64_t*>(acc_in),
       reinterpret_cast<uint64_t*>(acc_out), B, n, R);
   return (int)cudaGetLastError();

@@ -42,13 +42,14 @@ negacirculant from shared-memory S-tables that index the 2N-byte ext row,
 so it (146 GB for the expanded BSK) never exists; the TPU's packed ladders,
 weight buckets in VMEM and sequential (n_bt, o, r) grid have no counterpart
 — a block owns ROWS lanes × all N columns of one component and loops over r
-itself. K1, K3, K5, K9 and K10b put their products on the tensor cores:
-`mma.sync.m16n8k32` int8 whose operand fragments are S-table and digit-tile
-words, the operands staged by `cp.async` one contraction row ahead
+itself. K1, K3, K5, K6, K9, K10b and K11 put their products on the tensor
+cores: `mma.sync.m16n8k32` int8 whose operand fragments are S-table and
+digit-tile words, the operands staged by `cp.async` one contraction row ahead
 (csrc/nc_mma.cuh); what is left above their bound is the instruction rate
 of `mma.sync` at N = 8 and, in K9, the glue. (K3's 8 instruction columns
-are 8 of a lane's G accumulators.) The others (K6, K7, K8, K11) still run
-`__dp4a` on the CUDA cores, about 1/16 of that rate (csrc/nc_common.cuh).
+are 8 of a lane's G accumulators; K11's blocks each keep one weight
+bucket.) K7 and K8 still run `__dp4a` on the CUDA cores, about 1/16 of
+that rate (csrc/nc_common.cuh).
 
 Layouts (int64 torus values; the TPU's (lo, hi) u32 pairs do not exist):
   dig    int8  [k+1, L, n_d, B, N]   digit limb planes, row r = u·L + l
@@ -124,8 +125,9 @@ def device_refusal(n: int, device) -> str | None:
 
 def _check_geometry(name: str, n: int, n_d: int, r: int, j_start: int,
                     n_min: int = 8):
-    """n_min: 8 for the `__dp4a` kernels; 64 for K1, K3, K5, K9 and K10b,
-    whose warps own 64 columns each and index their S-tables unmasked."""
+    """n_min: 8 for the `__dp4a` kernels (K7, K8) and the glue (K2, K10a);
+    64 for the tensor-core kernels (K1, K3, K5, K6, K9, K10b, K11), whose
+    warps own 64 columns each and index their S-tables unmasked."""
     if n & (n - 1) or not n_min <= n <= N_MAX:
         raise ValueError(f"{name}: N={n} must be a power of two in "
                          f"[{n_min}, {N_MAX}]")
@@ -366,9 +368,12 @@ def extprod_step(digit_planes: torch.Tensor, ext_or: torch.Tensor,
             f"(j_start={j_start})")
     if _on_cpu(digit_planes, ext_or, acc):
         return extprod_step_plain(digit_planes, ext_or, acc, j_start)
-    _check_geometry("extprod_step", n, n_d, r, j_start)
+    _check_geometry("extprod_step", n, n_d, r, j_start, n_min=64)
+    _check_smem("extprod_step",
+                _mma_stage_bytes(n, nj) + 2 * _mma_dig_tile_bytes(n, n_d))
     _require_cuda("extprod_step", [(digit_planes, torch.int8),
                                    (ext_or, torch.int8), (acc, torch.int64)])
+    _check_staged("extprod_step", digit_planes, ext_or)
     out = torch.empty_like(acc)
     f = _fn("step", "tfhe_extprod_step", [_P] * 4 + [_I] * 6 + [_P])
     rc = f(digit_planes.data_ptr(), ext_or.data_ptr(), acc.data_ptr(),
@@ -635,12 +640,50 @@ def extprod_step3_plain(dig, ext_or, acc, j_start: int):
     return acc
 
 
+BUCKET_BLOCK_ROWS = 0.7  # a K11 block's launch, prologue and epilogue, in
+                         # contraction rows: any value in 0.4-1.5 picks the
+                         # same splits at the measured batches
+                         # (csrc/probes/bucket_splits.py)
+
+
+def _bucket_splits(b: int, o: int, r: int, nj: int, resident: int) -> int:
+    """Blocks that share one (8-lane tile, component, bucket)'s R rows in
+    K11 (csrc/bucket.cu): the count s in 1..r that minimises the modelled
+    time ceil(tiles·nj·s / (SMS·resident)) · (ceil(r/s) + BUCKET_BLOCK_ROWS)
+    — waves of `resident` blocks an SM (the kernel's occupancy), each as
+    long as its longest block — and the fewest among equals. Block z takes
+    rows [z·r/s, (z+1)·r/s), as K10b's (`_longk_splits`)."""
+    blocks = -(-b // 8) * o * nj
+    return min(range(1, r + 1), key=lambda s: (
+        -(-blocks * s // (SMS * resident))
+        * (-(-r // s) + BUCKET_BLOCK_ROWS), s))
+
+
+_residency: dict = {}
+
+
+def _bucket_residency(n: int, n_d: int) -> int:
+    """K11 blocks one SM holds at once (the kernels are built for sm_90a
+    alone), read once from cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    key = (n, n_d)
+    if key not in _residency:
+        blocks = ctypes.c_int(0)
+        f = _fn("bucket", "tfhe_extprod_step3_residency",
+                [_I, _I, ctypes.POINTER(ctypes.c_int)])
+        build.check(f(n, n_d, ctypes.byref(blocks)), "extprod_step3")
+        if blocks.value < 1:
+            raise RuntimeError("extprod_step3: no block fits on an SM")
+        _residency[key] = blocks.value
+    return _residency[key]
+
+
 def extprod_step3(dig: torch.Tensor, ext_or: torch.Tensor, acc: torch.Tensor,
                   j_start: int) -> torch.Tensor:
     """K11. dig int8 [k+1, L, n_d, B, N] (K2's output; row r = u·L + l);
     ext_or int8 [O, R, 8-js, 2N]; acc int64 [O, B, N], updated in place (the
-    kernel adds each bucket with 64-bit atomics, exact mod 2^64 in any
-    order) and returned."""
+    kernel adds each bucket — with its rows split across blocks by
+    `_bucket_splits`, each block's part of it — with 64-bit atomics, exact
+    mod 2^64 in any order) and returned."""
     k1, lv, n_d, b, n = dig.shape
     o, r, nj, two_n = ext_or.shape
     if (o != k1 or r != k1 * lv or nj != 8 - j_start or two_n != 2 * n
@@ -651,14 +694,28 @@ def extprod_step3(dig: torch.Tensor, ext_or: torch.Tensor, acc: torch.Tensor,
             f"(j_start={j_start})")
     if _on_cpu(dig, ext_or, acc):
         return extprod_step3_plain(dig, ext_or, acc, j_start)
-    _check_geometry("extprod_step3", n, n_d, r, j_start)
+    _check_geometry("extprod_step3", n, n_d, r, j_start, n_min=64)
+    _check_smem("extprod_step3", _mma_stage_bytes(n, n_d)
+                + 2 * _mma_dig_tile_bytes(n, n_d))
     _require_cuda("extprod_step3", [(dig, torch.int8), (ext_or, torch.int8),
                                     (acc, torch.int64)])
-    f = _fn("bucket", "tfhe_extprod_step3", [_P] * 3 + [_I] * 6 + [_P])
-    rc = f(dig.data_ptr(), ext_or.data_ptr(), acc.data_ptr(), b, n, o, r,
-           n_d, j_start, build.stream_ptr(acc.device))
-    build.check(rc, "extprod_step3")
+    _check_staged("extprod_step3", dig, ext_or)
+    _launch_step3(dig, ext_or, acc, j_start,
+                  _bucket_splits(b, o, r, nj, _bucket_residency(n, n_d)))
     extprod_step3.launches += 1
+    return acc
+
+
+def _launch_step3(dig, ext_or, acc, j_start: int,
+                  splits: int) -> torch.Tensor:
+    """K11's launch with its rows split `splits` ways (1..R), on operands
+    extprod_step3 has checked; adds into acc and returns it. The card's
+    checks call it at other splits than the wrapper's, uncounted."""
+    k1, lv, n_d, b, n = dig.shape
+    f = _fn("bucket", "tfhe_extprod_step3", [_P] * 3 + [_I] * 7 + [_P])
+    build.check(f(dig.data_ptr(), ext_or.data_ptr(), acc.data_ptr(), b, n,
+                  k1, k1 * lv, n_d, j_start, splits,
+                  build.stream_ptr(acc.device)), "extprod_step3")
     return acc
 
 
