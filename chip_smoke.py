@@ -5,11 +5,15 @@
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. device and build: the card's name and power limit, the nvcc build of
      every kernel from tfhe_aes2_tpu_torch/csrc/;
-  2. kernel checks: K1-K11 at their PARAMS_SQRD_LVL_64 main-path shapes,
-     each held bit-for-bit against its plain PyTorch version on the card,
-     with median times (50 launches for kernels under 0.2 ms) and each
-     kernel's bound; and the cross-checks: K7's partial sums recombined
-     equal K6's update, K2 then K5 equals K1, and K6's update and one step
+  2. kernel checks: K1-K11 at their PARAMS_SQRD_LVL_64 main-path shapes
+     (K2 at B in {9, 128, 160, 256, 288}, K3 and K8 at the vertical
+     packing's (lanes, G) in {(4, 8), (16, 8), (16, 24), (128, 1),
+     (32, 24)}), each held bit-for-bit against its plain PyTorch version on
+     the card, with median times (50 launches for kernels under 0.2 ms),
+     each kernel's bound and the launch floor (an empty kernel timed the
+     same way); and the cross-checks: K7's partial sums recombined equal
+     K6's update, K8's equal K3 (also with every byte -128), K2 then K5
+     equals K1, and K6's update and one step
      of each of the schedules `merged` (K9), `longk` (K10a then K10b) and
      `bucket` (K2 then K11) equal K2 then K5, at B in {9, 128, 160, 256,
      288}, with the split of K10b's and of K11's rows at each B and the
@@ -64,6 +68,7 @@ counts and without the last line: the quick way to time a kernel change.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -131,9 +136,9 @@ KERNELS = {
         int8_products="dp4a"),
     "extprod_partials_grouped": dict(
         fn=kx.extprod_partials_grouped,
-        source="tfhe_aes2_tpu_torch/csrc/partials.cu",
+        source="tfhe_aes2_tpu_torch/csrc/vp.cu",
         replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:1071",
-        int8_products="dp4a"),
+        int8_products="mma.sync"),
     "cmux_step_merged": dict(
         fn=kx.cmux_step_merged, source="tfhe_aes2_tpu_torch/csrc/merged.cu",
         replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:737",
@@ -268,11 +273,12 @@ def phase_device() -> str:
     log(f"ptxas: {len(spills)} kernel instantiations report spills"
         + "".join(f"\n  {name}" for name in spills))
     # the main path's instantiations: K1, K5 (K1 without glue), K6, K9 and
-    # K10b (ND=2, JS=2), K11 (ND=2), K3 (ND=2, JS=4), K4's keyswitch (ND=1,
-    # JS=5) and pfKS (ND=3, JS=1)
+    # K10b (ND=2, JS=2), K2 (ND=2, L=3, base_log 12), K11 (ND=2), K3 and K8
+    # (ND=2, JS=4), K4's keyswitch (ND=1, JS=5) and pfKS (ND=3, JS=1)
     for i, ln in enumerate(report):
         if any(key in ln for key in (
                 "step2g_kernelILi2ELi2ELb1E", "step2g_kernelILi2ELi2ELb0E",
+                "rot_diff_digits_kernelILi2ELi3ELi12E",
                 "step_kernelILi2ELi2E", "step3_kernelILi2E",
                 "merged_kernelILi2ELi2E", "longk_kernelILi2ELi2E",
                 "grouped_fused_kernelILi2ELi4E",
@@ -448,6 +454,17 @@ def check_tensor_core_steps(gen) -> int:
             + compare(5, 3, 2, 12, 201, 512, 2, fill=-128))
 
 
+def launch_floor_ms() -> float:
+    """Device time of one empty kernel (tfhe_empty_kernel, csrc/cmux.cu),
+    launched through ctypes as the wrappers launch theirs and timed as they
+    are: the least any launch of this timing can read, which the byte
+    bounds of the small glue launches (K2, K10a at B=9) lie below."""
+    f = build.library("cmux").tfhe_empty_kernel
+    f.argtypes, f.restype = [ctypes.c_void_p], ctypes.c_int
+    return time_ms(lambda: build.check(f(build.stream_ptr(DEV)),
+                                       "empty_kernel"))
+
+
 def int8_library_rate(b: int, n: int, macs: int) -> None:
     """A yardstick, not a reference: one `torch._int_mm` of [b, n] x [n, n]
     int8 on the card, as the int8 tensor rate a library reaches at this M,
@@ -467,9 +484,10 @@ def int8_library_rate(b: int, n: int, macs: int) -> None:
         f"{macs // (b * n * n)} such products")
 
 
-def phase_kernels() -> dict:
+def phase_kernels() -> tuple[dict, float]:
     """K1-K11 at main-path shapes vs their plain versions, and the
-    cross-checks between kernels; returns every measurement by kernel."""
+    cross-checks between kernels; returns every measurement by kernel and
+    the launch floor (ms)."""
     log("== phase 2: kernel checks at PARAMS_SQRD_LVL_64 shapes")
     gen = torch.Generator().manual_seed(1234)
     k1, n, lv = P.glwe_dimension + 1, P.polynomial_size, P.pbs_level
@@ -483,11 +501,7 @@ def phase_kernels() -> dict:
                             dtype=torch.int64).to(DEV)
         t = torch.randint(0, 2 * n, (b,), generator=gen,
                           dtype=torch.int32).to(DEV)
-        if b == 9:
-            check_step_schedules(rows, b, acc, t, rand_i8(
-                gen, (k1, r, 8 - js, 2 * n)), js, nd)
-            continue
-        # K2
+        # K2, at B=9 too: the `grid` and `bucket` derivations' shape
         got = kx.rot_diff_digits(acc, t, P.pbs_base_log, lv, nd)
         ref = kx.rot_diff_digits_plain(acc, t, P.pbs_base_log, lv, nd)
         sync()
@@ -498,6 +512,10 @@ def phase_kernels() -> dict:
             acc, t, P.pbs_base_log, lv, nd), reps=2)
         record(f"rot_diff_digits B={b}", rows["rot_diff_digits"], 0,
                acc.numel() * 8 + got.numel() + b * 4, ms, pms, err)
+        if b == 9:
+            check_step_schedules(rows, b, acc, t, rand_i8(
+                gen, (k1, r, 8 - js, 2 * n)), js, nd)
+            continue
         # K1
         dig = rand_i8(gen, (k1, lv, nd, b, n))
         ext = rand_i8(gen, (k1, r, 8 - js, 2 * n))
@@ -579,7 +597,7 @@ def phase_kernels() -> dict:
     js_vp = truncation.vp_ggsw_j_start(P)
     nd_vp = torus.limbs_for_bound(decomposition.digit_bound(P.cbs_base_log))
     r_vp = k1 * P.cbs_level
-    for lanes, g in ((4, 8), (128, 1), (32, 24)):
+    for lanes, g in ((4, 8), (16, 8), (16, 24), (128, 1), (32, 24)):
         dig = rand_i8(gen, (lanes, r_vp, nd_vp * g, n))
         ext = rand_i8(gen, (lanes, k1, r_vp, 8 - js_vp, 2 * n))
         got = kx.extprod_grouped_fused(dig, ext, nd_vp, js_vp)
@@ -613,21 +631,36 @@ def phase_kernels() -> dict:
                rows["extprod_partials_grouped"], macs,
                dig.numel() + ext.numel() + parts.numel() * 4, ms, pms, err)
         log(f"    torch recombination of its partial sums: {rms:.4f} ms")
-    # K3 at the extreme value: every digit and key byte -128 at (32, 24)
+    # K3 and K8 at the extreme value: every digit and key byte -128 at
+    # (32, 24), K8 on its own layouts
     dig = torch.full((32, r_vp, nd_vp * 24, n), -128, dtype=torch.int8,
                      device=DEV)
     ext = torch.full((32, k1, r_vp, 8 - js_vp, 2 * n), -128,
                      dtype=torch.int8, device=DEV)
-    if not torch.equal(kx.extprod_grouped_fused(dig, ext, nd_vp, js_vp),
-                       kx.extprod_grouped_fused_plain(dig, ext, nd_vp,
-                                                      js_vp)):
+    fused = kx.extprod_grouped_fused(dig, ext, nd_vp, js_vp)
+    if not torch.equal(fused, kx.extprod_grouped_fused_plain(dig, ext, nd_vp,
+                                                             js_vp)):
         raise AssertionError("K3 differs from plain at the value -128")
-    log("  K3 bit-equal to plain with every digit and key byte -128 at "
-        "32 lanes x G=24")
+    dig_8 = torch.full((nd_vp, 32, 24, r_vp, n), -128, dtype=torch.int8,
+                       device=DEV)
+    ext_8 = torch.full((8 - js_vp, 32, r_vp, k1, 2 * n), -128,
+                       dtype=torch.int8, device=DEV)
+    parts = kx.extprod_partials_grouped(dig_8, ext_8, js_vp)
+    if not (torch.equal(parts, kx.extprod_partials_grouped_plain(
+            dig_8, ext_8, js_vp)) and torch.equal(
+            polynomial.recombine_partials(parts, js_vp),
+            fused.permute(0, 2, 1, 3))):
+        raise AssertionError("K8 differs from plain or from K3 at the value "
+                             "-128")
+    log("  K3 and K8 bit-equal to plain with every digit and key byte -128 "
+        "at 32 lanes x G=24, K8 recombined equal to K3")
+    floor = launch_floor_ms()
+    log(f"  launch floor: an empty kernel queued behind the same device "
+        f"spin takes {floor:.4f} ms")
 
     check_limb_matmul(rows, gen)
     sync()
-    return rows
+    return rows, floor
 
 
 def k4_shapes():
@@ -1125,12 +1158,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     smi = phase_device()
-    rows = phase_kernels()
+    rows, floor = phase_kernels()
     if sys.argv[1:] == ["--kernels-only"]:
         log(f"card: {smi}")
         print(json.dumps({"kernels_only": {
             name: [{k: v for k, v in x.items() if k not in ("macs", "nbytes")}
-                   for x in rows[name]] for name in KERNELS}}))
+                   for x in rows[name]] for name in KERNELS},
+            "launch_floor_ms": floor}))
         return 0
     phase_test_params()
     client, raw, ctx, request, out1, batch, latency = phase_full_width()
@@ -1156,7 +1190,8 @@ def main() -> int:
             max_abs_err=max(x["max_abs_err"] for x in rows[name]),
             ms=last["ms"], plain_ms=last["plain_ms"],
             bound_ms=last["bound_ms"], bound_by=last["bound_by"],
-            library_ms=None, int8_products=spec["int8_products"],
+            library_ms=None, launch_floor_ms=floor,
+            int8_products=spec["int8_products"],
             shape=last["name"],
             shapes=[{k: v for k, v in x.items()
                      if k not in ("macs", "nbytes", "max_abs_err")}

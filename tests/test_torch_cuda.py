@@ -264,3 +264,96 @@ def test_cuda_bucket_every_split_matches_plain(b):
     assert 1 <= kx._bucket_splits(
         b, k1, r, 8 - js, kx._bucket_residency(n, n_d)) <= r
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 9, 13, 288])
+def test_cuda_glue_matches_plain(b):
+    """On the card: K2 (nc::glue_wide, a thread for every 8 columns of a
+    row) bit-equal to its plain version at N in {64, 256, 512}, with the
+    rotation 0, 1, N-1, N, N+1, 2N-1 and a random one a lane, for every
+    gadget it is built for and, at lvl64's (3, 12), one to three limbs a
+    digit; then K2 then K5 equal to K1 at lvl64's shapes."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(300 + b)
+    for n in (64, 256, 512):
+        acc = torch.randint(-2 ** 63, 2 ** 63 - 1, (5, b, n), generator=gen,
+                            dtype=torch.int64).cuda()
+        for value in (0, 1, n - 1, n, n + 1, 2 * n - 1, None):
+            t = (torch.randint(0, 2 * n, (b,), generator=gen,
+                               dtype=torch.int32) if value is None
+                 else torch.full((b,), value, dtype=torch.int32)).cuda()
+            gadgets = [(lv, bl, nd) for lv, bl in sorted(kx.GLUE_GADGETS)
+                       for nd in ((1, 2, 3) if (lv, bl) == (3, 12)
+                                  else (1 if bl <= 7 else 2,))]
+            for levels, base_log, n_d in gadgets:
+                assert torch.equal(
+                    kx.rot_diff_digits(acc, t, base_log, levels, n_d),
+                    kx.rot_diff_digits_plain(acc, t, base_log, levels, n_d)
+                ), (n, value, levels, base_log, n_d)
+    k1, levels, n, n_d, js, base_log = 5, 3, 512, 2, 2, 12
+    dig = torch.randint(-128, 128, (k1, levels, n_d, b, n), generator=gen,
+                        dtype=torch.int8).cuda()
+    ext = torch.randint(-128, 128, (k1, k1 * levels, 8 - js, 2 * n),
+                        generator=gen, dtype=torch.int8).cuda()
+    acc = torch.randint(-2 ** 62, 2 ** 62, (k1, b, n), generator=gen,
+                        dtype=torch.int64).cuda()
+    t = torch.randint(0, 2 * n, (b,), generator=gen, dtype=torch.int32).cuda()
+    a1, d1 = kx.extprod_step2g(dig, ext, acc.clone(), t, base_log, levels,
+                               js)
+    a5 = kx.extprod_step2(dig, ext, acc.clone(), js)
+    assert torch.equal(a5, a1)
+    assert torch.equal(kx.rot_diff_digits(a5, t, base_log, levels, n_d), d1)
+    torch.cuda.synchronize()
+
+
+def _assert_k8_matches_plain_and_k3(dig, ext, n_d, js):
+    """K8 on K3's operands laid out as its own (dig [n_d, B, G, R, N], ext
+    [8-js, B, R, O, 2N]): bit-equal to its plain version, rows s < js zero,
+    and recombined equal to K3."""
+    lanes, r, ndg, n = dig.shape
+    g = ndg // n_d
+    dig8 = dig.reshape(lanes, r, n_d, g, n).permute(2, 0, 3, 1,
+                                                    4).contiguous()
+    ext8 = ext.permute(3, 0, 2, 1, 4).contiguous()
+    parts = kx.extprod_partials_grouped(dig8, ext8, js)
+    assert torch.equal(parts,
+                       kx.extprod_partials_grouped_plain(dig8, ext8, js))
+    assert not parts[:js].any()
+    assert torch.equal(polynomial.recombine_partials(parts, js),
+                       kx.extprod_grouped_fused(dig, ext, n_d,
+                                                js).permute(0, 2, 1, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 512])
+@pytest.mark.parametrize("lanes,g", [(4, 8), (3, 11), (5, 1), (2, 24)])
+def test_cuda_partials_grouped_matches_plain(n, lanes, g):
+    """On the card: K8 (K3's tensor-core kernel storing its int32 buckets,
+    key planes staged plane by plane) bit-equal to its plain version with
+    ragged and single-accumulator groups, for js in {0, 4} and one to three
+    limbs, and recombined equal to K3."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(700 + 100 * n + 10 * lanes + g)
+    for js in (0, 4):
+        for n_d in (1, 2, 3):
+            dig = torch.randint(-128, 128, (lanes, 5, n_d * g, n),
+                                generator=gen, dtype=torch.int8).cuda()
+            ext = torch.randint(-128, 128, (lanes, 2, 5, 8 - js, 2 * n),
+                                generator=gen, dtype=torch.int8).cuda()
+            _assert_k8_matches_plain_and_k3(dig, ext, n_d, js)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_partials_grouped_extreme_values():
+    """On the card: every digit and key byte -128 at the vertical packing's
+    R=5, O=5, N=512, n_d=2, js=4 — each int32 bucket at its largest — K8
+    bit-equal to plain and recombined equal to K3."""
+    require_cuda()
+    dig = torch.full((4, 5, 2 * 24, 512), -128, dtype=torch.int8,
+                     device="cuda")
+    ext = torch.full((4, 5, 5, 4, 1024), -128, dtype=torch.int8,
+                     device="cuda")
+    _assert_k8_matches_plain_and_k3(dig, ext, 2, 4)
+    torch.cuda.synchronize()

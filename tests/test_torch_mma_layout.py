@@ -175,9 +175,10 @@ def checked_table(raw_plane, n):
     return tab
 
 
-def contract_emulated(dig, ext, js):
+def contract_buckets(dig, ext, js):
     """dig int8 [R, n_d, ROWS, N], ext int8 [R, 8-js, 2N] -> the block's
-    int64 [ROWS, N] sum, computed as the kernel computes it."""
+    int32 buckets as D fragments, int64 [8-js, warps, MT, 32, 4] (bucket s
+    of weight 2^(8(s+js))), computed as the kernel computes them."""
     r_cnt, n_d, _, n = dig.shape
     nj = 8 - js
     acc = np.zeros((nj, max(1, n // 64), MT, 32, 4), dtype=np.int64)
@@ -190,6 +191,15 @@ def contract_emulated(dig, ext, js):
             for x, i in enumerate(limbs):
                 acc[i + j - js] += frags[x]
     assert np.abs(acc).max() < 2 ** 31       # the int32 buckets hold it
+    return acc
+
+
+def contract_emulated(dig, ext, js):
+    """dig int8 [R, n_d, ROWS, N], ext int8 [R, 8-js, 2N] -> the block's
+    int64 [ROWS, N] sum, computed as the kernel computes it."""
+    n = dig.shape[3]
+    nj = 8 - js
+    acc = contract_buckets(dig, ext, js)
     total = np.zeros(acc.shape[1:], dtype=np.uint64)
     for s in range(nj):
         total += acc[s].view(np.uint64) << np.uint64(8 * (s + js))

@@ -1,0 +1,117 @@
+"""K8's per-block addressing (csrc/vp.cu, K3's tensor-core kernel built with
+PARTIALS) emulated in numpy and held against
+`extprod_partials_grouped_plain`.
+
+The contraction's fragment map is `contract_buckets`'s
+(tests/test_torch_mma_layout.py), followed register by register, and the
+staging is `staged_block`'s (tests/test_torch_step_mma_layout.py). What is
+new here is where K8's operands lie: its key planes are not contiguous per
+contraction row — plane j of (lane b, row r, component o) at
+j·B·R·O·2N + ((b·R + r)·O + o)·2N, staged plane by plane through the
+Staged record's key row and plane strides (KEY_STRIDED) — its digits are
+batch-major ([n_d, B, G, R, N]: accumulators R·N bytes apart, rows N), and
+its epilogue stores each int32 bucket where it is, out[s][b][g][o][m], with
+the rows s < js written as zeros. Change an index in vp.cu or nc_mma.cuh ->
+change it here first. Needs nothing of the JAX package.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tfhe_aes2_tpu_torch.ops import polynomial
+from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
+from tests.test_torch_mma_layout import ROWS, block_output, contract_buckets
+from tests.test_torch_step_mma_layout import staged_block
+
+POISON = 0x5A5A5A5A
+
+
+def k8_emulated(dig, ext):
+    """dig int8 [n_d, B, G, R, N], ext int8 [8-js, B, R, O, 2N] -> int32
+    [8, B, G, O, N] as the kernel writes it: grid (ceil(G/8), O, B); block
+    (g-tile, o, b)'s Staged record; each D register's buckets stored at
+    out_g + row·O·N + m + s·B·G·O·N, zeros for s < js."""
+    n_d, b, g, r_cnt, n = dig.shape
+    nj, _, _, o_cnt, two_n = ext.shape
+    js = 8 - nj
+    dig_f, ext_f = dig.reshape(-1), ext.reshape(-1)
+    out = np.full(8 * b * g * o_cnt * n, POISON, dtype=np.int64)
+    plane = b * g * o_cnt * n
+    for lane in range(b):
+        for o in range(o_cnt):
+            for g0 in range(0, g, ROWS):
+                rows = min(ROWS, g - g0)
+                rec = ((lane * r_cnt * o_cnt + o) * two_n,
+                       (lane * g + g0) * r_cnt * n,
+                       n, b * g * r_cnt * n, r_cnt * n)
+                tile, key = staged_block(
+                    dig_f, ext_f, rec, r_cnt, rows, n_d, nj, n,
+                    key_strides=(o_cnt * two_n, b * r_cnt * o_cnt * two_n))
+                buckets = contract_buckets(tile, key, js)
+                out_g = ((lane * g + g0) * o_cnt + o) * n
+                for s in range(8):
+                    block = (np.zeros((ROWS, n), dtype=np.int64) if s < js
+                             else block_output(buckets[s - js], n))
+                    for row in range(rows):
+                        at = out_g + row * o_cnt * n + s * plane
+                        assert (out[at:at + n] == POISON).all()
+                        out[at:at + n] = block[row]
+    assert (out != POISON).all()               # every word written once
+    return out.astype(np.int32).reshape(8, b, g, o_cnt, n)
+
+
+@pytest.mark.parametrize("g", [1, 5, 24])
+@pytest.mark.parametrize("js", [0, 4])
+@pytest.mark.parametrize("n_d", [1, 2])
+def test_k8_staged_addressing_matches_plain(g, js, n_d):
+    """K8 through nc::contract_mma with strided key planes and batch-major
+    digits, one G-tile of up to 8 accumulators a block (G = 1 and 5 leave
+    a tile ragged, 24 fills three), its buckets stored by the fragment map
+    and the rows s < js zero: equal to extprod_partials_grouped_plain bit
+    for bit, and recombined equal to K3's plain product."""
+    rng = np.random.default_rng(100 * g + 10 * js + n_d)
+    b, o_cnt, r_cnt, n = 2, 2, 3, 64
+    dig = rng.integers(-128, 128, (n_d, b, g, r_cnt, n), dtype=np.int8)
+    ext = rng.integers(-128, 128, (8 - js, b, r_cnt, o_cnt, 2 * n),
+                       dtype=np.int8)
+    want = kx.extprod_partials_grouped_plain(torch.from_numpy(dig),
+                                             torch.from_numpy(ext),
+                                             js).numpy()
+    got = k8_emulated(dig, ext)
+    assert np.array_equal(got, want)
+    assert not got[:js].any()
+    fused = kx.extprod_grouped_fused_plain(
+        torch.from_numpy(np.ascontiguousarray(
+            dig.transpose(1, 3, 0, 2, 4).reshape(b, r_cnt, n_d * g, n))),
+        torch.from_numpy(np.ascontiguousarray(ext.transpose(1, 3, 2, 0, 4))),
+        n_d, js)                                           # [B, O, G, N]
+    assert torch.equal(polynomial.recombine_partials(torch.from_numpy(got),
+                                                     js),
+                       fused.permute(0, 2, 1, 3))
+
+
+def test_k8_extreme_values_stay_in_int32():
+    """Every digit and key byte -128 at R=5, the vertical packing's
+    contraction: the buckets the kernel stores, reproduced exactly."""
+    n_d, b, g, r_cnt, o_cnt, n, js = 2, 1, 3, 5, 2, 64, 4
+    dig = np.full((n_d, b, g, r_cnt, n), -128, dtype=np.int8)
+    ext = np.full((8 - js, b, r_cnt, o_cnt, 2 * n), -128, dtype=np.int8)
+    want = kx.extprod_partials_grouped_plain(torch.from_numpy(dig),
+                                             torch.from_numpy(ext),
+                                             js).numpy()
+    assert np.array_equal(k8_emulated(dig, ext), want)
+
+
+def test_k8_needs_n_64_off_the_cpu():
+    """K8's kernel is a tensor-core kernel: off the CPU it refuses N < 64
+    before any launch; on the CPU the plain version takes N = 32."""
+    for dev in ("meta", "cpu"):
+        dig = torch.zeros((2, 1, 3, 2, 32), dtype=torch.int8, device=dev)
+        ext = torch.zeros((4, 1, 2, 2, 64), dtype=torch.int8, device=dev)
+        if dev == "cpu":
+            assert kx.extprod_partials_grouped(dig, ext, 4).shape == (
+                8, 1, 3, 2, 32)
+        else:
+            with pytest.raises(ValueError, match=r"\[64, 512\]"):
+                kx.extprod_partials_grouped(dig, ext, 4)

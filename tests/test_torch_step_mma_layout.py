@@ -28,20 +28,24 @@ from tests.test_torch_mma_layout import (ROWS, bucket_emulated,
 N = 64
 
 
-def staged_block(dig_f, ext_f, rec, r_cnt, rows_valid, n_d, nj, n):
+def staged_block(dig_f, ext_f, rec, r_cnt, rows_valid, n_d, nj, n,
+                 key_strides=None):
     """The operands one block's contract_mma stages, read from the flat
     operands through its Staged record: the R key rows (NJ planes of 2N
-    bytes, contiguous from ext_at) and the padded digit tiles, digit plane i
-    of lane `row` at row r from dig_at + r·dig_r + i·dig_plane +
-    row·dig_lane; lanes at or past rows_valid are zero (copy_digits_async's
-    zero-byte copies)."""
+    bytes, contiguous from ext_at; with key_strides = (ext_r, ext_plane),
+    K8's KEY_STRIDED staging, plane j of row r from ext_at + r·ext_r +
+    j·ext_plane) and the padded digit tiles, digit plane i of lane `row` at
+    row r from dig_at + r·dig_r + i·dig_plane + row·dig_lane; lanes at or
+    past rows_valid are zero (copy_digits_async's zero-byte copies)."""
     ext_at, dig_at, dig_r, dig_plane, dig_lane = rec
+    ext_r, ext_plane = key_strides or (nj * 2 * n, 2 * n)
     tile = np.zeros((r_cnt, n_d, ROWS, n), dtype=np.int8)
     key = np.zeros((r_cnt, nj, 2 * n), dtype=np.int8)
     for r in range(r_cnt):
-        at = ext_at + r * nj * 2 * n
-        assert at + nj * 2 * n <= ext_f.size
-        key[r] = ext_f[at:at + nj * 2 * n].reshape(nj, 2 * n)
+        for j in range(nj):
+            at = ext_at + r * ext_r + j * ext_plane
+            assert at % 16 == 0 and at + 2 * n <= ext_f.size
+            key[r, j] = ext_f[at:at + 2 * n]
         for i in range(n_d):
             for row in range(rows_valid):
                 at = dig_at + r * dig_r + i * dig_plane + row * dig_lane

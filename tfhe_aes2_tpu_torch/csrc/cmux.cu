@@ -32,7 +32,15 @@
 // is not latency but the instruction rate of mma.sync itself: alone it reaches
 // 2/3 of the card's int8 peak at this N = 8 (probes/mma_rate.cu), and each
 // shared load or register move between two of them costs about a fifth of
-// one. The glue is about 1 us of a 140 us step. K2 is bound by bytes.
+// one. The glue is about 1 us of a 140 us step.
+//
+// K2 is bound by bytes: at B = 288 it reads 5.9 MB and writes 4.4 MB. It is
+// nc::glue_wide (nc_common.cuh): a thread for every 8 columns of a row, so
+// its grid grows with O·B·N (92,160 threads at B = 288) and not with
+// ceil(B/8)·O blocks; each thread loads its 8 words in 16-byte pieces, reads
+// its rotated sources from the block's copy of the row in shared memory, and
+// stores each of its L x ND limb planes as one 8-byte word. The gadget
+// (levels, base_log) and ND are template values, dispatched below.
 #include "nc_mma.cuh"
 
 namespace {
@@ -110,30 +118,26 @@ extprod_step2g_kernel(const int8_t* __restrict__ dig,
   }
 }
 
-// Grid (ceil(B/ROWS), O), block N/2: the glue alone.
-template <int ND>
-__global__ void
+// K2. Grid ceil(O·B·N / (8·GLUE_THREADS)), block GLUE_THREADS: the glue
+// alone, nc::glue_wide over the [O][B] rows of the accumulator.
+// acc     int64 [O][B][N]
+// t       int32 [B]
+// dig_out int8  [O][L][ND][B][N]
+template <int ND, int L, int BL>
+__global__ void __launch_bounds__(nc::GLUE_THREADS)
 rot_diff_digits_kernel(const uint64_t* __restrict__ acc,
                        const int32_t* __restrict__ t,
-                       int8_t* __restrict__ dig_out, int B, int n, int levels,
-                       int base_log) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t* tile = reinterpret_cast<uint64_t*>(smem);
-  const int o = blockIdx.y;
-  const int b0 = blockIdx.x * nc::ROWS;
-  const int rows = min(nc::ROWS, B - b0);
-  for (int idx = threadIdx.x; idx < rows * n; idx += blockDim.x)
-    tile[idx] = acc[((size_t)o * B + b0) * n + idx];
-  __syncthreads();
-  for (int row = 0; row < rows; ++row) {
-    for (int c = 0; c < nc::COLS; ++c) {
-      const int m = threadIdx.x + c * blockDim.x;
-      nc::glue<ND>(tile + row * n, t[b0 + row], m, n, levels, base_log,
-                   dig_out + (((size_t)o * levels * ND) * B + b0 + row) * n,
-                   (size_t)ND * B * n, (size_t)B * n);
-    }
-  }
+                       int8_t* __restrict__ dig_out, int B, int n, int O) {
+  __shared__ __align__(16) uint64_t tile[nc::GLUE_TILE_WORDS];
+  const size_t plane = (size_t)B * n;
+  nc::glue_wide<ND, L, BL>(tile, acc, t, B, n, O * B, dig_out,
+                           nc::GlueOut{L * ND * plane, (size_t)n, ND * plane,
+                                       plane});
 }
+
+// An empty kernel: chip_smoke.py times it behind the same device spin as
+// the kernels, as the floor one launch costs on the device.
+__global__ void empty_kernel() {}
 
 template <int ND, int JS, bool GLUE>
 int launch_step(const int8_t* dig, const int8_t* ext, int64_t* acc,
@@ -151,19 +155,26 @@ int launch_step(const int8_t* dig, const int8_t* ext, int64_t* acc,
   return (int)cudaGetLastError();
 }
 
-template <int ND>
+template <int ND, int L, int BL>
 int launch_glue(const int64_t* acc, const int32_t* t, int8_t* dig_out, int B,
-                int n, int O, int levels, int base_log, cudaStream_t stream) {
-  const size_t smem = (size_t)nc::ROWS * n * 8;
-  auto kern = rot_diff_digits_kernel<ND>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((B + nc::ROWS - 1) / nc::ROWS, O);
-  kern<<<grid, n / nc::COLS, smem, stream>>>(
-      reinterpret_cast<const uint64_t*>(acc), t, dig_out, B, n, levels,
-      base_log);
+                int n, int O, cudaStream_t stream) {
+  const int threads = O * B * (n / nc::GLUE_COLS);
+  rot_diff_digits_kernel<ND, L, BL>
+      <<<(threads + nc::GLUE_THREADS - 1) / nc::GLUE_THREADS,
+         nc::GLUE_THREADS, 0, stream>>>(reinterpret_cast<const uint64_t*>(acc),
+                                        t, dig_out, B, n, O);
   return (int)cudaGetLastError();
+}
+
+template <int L, int BL>
+int glue_gadget(const int64_t* acc, const int32_t* t, int8_t* dig_out, int B,
+                int n, int O, int nd, cudaStream_t s) {
+  switch (nd) {
+    case 1: return launch_glue<1, L, BL>(acc, t, dig_out, B, n, O, s);
+    case 2: return launch_glue<2, L, BL>(acc, t, dig_out, B, n, O, s);
+    case 3: return launch_glue<3, L, BL>(acc, t, dig_out, B, n, O, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -192,15 +203,26 @@ extern "C" int tfhe_extprod_step2(const int8_t* dig, const int8_t* ext,
 #undef STEP2_CALL
 }
 
+// The (levels, base_log) gadgets K2 is built for: the blind rotation's of
+// every parameter set in ops/params.py, and (2, 12) of the card's tests. The
+// wrapper (extprod.GLUE_GADGETS) refuses any other before it gets here.
 extern "C" int tfhe_rot_diff_digits(const int64_t* acc, const int32_t* t,
                                     int8_t* dig_out, int B, int n, int O,
                                     int levels, int nd, int base_log,
                                     void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  switch (nd) {
-    case 1: return launch_glue<1>(acc, t, dig_out, B, n, O, levels, base_log, s);
-    case 2: return launch_glue<2>(acc, t, dig_out, B, n, O, levels, base_log, s);
-    case 3: return launch_glue<3>(acc, t, dig_out, B, n, O, levels, base_log, s);
+  switch (levels * 64 + base_log) {
+#define GLUE_CASE(L, BL)                                                    \
+  case L * 64 + BL:                                                         \
+    return glue_gadget<L, BL>(acc, t, dig_out, B, n, O, nd, s);
+    GLUE_CASE(2, 12) GLUE_CASE(2, 15) GLUE_CASE(3, 12) GLUE_CASE(4, 9)
+    GLUE_CASE(6, 7)
+#undef GLUE_CASE
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+extern "C" int tfhe_empty_kernel(void* stream) {
+  empty_kernel<<<1, 32, 0, reinterpret_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
 }

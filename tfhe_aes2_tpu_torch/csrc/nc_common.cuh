@@ -1,7 +1,9 @@
 // Shared device code of the negacirculant limb-plane kernels (K1, K3, K5-K11)
 // and of the glue that K1, K2, K9 and K10a run. The __dp4a contraction below
-// (nc::contract) is K7's and K8's; the others contract on the tensor cores
-// (nc_mma.cuh) from the same S-tables.
+// (nc::contract) is K7's alone; the others contract on the tensor cores
+// (nc_mma.cuh) from the same S-tables. The glue comes in two forms: nc::glue,
+// one column at a time from a tile a block already holds (K1, K9, K10a), and
+// nc::glue_wide, K2's pass over the accumulator in device memory.
 //
 // The contraction these kernels evaluate, for one output component o:
 //
@@ -205,6 +207,108 @@ __device__ __forceinline__ void glue(const uint64_t* row, int t, int m, int n,
       const int32_t p = i < ND - 1 ? ((yy >> (8 * i)) & 0xFF) - 128
                                    : (yy >> (8 * i));
       out[(size_t)l * level_stride + (size_t)i * limb_stride + m] = (int8_t)p;
+    }
+  }
+}
+
+// K2's glue as one wide pass, bound by bytes. nc::glue above serves a block
+// that already holds a tile of the accumulator (K1, K9); this one reads the
+// accumulator itself. A thread owns GLUE_COLS = 8 consecutive columns
+// m0..m0+7 of one accumulator row (o, b); a block of GLUE_THREADS threads
+// owns 1024 / N whole rows (2 at N = 512), so the grid covers O·B·N/8
+// threads whatever the batch. Each thread reads its own 8 words with four
+// 16-byte loads and puts them into the block's row copy in shared memory;
+// after one barrier it reads its 8 rotated sources (m - t) mod 2N from
+// there (ext = [acc, -acc]: one run that wraps at 2N at most once and
+// changes sign at N), computes all L x ND digit limbs of its columns in
+// registers, and writes each (level, limb) plane as one 8-byte store: a
+// warp writes 256 contiguous bytes a plane at N = 512. The shared row copy
+// is padded by one word every 8 (word x at x + x/8), so that the 8-word runs
+// of neighbouring threads fall on different banks. L, BL (base_log) and ND
+// are compile-time values: the level and limb loops unroll. Limb i < ND-1
+// of a digit is byte i of (digit + OFF) minus 128 and the last limb the
+// bits above, so with OFF = Σ_{i<ND-1} 128·2^(8i) the bytes of
+// (digit + OFF) ^ OFF are the ND limbs as int8: one add and one xor a digit.
+constexpr int GLUE_COLS = 8;        // consecutive columns a thread owns
+constexpr int GLUE_THREADS = 128;   // threads a block: 1024 columns
+constexpr int GLUE_TILE_WORDS = GLUE_THREADS * GLUE_COLS * 9 / 8;
+
+// Where glue_wide writes: limb i of level l of row (o, b) at column m lands
+// at out + o*o + b*b + l*level + i*limb + m (bytes, multiples of 8).
+struct GlueOut {
+  size_t o, b, level, limb;
+};
+
+template <int ND, int L, int BL>
+__device__ __forceinline__ void glue_wide(uint64_t* tile,
+                                          const uint64_t* __restrict__ acc,
+                                          const int32_t* __restrict__ t,
+                                          int B, int n, int rows,
+                                          int8_t* __restrict__ out,
+                                          const GlueOut& st) {
+  static_assert(L * BL < 64 && BL <= 16 && ND >= 1 && ND <= 3,
+                "gadget outside the glue's range");
+  constexpr int SHIFT = 64 - L * BL;
+  constexpr uint64_t MASK = (1ull << BL) - 1;
+  constexpr uint32_t OFF = ND == 1 ? 0u : ND == 2 ? 0x80u : 0x8080u;
+  uint64_t h = 0;
+#pragma unroll
+  for (int l = 0; l < L; ++l) h += 1ull << (BL - 1 + BL * l);
+
+  const int per_row = n / GLUE_COLS;                 // threads a row
+  const int lr = threadIdx.x / per_row;              // row of the block
+  const int m0 = (threadIdx.x - lr * per_row) * GLUE_COLS;
+  const int row = blockIdx.x * (GLUE_THREADS / per_row) + lr;   // o·B + b
+  const bool live = row < rows;
+  uint64_t* srow = tile + lr * (n + n / 8);
+  uint64_t own[GLUE_COLS];
+  if (live) {
+    const ulonglong2* src =
+        reinterpret_cast<const ulonglong2*>(acc + (size_t)row * n + m0);
+#pragma unroll
+    for (int k = 0; k < GLUE_COLS / 2; ++k) {
+      const ulonglong2 v = src[k];
+      own[2 * k] = v.x;
+      own[2 * k + 1] = v.y;
+    }
+#pragma unroll
+    for (int k = 0; k < GLUE_COLS; ++k) srow[m0 + m0 / 8 + k] = own[k];
+  }
+  __syncthreads();
+  if (!live) return;
+  const int o = row / B;
+  const int b = row - o * B;
+  const int tb = t[b];
+  uint32_t z[L][GLUE_COLS];   // (digit + OFF) ^ OFF: byte i is limb i
+#pragma unroll
+  for (int k = 0; k < GLUE_COLS; ++k) {
+    const int src = (m0 + k - tb) & (2 * n - 1);
+    const int x = src & (n - 1);
+    const uint64_t v = srow[x + (x >> 3)];
+    const uint64_t diff = (src < n ? v : (uint64_t)0 - v) - own[k];
+    const uint64_t y = ((diff + (1ull << (SHIFT - 1))) >> SHIFT) + h;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const int32_t digit =
+          (int32_t)((y >> (BL * (L - 1 - l))) & MASK) - (1 << (BL - 1));
+      z[l][k] = ((uint32_t)digit + OFF) ^ OFF;
+    }
+  }
+  int8_t* base = out + o * st.o + b * st.b + m0;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      // byte i of z[l][k] for k = 0..7, as the 8 bytes of one store
+      const unsigned sel = i | (i + 4) << 4;
+      const uint32_t lo = __byte_perm(__byte_perm(z[l][0], z[l][1], sel),
+                                      __byte_perm(z[l][2], z[l][3], sel),
+                                      0x5410);
+      const uint32_t hi = __byte_perm(__byte_perm(z[l][4], z[l][5], sel),
+                                      __byte_perm(z[l][6], z[l][7], sel),
+                                      0x5410);
+      *reinterpret_cast<uint2*>(base + l * st.level + i * st.limb) =
+          make_uint2(lo, hi);
     }
   }
 }

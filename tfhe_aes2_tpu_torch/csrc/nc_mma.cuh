@@ -1,5 +1,5 @@
-// The negacirculant contraction of K1 and K5 (cmux.cu), K3 (vp.cu), K6
-// (step.cu), K9 (merged.cu), K10b (longk.cu) and K11 (bucket.cu) on the
+// The negacirculant contraction of K1 and K5 (cmux.cu), K3 and K8 (vp.cu),
+// K6 (step.cu), K9 (merged.cu), K10b (longk.cu) and K11 (bucket.cu) on the
 // tensor cores: mma.sync.m16n8k32 (int8 x int8 -> int32) fed straight from
 // the shared-memory S-tables, with the key rows and digit tiles staged by
 // cp.async one contraction row ahead. K11 runs its own row loop over the
@@ -42,7 +42,9 @@
 // words a k-step. That range needs N >= 64.
 //
 // Staging: per contraction row a block needs the 8-JS raw key rows (2N
-// bytes each) and, in K1, its ND x 8 digit rows. Both come by cp.async
+// bytes each; contiguous in every layout but K8's, whose planes lie B·R·O·2N
+// bytes apart and are copied plane by plane, KEY_STRIDED) and, in K1, its
+// ND x 8 digit rows. Both come by cp.async
 // (16 bytes a thread) into a second stage while the current row's mma run;
 // the S-table words of the next row are built from the shared-memory copy
 // (three aligned word loads and four __byte_perm per four words, one
@@ -109,6 +111,21 @@ __device__ __forceinline__ void copy_async(unsigned char* dst,
                                            int bytes) {
   for (int at = threadIdx.x * 16; at < bytes; at += blockDim.x * 16)
     cp_async16(dst + at, src + at, 16);
+}
+
+// Start the copy of NJ key planes of 2N bytes, plane j from
+// src + j*plane_stride (16-byte aligned), into dst one after the other.
+template <int NJ>
+__device__ __forceinline__ void copy_planes_async(
+    unsigned char* dst, const int8_t* __restrict__ src, unsigned plane_stride,
+    int n) {
+  const int per_plane = n >> 3;             // 16-byte pieces a plane
+  for (int idx = threadIdx.x; idx < NJ * per_plane; idx += blockDim.x) {
+    const int j = idx / per_plane;
+    cp_async16(dst + 16 * idx,
+               src + (size_t)j * plane_stride + 16 * (idx - j * per_plane),
+               16);
+  }
 }
 
 // Start the copy of one contraction row's ND x ROWS digit rows of n bytes
@@ -214,16 +231,19 @@ __device__ __forceinline__ void mma_row(int32_t (&acc)[MT][8 - JS][4],
 // (R padded tiles of dig_tile_bytes each).
 struct Staged {
   const int8_t* ext;   // row r's NJ key rows are contiguous at ext + r*raw_bytes
-  const int8_t* dig;   // K1, K3, K5, K6, K10b: digit plane i of lane `row`
+                       // or, with KEY_STRIDED (K8), plane j of row r is at
+                       // ext + r*ext_r + j*ext_plane
+  const int8_t* dig;   // K1, K3, K5, K6, K8, K10b: digit plane i of lane `row`
                        // at row r is at dig + r*dig_r + i*dig_plane +
                        // row*dig_lane
   unsigned dig_r, dig_plane;
   unsigned dig_lane;   // N where a lane's rows lie apart (K1, K3, K5), R·N in
-                       // K6's batch-major and K10b's flat layouts
+                       // K6's and K8's batch-major and K10b's flat layouts
   const unsigned char* dig_res;   // K9: the resident digit tiles
+  unsigned ext_r = 0, ext_plane = 0;   // read with KEY_STRIDED only
 };
 
-template <int ND, int JS, bool STAGE_DIG>
+template <int ND, int JS, bool STAGE_DIG, bool KEY_STRIDED = false>
 __device__ __forceinline__ void contract_mma(int32_t (&acc)[MT][8 - JS][4],
                                              unsigned char* smem,
                                              const Staged& op, int R,
@@ -240,12 +260,20 @@ __device__ __forceinline__ void contract_mma(int32_t (&acc)[MT][8 - JS][4],
     for (int s = 0; s < NJ; ++s)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[q][s][c] = 0;
+  // start the copy of row r's NJ key rows into `dst`
+  auto copy_keys = [&](unsigned char* dst, int r) {
+    if constexpr (KEY_STRIDED)
+      copy_planes_async<NJ>(dst, op.ext + (size_t)r * op.ext_r, op.ext_plane,
+                            n);
+    else
+      copy_async(dst, op.ext + r * raw_b, raw_b);
+  };
 
-  copy_async(raw, op.ext, raw_b);
+  copy_keys(raw, 0);
   if constexpr (STAGE_DIG)
     copy_digits_async<ND>(dig, op.dig, op.dig_plane, op.dig_lane,
                           rows_valid, n);
-  if (R > 1) copy_async(raw + raw_b, op.ext + raw_b, raw_b);
+  if (R > 1) copy_keys(raw + raw_b, 1);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
@@ -261,8 +289,7 @@ __device__ __forceinline__ void contract_mma(int32_t (&acc)[MT][8 - JS][4],
                               op.dig + (size_t)(r + 1) * op.dig_r,
                               op.dig_plane, op.dig_lane, rows_valid, n);
     }
-    if (r + 2 < R)
-      copy_async(raw + s * raw_b, op.ext + (r + 2) * raw_b, raw_b);
+    if (r + 2 < R) copy_keys(raw + s * raw_b, r + 2);
     cp_async_commit();
     if (r + 1 < R)
       build_tables<NJ>(reinterpret_cast<uint32_t*>(tab + (s ^ 1) * tab_b),

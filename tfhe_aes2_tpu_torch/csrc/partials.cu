@@ -1,4 +1,4 @@
-// K7 and K8: the external products as raw int32 partial sums, on Hopper.
+// K7: the shared-key external product as raw int32 partial sums, on Hopper.
 //
 // K7 (tfhe_extprod_partials) replaces the Pallas kernel
 // tfhe_aes2_tpu/ops/pallas/extprod.py::extprod_partials: the shared-key
@@ -7,21 +7,15 @@
 //
 //   out[s, b, o] = Σ_r Σ_{i + j = s} dig_i[b, r] · NC(key plane j)[r][o],  s < 8
 //
-// K8 (tfhe_extprod_partials_grouped) replaces
-// extprod.py::extprod_partials_grouped: the same for the vertical packing,
-// where lane b has its own GGSW shared by its G accumulators and the planes
-// below js are dropped; rows s < js of the output are written as zeros.
-//
 // The caller recombines Σ_s sext(out[s]) << 8s mod 2^64. Pairs with
-// i + j >= 8 vanish mod 2^64 and are never formed, as in the TPU kernels.
+// i + j >= 8 vanish mod 2^64 and are never formed, as in the TPU kernel.
+// (K8, the same for the vertical packing, is K3's tensor-core kernel in
+// vp.cu.)
 //
-// What bounds them on the H100: by the count of operations they stand where
-// K1 and K3 stand (the same nc::contract of nc_common.cuh), but they write
-// 8 int32 words for every u64 that K1/K3 fold on chip: 4x the output bytes
-// (K8 at 32 lanes x 24 accumulators: 63 MB a launch). That traffic is the
-// reason the fused kernels exist; these keep the buckets visible, which is
-// the form a tensor-core tile will produce and be checked against. Both
-// read the TPU kernels' operand layouts through nc::Operands strides, so
+// What bounds it on the H100: by the count of operations it stands where
+// K1 stands, but it runs nc::contract of nc_common.cuh, __dp4a on the CUDA
+// cores, and writes 8 int32 words for every u64 that K1 folds on chip. It
+// reads the TPU kernel's operand layouts through nc::Operands strides, so
 // nothing is transposed on the way in.
 #include "nc_common.cuh"
 
@@ -63,47 +57,6 @@ __global__ void extprod_partials_kernel(const int8_t* __restrict__ dig,
   }
 }
 
-// K8. Grid (ceil(G/ROWS), O, B), block N/2.
-// dig  int8  [ND][B][G][R][N]    lane b's digit limb planes
-// ext  int8  [8-JS][B][R][O][2N] lane b's GGSW row limb planes
-// out  int32 [8][B][G][O][N]     rows s < JS written as zeros
-template <int ND, int JS>
-__global__ void
-extprod_partials_grouped_kernel(const int8_t* __restrict__ dig,
-                                const int8_t* __restrict__ ext,
-                                int32_t* __restrict__ out, int G, int n,
-                                int R) {
-  constexpr int NJ = 8 - JS;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int o = blockIdx.y;
-  const int O = gridDim.y;
-  const int b = blockIdx.z;
-  const int B = gridDim.z;
-  const int g0 = blockIdx.x * nc::ROWS;
-  const int rows = min(nc::ROWS, G - g0);
-
-  int32_t part[nc::ROWS][nc::COLS][NJ];
-  const nc::Operands op{dig + ((size_t)b * G + g0) * R * n, (size_t)n,
-                        (size_t)B * G * R * n, (size_t)R * n,
-                        ext + ((size_t)b * R * O + o) * 2 * n,
-                        (size_t)O * 2 * n, (size_t)B * R * O * 2 * n};
-  nc::contract<ND, JS>(part, smem, op, R, rows, n);
-
-#pragma unroll
-  for (int row = 0; row < nc::ROWS; ++row) {
-    if (row < rows) {
-#pragma unroll
-      for (int c = 0; c < nc::COLS; ++c) {
-        const int m = threadIdx.x + c * blockDim.x;
-#pragma unroll
-        for (int s = 0; s < 8; ++s)
-          out[((((size_t)s * B + b) * G + g0 + row) * O + o) * n + m] =
-              s < JS ? 0 : part[row][c][s < JS ? 0 : s - JS];
-      }
-    }
-  }
-}
-
 template <int ND>
 int launch_partials(const int8_t* dig, const int8_t* ext, int32_t* out, int B,
                     int n, int O, int R, cudaStream_t stream) {
@@ -114,19 +67,6 @@ int launch_partials(const int8_t* dig, const int8_t* ext, int32_t* out, int B,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((B + nc::ROWS - 1) / nc::ROWS, O);
   kern<<<grid, n / nc::COLS, smem, stream>>>(dig, ext, out, B, n, R);
-  return (int)cudaGetLastError();
-}
-
-template <int ND, int JS>
-int launch_grouped(const int8_t* dig, const int8_t* ext, int32_t* out, int B,
-                   int G, int n, int O, int R, cudaStream_t stream) {
-  const size_t smem = nc::contraction_smem(ND, 8 - JS, n);
-  auto kern = extprod_partials_grouped_kernel<ND, JS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((G + nc::ROWS - 1) / nc::ROWS, O, B);
-  kern<<<grid, n / nc::COLS, smem, stream>>>(dig, ext, out, G, n, R);
   return (int)cudaGetLastError();
 }
 
@@ -142,15 +82,4 @@ extern "C" int tfhe_extprod_partials(const int8_t* dig, const int8_t* ext,
     case 3: return launch_partials<3>(dig, ext, out, B, n, O, R, s);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-extern "C" int tfhe_extprod_partials_grouped(const int8_t* dig,
-                                             const int8_t* ext, int32_t* out,
-                                             int B, int G, int n, int O, int R,
-                                             int nd, int js, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define GROUPED_CALL(ND, JS) \
-  launch_grouped<ND, JS>(dig, ext, out, B, G, n, O, R, s)
-  NC_DISPATCH(nd, js, GROUPED_CALL)
-#undef GROUPED_CALL
 }

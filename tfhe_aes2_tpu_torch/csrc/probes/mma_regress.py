@@ -1,8 +1,8 @@
 """Time the CMux-step kernels of a checkout at their main-path shapes, on the
 card, so that two versions of the shared tensor-core contraction
-(csrc/nc_mma.cuh) can be compared in one call: K1 and K5 (cmux.cu), K3
-(vp.cu), K9 (merged.cu) and K10b (longk.cu), which share it, and K6
-(step.cu) and K11 (bucket.cu) beside them:
+(csrc/nc_mma.cuh) can be compared in one call: K1 and K5 (cmux.cu), K3 and
+K8 (vp.cu), K6 (step.cu), K9 (merged.cu), K10b (longk.cu) and K11
+(bucket.cu), which share it, and the glue K2 (cmux.cu) beside them:
 
     python3 tfhe_aes2_tpu_torch/csrc/probes/mma_regress.py [ROOT]
 
@@ -25,6 +25,7 @@ import torch
 ROOT = Path(sys.argv[1] if len(sys.argv) > 1
             else Path(__file__).resolve().parents[3]).resolve()
 sys.path.insert(0, str(ROOT))
+from tfhe_aes2_tpu_torch.ops import polynomial  # noqa: E402
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx  # noqa: E402
 
 
@@ -96,18 +97,45 @@ def main() -> int:
             times[f"{name} B={b}"] = device_ms(fn)
         print(f"B={b}: " + ", ".join(f"{name} {times[f'{name} B={b}']:.4f} "
                                      "ms" for name in step), flush=True)
+    # K2, the glue alone, at the batches the paths run it at
+    for b in (9, 128, 160, 256, 288):
+        acc = torch.randint(-2 ** 63, 2 ** 63 - 1, (o, b, n), generator=gen,
+                            dtype=torch.int64).cuda()
+        t = torch.randint(0, 2 * n, (b,), generator=gen,
+                          dtype=torch.int32).cuda()
+        if not torch.equal(kx.rot_diff_digits(acc, t, bl, lv, nd),
+                           kx.rot_diff_digits_plain(acc, t, bl, lv, nd)):
+            raise AssertionError(f"K2 differs from plain at B={b}")
+        key = f"K2 B={b}"
+        times[key] = device_ms(lambda: kx.rot_diff_digits(acc, t, bl, lv, nd))
+        print(f"{key}: {times[key]:.4f} ms", flush=True)
     nd_vp, js_vp, r_vp = 2, 4, o                    # CBS 1 level, k+1 = 5
-    for lanes, g in ((4, 8), (128, 1), (32, 24)):
+    for lanes, g in ((4, 8), (16, 8), (16, 24), (128, 1), (32, 24)):
         dig = r8(lanes, r_vp, nd_vp * g, n)
         ext3 = r8(lanes, o, r_vp, 8 - js_vp, 2 * n)
-        if not torch.equal(kx.extprod_grouped_fused(dig, ext3, nd_vp, js_vp),
-                           kx.extprod_grouped_fused_plain(dig, ext3, nd_vp,
-                                                          js_vp)):
+        fused = kx.extprod_grouped_fused(dig, ext3, nd_vp, js_vp)
+        if not torch.equal(fused, kx.extprod_grouped_fused_plain(
+                dig, ext3, nd_vp, js_vp)):
             raise AssertionError(f"K3 differs from plain at {lanes} x {g}")
-        key = f"K3 lanes={lanes} G={g}"
-        times[key] = device_ms(
-            lambda: kx.extprod_grouped_fused(dig, ext3, nd_vp, js_vp))
-        print(f"{key}: {times[key]:.4f} ms", flush=True)
+        # K8 on the same operands in its own layouts; recombined it is K3
+        dig8 = dig.reshape(lanes, r_vp, nd_vp, g, n).permute(
+            2, 0, 3, 1, 4).contiguous()
+        ext8 = ext3.permute(3, 0, 2, 1, 4).contiguous()
+        parts = kx.extprod_partials_grouped(dig8, ext8, js_vp)
+        if not (torch.equal(parts, kx.extprod_partials_grouped_plain(
+                dig8, ext8, js_vp)) and torch.equal(
+                polynomial.recombine_partials(parts, js_vp),
+                fused.permute(0, 2, 1, 3))):
+            raise AssertionError(f"K8 differs from plain or K3 at {lanes} "
+                                 f"x {g}")
+        for name, fn in (
+                ("K3", lambda: kx.extprod_grouped_fused(dig, ext3, nd_vp,
+                                                        js_vp)),
+                ("K8", lambda: kx.extprod_partials_grouped(dig8, ext8,
+                                                           js_vp))):
+            key = f"{name} lanes={lanes} G={g}"
+            times[key] = device_ms(fn)
+            print(f"{key}: {times[key]:.4f} ms", flush=True)
     print(json.dumps({"card": card, "root": str(ROOT), "ms": times}))
     return 0
 

@@ -5,7 +5,8 @@ K1 `extprod_step2g` — one whole blind-rotate CMux step (dots + recombine +
    the next step's glue). Replaces the Pallas kernel
    tfhe_aes2_tpu/ops/pallas/extprod.py::extprod_step2g; source csrc/cmux.cu.
 K2 `rot_diff_digits` — the glue alone, for step 0. Replaces
-   extprod.py::rot_diff_digits; source csrc/cmux.cu.
+   extprod.py::rot_diff_digits; source csrc/cmux.cu (nc::glue_wide of
+   csrc/nc_common.cuh: a thread owns 8 consecutive columns of one row).
 K3 `extprod_grouped_fused` — the vertical-packing external product (one
    selector GGSW per lane, shared by its G accumulators). Replaces
    extprod.py::extprod_grouped_fused; source csrc/vp.cu.
@@ -21,7 +22,7 @@ K7 `extprod_partials` — the shared-key product over all 8 key planes as raw
    source csrc/partials.cu.
 K8 `extprod_partials_grouped` — the per-lane product of the vertical packing
    as raw int32 sums. Replaces extprod.py::extprod_partials_grouped; source
-   csrc/partials.cu.
+   csrc/vp.cu (K3's kernel, built to store its buckets).
 K9 `cmux_step_merged` — one whole CMux step in one launch (glue of all
    components, digits kept in shared memory, dots + recombine), into a new
    accumulator. Replaces extprod.py::cmux_step_merged; source csrc/merged.cu.
@@ -42,14 +43,15 @@ negacirculant from shared-memory S-tables that index the 2N-byte ext row,
 so it (146 GB for the expanded BSK) never exists; the TPU's packed ladders,
 weight buckets in VMEM and sequential (n_bt, o, r) grid have no counterpart
 — a block owns ROWS lanes × all N columns of one component and loops over r
-itself. K1, K3, K5, K6, K9, K10b and K11 put their products on the tensor
-cores: `mma.sync.m16n8k32` int8 whose operand fragments are S-table and
-digit-tile words, the operands staged by `cp.async` one contraction row ahead
-(csrc/nc_mma.cuh); what is left above their bound is the instruction rate
-of `mma.sync` at N = 8 and, in K9, the glue. (K3's 8 instruction columns
-are 8 of a lane's G accumulators; K11's blocks each keep one weight
-bucket.) K7 and K8 still run `__dp4a` on the CUDA cores, about 1/16 of
-that rate (csrc/nc_common.cuh).
+itself. K1, K3, K5, K6, K8, K9, K10b and K11 put their products on the
+tensor cores: `mma.sync.m16n8k32` int8 whose operand fragments are S-table
+and digit-tile words, the operands staged by `cp.async` one contraction row
+ahead (csrc/nc_mma.cuh); what is left above their bound is the instruction rate
+of `mma.sync` at N = 8 and, in K9, the glue. (K3's and K8's 8 instruction
+columns are 8 of a lane's G accumulators; K11's blocks each keep one weight
+bucket.) K7 alone still runs `__dp4a` on the CUDA cores, about 1/16 of
+that rate (csrc/nc_common.cuh). K2 is bound by bytes: one wide pass, a
+thread for every 8 columns of an accumulator row.
 
 Layouts (int64 torus values; the TPU's (lo, hi) u32 pairs do not exist):
   dig    int8  [k+1, L, n_d, B, N]   digit limb planes, row r = u·L + l
@@ -125,9 +127,10 @@ def device_refusal(n: int, device) -> str | None:
 
 def _check_geometry(name: str, n: int, n_d: int, r: int, j_start: int,
                     n_min: int = 8):
-    """n_min: 8 for the `__dp4a` kernels (K7, K8) and the glue (K2, K10a);
-    64 for the tensor-core kernels (K1, K3, K5, K6, K9, K10b, K11), whose
-    warps own 64 columns each and index their S-tables unmasked."""
+    """n_min: 8 for the `__dp4a` kernel (K7) and the glue (K2, whose
+    threads each own 8 consecutive columns of a row; K10a); 64 for the
+    tensor-core kernels (K1, K3, K5, K6, K8, K9, K10b, K11), whose warps own
+    64 columns each and index their S-tables unmasked."""
     if n & (n - 1) or not n_min <= n <= N_MAX:
         raise ValueError(f"{name}: N={n} must be a power of two in "
                          f"[{n_min}, {N_MAX}]")
@@ -181,16 +184,29 @@ def rot_diff_digits_plain(acc: torch.Tensor, t: torch.Tensor, base_log: int,
     return planes.permute(1, 4, 0, 2, 3).contiguous()
 
 
+# The (levels, base_log) gadgets K2's kernel is built for (csrc/cmux.cu):
+# the blind rotation's of every set in ops/params.py, and (2, 12).
+GLUE_GADGETS = frozenset({(2, 12), (2, 15), (3, 12), (4, 9), (6, 7)})
+
+
 def rot_diff_digits(acc: torch.Tensor, t: torch.Tensor, base_log: int,
                     levels: int, n_d: int) -> torch.Tensor:
-    """K2. acc int64 [O, B, N]; t int32 [B] -> int8 [O, L, n_d, B, N]."""
+    """K2. acc int64 [O, B, N]; t int32 [B] -> int8 [O, L, n_d, B, N]. On a
+    CUDA device the gadget (levels, base_log) must be one of GLUE_GADGETS:
+    the kernel unrolls its level loop."""
     o, b, n = acc.shape
     if t.shape != (b,):
         raise ValueError(f"rot_diff_digits: t shape {tuple(t.shape)} != ({b},)")
     if _on_cpu(acc, t):
         return rot_diff_digits_plain(acc, t, base_log, levels, n_d)
     _check_geometry("rot_diff_digits", n, n_d, 1, 0)
+    if (levels, base_log) not in GLUE_GADGETS:
+        raise ValueError(f"rot_diff_digits: the kernel is not built for "
+                         f"levels={levels}, base_log={base_log} (built: "
+                         f"{sorted(GLUE_GADGETS)})")
     _require_cuda("rot_diff_digits", [(acc, torch.int64), (t, torch.int32)])
+    if acc.data_ptr() % 16:
+        raise ValueError("rot_diff_digits: acc must be 16-byte aligned")
     out = torch.empty((o, levels, n_d, b, n), dtype=torch.int8,
                       device=acc.device)
     f = _fn("cmux", "tfhe_rot_diff_digits", [_P, _P, _P] + [_I] * 6 + [_P])
@@ -454,12 +470,16 @@ def extprod_partials_grouped(digit_planes: torch.Tensor,
     if _on_cpu(digit_planes, ext_planes):
         return extprod_partials_grouped_plain(digit_planes, ext_planes,
                                               j_start)
-    _check_geometry("extprod_partials_grouped", n, n_d, r, j_start)
+    _check_geometry("extprod_partials_grouped", n, n_d, r, j_start,
+                    n_min=64)
+    _check_smem("extprod_partials_grouped",
+                _mma_stage_bytes(n, nj) + 2 * _mma_dig_tile_bytes(n, n_d))
     _require_cuda("extprod_partials_grouped",
                   [(digit_planes, torch.int8), (ext_planes, torch.int8)])
+    _check_staged("extprod_partials_grouped", digit_planes, ext_planes)
     out = torch.empty((8, b, g, o, n), dtype=torch.int32,
                       device=digit_planes.device)
-    f = _fn("partials", "tfhe_extprod_partials_grouped",
+    f = _fn("vp", "tfhe_extprod_partials_grouped",
             [_P] * 3 + [_I] * 7 + [_P])
     rc = f(digit_planes.data_ptr(), ext_planes.data_ptr(), out.data_ptr(), b,
            g, n, o, r, n_d, j_start, build.stream_ptr(out.device))
