@@ -12,8 +12,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the card, with median times (50 launches for kernels under 0.2 ms),
      each kernel's bound and the launch floor (an empty kernel timed the
      same way); and the cross-checks: K7's partial sums recombined equal
-     K6's update, K8's equal K3 (also with every byte -128), K2 then K5
-     equals K1, and K6's update and one step
+     K6's update (also with every byte -128), K8's equal K3 (also with
+     every byte -128), K2 then K5 equals K1, K2 and K10a equal their plain
+     versions and each other (K10a's flat layout is K2's permuted) for every
+     gadget they are built for, and K6's update and one step
      of each of the schedules `merged` (K9), `longk` (K10a then K10b) and
      `bucket` (K2 then K11) equal K2 then K5, at B in {9, 128, 160, 256,
      288}, with the split of K10b's and of K11's rows at each B and the
@@ -103,8 +105,8 @@ KEY = bytes.fromhex("76b8e0ada0f13d90405d6ae55386bd28")
 IV = bytes.fromhex("bdd219b8a08ded1a")
 
 # int8_products: how each kernel computes its int8 products on the card —
-# "mma.sync" (the tensor cores: nc_mma.cuh, matmul.cu), "dp4a" (the CUDA
-# cores: nc_common.cuh) or None (the glue, no products)
+# "mma.sync" (the tensor cores: nc_mma.cuh, matmul.cu) or None (the glue,
+# no products)
 KERNELS = {
     "extprod_step2g": dict(
         fn=kx.extprod_step2g, source="tfhe_aes2_tpu_torch/csrc/cmux.cu",
@@ -131,9 +133,9 @@ KERNELS = {
         replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:307",
         int8_products="mma.sync"),
     "extprod_partials": dict(
-        fn=kx.extprod_partials, source="tfhe_aes2_tpu_torch/csrc/partials.cu",
+        fn=kx.extprod_partials, source="tfhe_aes2_tpu_torch/csrc/step.cu",
         replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:127",
-        int8_products="dp4a"),
+        int8_products="mma.sync"),
     "extprod_partials_grouped": dict(
         fn=kx.extprod_partials_grouped,
         source="tfhe_aes2_tpu_torch/csrc/vp.cu",
@@ -273,13 +275,16 @@ def phase_device() -> str:
     log(f"ptxas: {len(spills)} kernel instantiations report spills"
         + "".join(f"\n  {name}" for name in spills))
     # the main path's instantiations: K1, K5 (K1 without glue), K6, K9 and
-    # K10b (ND=2, JS=2), K2 (ND=2, L=3, base_log 12), K11 (ND=2), K3 and K8
-    # (ND=2, JS=4), K4's keyswitch (ND=1, JS=5) and pfKS (ND=3, JS=1)
+    # K10b (ND=2, JS=2), K7 (ND=2, JS=0, PARTIALS), K2 and K10a (ND=2, L=3,
+    # base_log 12), K11 (ND=2), K3 and K8 (ND=2, JS=4), K4's keyswitch
+    # (ND=1, JS=5) and pfKS (ND=3, JS=1)
     for i, ln in enumerate(report):
         if any(key in ln for key in (
                 "step2g_kernelILi2ELi2ELb1E", "step2g_kernelILi2ELi2ELb0E",
                 "rot_diff_digits_kernelILi2ELi3ELi12E",
-                "step_kernelILi2ELi2E", "step3_kernelILi2E",
+                "rot_diff_digits_flat_kernelILi2ELi3ELi12E",
+                "step_kernelILi2ELi2ELb0E", "step_kernelILi2ELi0ELb1E",
+                "step3_kernelILi2E",
                 "merged_kernelILi2ELi2E", "longk_kernelILi2ELi2E",
                 "grouped_fused_kernelILi2ELi4E",
                 "limb_matmul_kernelILi1ELi5E", "limb_matmul_kernelILi3ELi1E")):
@@ -454,6 +459,37 @@ def check_tensor_core_steps(gen) -> int:
             + compare(5, 3, 2, 12, 201, 512, 2, fill=-128))
 
 
+def check_glue_gadgets(gen, k1: int, n: int) -> None:
+    """K2 and K10a (one kernel body, nc::glue_wide) at B in {9, 288} for
+    every gadget they are built for, each gadget with its own limb count and
+    lvl64's (3, 12) with one to three: each bit-equal to its plain version,
+    and K10a equal to K2's output permuted to the flat layout."""
+    done = 0
+    for b in (9, 288):
+        acc = torch.randint(-2**63, 2**63 - 1, (k1, b, n), generator=gen,
+                            dtype=torch.int64).to(DEV)
+        t = torch.randint(0, 2 * n, (b,), generator=gen,
+                          dtype=torch.int32).to(DEV)
+        for lv, bl in sorted(kx.GLUE_GADGETS):
+            own = torus.limbs_for_bound(decomposition.digit_bound(bl))
+            for nd in ((1, 2, 3) if (lv, bl) == (3, 12) else (own,)):
+                k2 = kx.rot_diff_digits(acc, t, bl, lv, nd)
+                flat = kx.rot_diff_digits_flat(acc, t, bl, lv, nd)
+                if not (torch.equal(k2, kx.rot_diff_digits_plain(
+                        acc, t, bl, lv, nd)) and torch.equal(
+                        flat, kx.rot_diff_digits_flat_plain(
+                            acc, t, bl, lv, nd)) and torch.equal(
+                        flat, k2.permute(2, 3, 0, 1, 4).reshape(
+                            nd, b, k1 * lv * n))):
+                    raise AssertionError(
+                        f"K2 or K10a differs at B={b}, gadget ({lv}, {bl}), "
+                        f"n_d={nd}")
+                done += 1
+    log(f"  K2 and K10a bit-equal to plain and K10a == K2 permuted for every "
+        f"built gadget {sorted(kx.GLUE_GADGETS)} at B in {{9, 288}} "
+        f"({done} gadget and limb-count cases)")
+
+
 def launch_floor_ms() -> float:
     """Device time of one empty kernel (tfhe_empty_kernel, csrc/cmux.cu),
     launched through ctypes as the wrappers launch theirs and timed as they
@@ -587,6 +623,22 @@ def phase_kernels() -> tuple[dict, float]:
     if not torch.equal(acc_bm + polynomial.recombine_partials(parts), acc_6):
         raise AssertionError("K7 recombined differs from K6's update")
     log("  cross-check: K7 recombined == K6's update at B=288")
+    # K7 at the extreme value: every digit and key byte -128, each int32
+    # bucket at n_d·R·N·2^14, the bound the wrapper admits
+    dig_x = torch.full((nd, b, r, n), -128, dtype=torch.int8, device=DEV)
+    ext_x = torch.full((8, r, k1, 2 * n), -128, dtype=torch.int8, device=DEV)
+    parts_x = kx.extprod_partials(dig_x, ext_x)
+    err = max(err, max_abs_err(parts_x, kx.extprod_partials_plain(dig_x,
+                                                                  ext_x)))
+    ext_x[:js] = 0
+    if not torch.equal(acc_bm + polynomial.recombine_partials(
+            kx.extprod_partials(dig_x, ext_x)), kx.extprod_step(
+            dig_x, ext_x[js:].permute(2, 1, 0, 3).contiguous(), acc_bm, js)):
+        raise AssertionError("K7 recombined differs from K6's update at the "
+                             "value -128")
+    log(f"  K7 with every digit and key byte -128 at B={b}: max_abs_err "
+        f"{err} against plain, recombined == K6's update")
+    del dig_x, ext_x, parts_x
     ms = time_ms(lambda: kx.extprod_partials(dig_bm, ext8))
     pms = time_ms(lambda: kx.extprod_partials_plain(dig_bm, ext8), reps=2)
     record(f"extprod_partials B={b}", rows["extprod_partials"],
@@ -654,6 +706,7 @@ def phase_kernels() -> tuple[dict, float]:
                              "-128")
     log("  K3 and K8 bit-equal to plain with every digit and key byte -128 "
         "at 32 lanes x G=24, K8 recombined equal to K3")
+    check_glue_gadgets(gen, k1, n)
     floor = launch_floor_ms()
     log(f"  launch floor: an empty kernel queued behind the same device "
         f"spin takes {floor:.4f} ms")

@@ -357,3 +357,91 @@ def test_cuda_partials_grouped_extreme_values():
                      device="cuda")
     _assert_k8_matches_plain_and_k3(dig, ext, 2, 4)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 9, 13, 288])
+def test_cuda_glue_flat_matches_plain(b):
+    """On the card: K10a (K2's nc::glue_wide with the flat output strides)
+    bit-equal to its plain version at N in {64, 256, 512}, with the
+    rotation 0, 1, N-1, N, N+1, 2N-1 and a random one a lane, for every
+    gadget it is built for and, at lvl64's (3, 12), one to three limbs a
+    digit; and equal to K2's output permuted to the flat layout."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(400 + b)
+    for n in (64, 256, 512):
+        acc = torch.randint(-2 ** 63, 2 ** 63 - 1, (5, b, n), generator=gen,
+                            dtype=torch.int64).cuda()
+        for value in (0, 1, n - 1, n, n + 1, 2 * n - 1, None):
+            t = (torch.randint(0, 2 * n, (b,), generator=gen,
+                               dtype=torch.int32) if value is None
+                 else torch.full((b,), value, dtype=torch.int32)).cuda()
+            gadgets = [(lv, bl, nd) for lv, bl in sorted(kx.GLUE_GADGETS)
+                       for nd in ((1, 2, 3) if (lv, bl) == (3, 12)
+                                  else (1 if bl <= 7 else 2,))]
+            for levels, base_log, n_d in gadgets:
+                flat = kx.rot_diff_digits_flat(acc, t, base_log, levels, n_d)
+                assert torch.equal(flat, kx.rot_diff_digits_flat_plain(
+                    acc, t, base_log, levels, n_d)), (n, value, levels,
+                                                      base_log, n_d)
+                k2 = kx.rot_diff_digits(acc, t, base_log, levels, n_d)
+                assert torch.equal(flat, k2.permute(2, 3, 0, 1, 4).reshape(
+                    n_d, b, 5 * levels * n)), (n, value, levels, base_log,
+                                               n_d)
+    torch.cuda.synchronize()
+
+
+def _assert_k7_matches_plain_and_k6(dig_bm, ext8, js=2):
+    """K7 bit-equal to its plain version; then, with its key planes below
+    js zeroed, recombined over a random accumulator equal to K6's update on
+    the planes from js up (laid out as the prepared entry [O, R, 8-js,
+    2N])."""
+    parts = kx.extprod_partials(dig_bm, ext8)
+    assert torch.equal(parts, kx.extprod_partials_plain(dig_bm, ext8))
+    n_d, b, r, n = dig_bm.shape
+    o = ext8.shape[2]
+    gen = torch.Generator().manual_seed(b * n + n_d)
+    acc_bm = torch.randint(-2 ** 62, 2 ** 62, (b, o, n), generator=gen,
+                           dtype=torch.int64).cuda()
+    low = ext8.clone()
+    low[:js] = 0
+    assert torch.equal(
+        acc_bm + polynomial.recombine_partials(kx.extprod_partials(dig_bm,
+                                                                   low)),
+        kx.extprod_step(dig_bm, low[js:].permute(2, 1, 0, 3).contiguous(),
+                        acc_bm, js))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 512])
+@pytest.mark.parametrize("b", [1, 13, 288])
+def test_cuda_partials_matches_plain(n, b):
+    """On the card: K7 (K6's tensor-core kernel over all 8 key planes,
+    storing its int32 buckets) bit-equal to its plain version with a
+    ragged last lane tile, for one to three limbs, and recombined over
+    zeroed low planes equal to K6's update."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(800 + 10 * n + b)
+    for n_d in (1, 2, 3):
+        dig_bm = torch.randint(-128, 128, (n_d, b, 15, n), generator=gen,
+                               dtype=torch.int8).cuda()
+        ext8 = torch.randint(-128, 128, (8, 15, 5, 2 * n), generator=gen,
+                             dtype=torch.int8).cuda()
+        _assert_k7_matches_plain_and_k6(dig_bm, ext8)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_partials_extreme_values():
+    """On the card: every digit and key byte -128 at the blind rotation's
+    R=15, O=5, N=512, n_d=2 — each int32 bucket at the bound the wrapper
+    admits — K7 bit-equal to plain at B=13 and B=288, and recombined equal
+    to K6."""
+    require_cuda()
+    for b in (13, 288):
+        dig_bm = torch.full((2, b, 15, 512), -128, dtype=torch.int8,
+                            device="cuda")
+        ext8 = torch.full((8, 15, 5, 1024), -128, dtype=torch.int8,
+                          device="cuda")
+        _assert_k7_matches_plain_and_k6(dig_bm, ext8)
+    torch.cuda.synchronize()

@@ -1,6 +1,7 @@
-"""K8's per-block addressing (csrc/vp.cu, K3's tensor-core kernel built with
-PARTIALS) emulated in numpy and held against
-`extprod_partials_grouped_plain`.
+"""The per-block addressing of the two kernels that store their int32
+buckets — K8 (csrc/vp.cu, K3's tensor-core kernel built with PARTIALS) and
+K7 (csrc/step.cu, K6's built the same way) — emulated in numpy and held
+against `extprod_partials_grouped_plain` and `extprod_partials_plain`.
 
 The contraction's fragment map is `contract_buckets`'s
 (tests/test_torch_mma_layout.py), followed register by register, and the
@@ -11,8 +12,12 @@ j·B·R·O·2N + ((b·R + r)·O + o)·2N, staged plane by plane through the
 Staged record's key row and plane strides (KEY_STRIDED) — its digits are
 batch-major ([n_d, B, G, R, N]: accumulators R·N bytes apart, rows N), and
 its epilogue stores each int32 bucket where it is, out[s][b][g][o][m], with
-the rows s < js written as zeros. Change an index in vp.cu or nc_mma.cuh ->
-change it here first. Needs nothing of the JAX package.
+the rows s < js written as zeros. K7 reads K6's batch-major digits
+([n_d, B, R, N]) and all 8 key planes of [8, R, O, 2N] — plane j of (row
+r, component o) at j·R·O·2N + r·O·2N + o·2N, KEY_STRIDED as K8's — and
+stores bucket s of lane b at out[s][b][o][m]. Change an index in vp.cu,
+step.cu or nc_mma.cuh -> change it here first. Needs nothing of the JAX
+package.
 """
 
 import numpy as np
@@ -115,3 +120,87 @@ def test_k8_needs_n_64_off_the_cpu():
         else:
             with pytest.raises(ValueError, match=r"\[64, 512\]"):
                 kx.extprod_partials_grouped(dig, ext, 4)
+
+
+def k7_emulated(dig, ext):
+    """dig int8 [n_d, B, R, N], ext int8 [8, R, O, 2N] -> int32 [8, B, O, N]
+    as the kernel writes it: grid (ceil(B/8), O); block (tile, o)'s Staged
+    record (K6's digit strides, the key planes through ext_r = O·2N and
+    ext_plane = R·O·2N); each D register's 8 buckets stored at
+    out_o + lane·O·N + m + s·B·O·N."""
+    n_d, b, r_cnt, n = dig.shape
+    nj, _, o_cnt, two_n = ext.shape
+    assert nj == 8
+    dig_f, ext_f = dig.reshape(-1), ext.reshape(-1)
+    out = np.full(8 * b * o_cnt * n, POISON, dtype=np.int64)
+    plane = b * o_cnt * n
+    for o in range(o_cnt):
+        for b0 in range(0, b, ROWS):
+            rows = min(ROWS, b - b0)
+            rec = (o * two_n, b0 * r_cnt * n, n, b * r_cnt * n, r_cnt * n)
+            tile, key = staged_block(
+                dig_f, ext_f, rec, r_cnt, rows, n_d, 8, n,
+                key_strides=(o_cnt * two_n, r_cnt * o_cnt * two_n))
+            buckets = contract_buckets(tile, key, 0)
+            out_o = (b0 * o_cnt + o) * n
+            for s in range(8):
+                block = block_output(buckets[s], n)
+                for lane in range(rows):
+                    at = out_o + lane * o_cnt * n + s * plane
+                    assert (out[at:at + n] == POISON).all()
+                    out[at:at + n] = block[lane]
+    assert (out != POISON).all()               # every word written once
+    return out.astype(np.int32).reshape(8, b, o_cnt, n)
+
+
+@pytest.mark.parametrize("b", [1, 13])
+@pytest.mark.parametrize("n_d", [1, 2, 3])
+def test_k7_staged_addressing_matches_plain(b, n_d):
+    """K7 through nc::contract_mma at JS = 0 with strided key planes and
+    batch-major digits, 8 lanes a block (B = 1 leaves a tile with one lane,
+    13 a ragged second tile), all 8 buckets stored by the fragment map:
+    equal to extprod_partials_plain bit for bit, and with the key planes
+    below js = 2 zeroed, recombined equal to K6's plain update."""
+    rng = np.random.default_rng(300 + 10 * b + n_d)
+    o_cnt, r_cnt, n, js = 2, 3, 64, 2
+    dig = rng.integers(-128, 128, (n_d, b, r_cnt, n), dtype=np.int8)
+    ext = rng.integers(-128, 128, (8, r_cnt, o_cnt, 2 * n), dtype=np.int8)
+    got = k7_emulated(dig, ext)
+    want = kx.extprod_partials_plain(torch.from_numpy(dig),
+                                     torch.from_numpy(ext)).numpy()
+    assert np.array_equal(got, want)
+    ext[:js] = 0
+    acc = torch.zeros((b, o_cnt, n), dtype=torch.int64)
+    step = kx.extprod_step_plain(
+        torch.from_numpy(dig),
+        torch.from_numpy(np.ascontiguousarray(ext[js:].transpose(2, 1, 0,
+                                                                  3))),
+        acc, js)
+    assert torch.equal(polynomial.recombine_partials(
+        torch.from_numpy(k7_emulated(dig, ext))), step)
+
+
+def test_k7_extreme_values_stay_in_int32():
+    """Every digit and key byte -128 at the blind rotation's R=15, N=512 and
+    n_d=2: the int32 buckets K7 stores (each at n_d·R·N·2^14, the bound the
+    wrapper admits) reproduced exactly."""
+    n_d, b, r_cnt, o_cnt, n = 2, 1, 15, 1, 512
+    dig = np.full((n_d, b, r_cnt, n), -128, dtype=np.int8)
+    ext = np.full((8, r_cnt, o_cnt, 2 * n), -128, dtype=np.int8)
+    want = kx.extprod_partials_plain(torch.from_numpy(dig),
+                                     torch.from_numpy(ext)).numpy()
+    assert np.abs(want.astype(np.int64)).max() == n_d * r_cnt * n * 2 ** 14
+    assert np.array_equal(k7_emulated(dig, ext), want)
+
+
+def test_k7_needs_n_64_off_the_cpu():
+    """K7's kernel is a tensor-core kernel: off the CPU it refuses N < 64
+    before any launch; on the CPU the plain version takes N = 32."""
+    for dev in ("meta", "cpu"):
+        dig = torch.zeros((2, 3, 2, 32), dtype=torch.int8, device=dev)
+        ext = torch.zeros((8, 2, 2, 64), dtype=torch.int8, device=dev)
+        if dev == "cpu":
+            assert kx.extprod_partials(dig, ext).shape == (8, 3, 2, 32)
+        else:
+            with pytest.raises(ValueError, match=r"\[64, 512\]"):
+                kx.extprod_partials(dig, ext)

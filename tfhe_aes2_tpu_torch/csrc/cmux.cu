@@ -40,7 +40,8 @@
 // ceil(B/8)·O blocks; each thread loads its 8 words in 16-byte pieces, reads
 // its rotated sources from the block's copy of the row in shared memory, and
 // stores each of its L x ND limb planes as one 8-byte word. The gadget
-// (levels, base_log) and ND are template values, dispatched below.
+// (levels, base_log) and ND are template values, dispatched by
+// NC_GLUE_DISPATCH, which K10a (longk.cu) shares.
 #include "nc_mma.cuh"
 
 namespace {
@@ -166,17 +167,6 @@ int launch_glue(const int64_t* acc, const int32_t* t, int8_t* dig_out, int B,
   return (int)cudaGetLastError();
 }
 
-template <int L, int BL>
-int glue_gadget(const int64_t* acc, const int32_t* t, int8_t* dig_out, int B,
-                int n, int O, int nd, cudaStream_t s) {
-  switch (nd) {
-    case 1: return launch_glue<1, L, BL>(acc, t, dig_out, B, n, O, s);
-    case 2: return launch_glue<2, L, BL>(acc, t, dig_out, B, n, O, s);
-    case 3: return launch_glue<3, L, BL>(acc, t, dig_out, B, n, O, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" int tfhe_extprod_step2g(const int8_t* dig, const int8_t* ext,
@@ -203,23 +193,17 @@ extern "C" int tfhe_extprod_step2(const int8_t* dig, const int8_t* ext,
 #undef STEP2_CALL
 }
 
-// The (levels, base_log) gadgets K2 is built for: the blind rotation's of
-// every parameter set in ops/params.py, and (2, 12) of the card's tests. The
+// K2 is built for the gadgets of NC_GLUE_GADGETS (nc_common.cuh) only; the
 // wrapper (extprod.GLUE_GADGETS) refuses any other before it gets here.
 extern "C" int tfhe_rot_diff_digits(const int64_t* acc, const int32_t* t,
                                     int8_t* dig_out, int B, int n, int O,
                                     int levels, int nd, int base_log,
                                     void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  switch (levels * 64 + base_log) {
-#define GLUE_CASE(L, BL)                                                    \
-  case L * 64 + BL:                                                         \
-    return glue_gadget<L, BL>(acc, t, dig_out, B, n, O, nd, s);
-    GLUE_CASE(2, 12) GLUE_CASE(2, 15) GLUE_CASE(3, 12) GLUE_CASE(4, 9)
-    GLUE_CASE(6, 7)
-#undef GLUE_CASE
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define GLUE_CALL(ND, L, BL)                                                \
+  launch_glue<ND, L, BL>(acc, t, dig_out, B, n, O, s)
+  NC_GLUE_DISPATCH(nd, levels, base_log, GLUE_CALL)
+#undef GLUE_CALL
 }
 
 extern "C" int tfhe_empty_kernel(void* stream) {

@@ -2,11 +2,14 @@
 // contraction, on Hopper.
 //
 // K10a (tfhe_rot_diff_digits_flat) replaces the Pallas kernel
-// tfhe_aes2_tpu/ops/pallas/extprod.py::rot_diff_digits_flat: K2's glue
-// (nc::glue, the digits of X^t·acc - acc split into int8 limbs) written in
-// the row-flattened layout [n_d][B][R·N], column (u·L + l)·N + m, so that a
+// tfhe_aes2_tpu/ops/pallas/extprod.py::rot_diff_digits_flat: K2's glue (the
+// digits of X^t·acc - acc split into int8 limbs) written in the
+// row-flattened layout [n_d][B][R·N], column (u·L + l)·N + m, so that a
 // lane's R digit polynomials lie as one contraction operand of length
-// K = R·N. It is bound by bytes, as K2.
+// K = R·N. It is bound by bytes, as K2, and is K2's kernel: nc::glue_wide
+// of nc_common.cuh (a thread for every 8 columns of an accumulator row, its
+// grid growing with O·B·N), built for the same gadgets through the same
+// dispatch (NC_GLUE_DISPATCH), with K10a's output strides in its GlueOut.
 //
 // K10b (tfhe_extprod_step_longk) replaces extprod.py::extprod_step_longk.
 // Per component o:
@@ -36,34 +39,22 @@
 
 namespace {
 
-// K10a. Grid (ceil(B/ROWS), O), block N/2.
+// K10a. Grid ceil(O·B·N / (8·GLUE_THREADS)), block GLUE_THREADS: limb i of
+// level l of row (u, b) at i·B·R·N + b·R·N + (u·L + l)·N + m.
 // acc     int64 [O][B][N]
 // t       int32 [B]
 // dig_out int8  [ND][B][R·N]   column (u·L + l)·N + m
-template <int ND>
-__global__ void
+template <int ND, int L, int BL>
+__global__ void __launch_bounds__(nc::GLUE_THREADS)
 rot_diff_digits_flat_kernel(const uint64_t* __restrict__ acc,
                             const int32_t* __restrict__ t,
                             int8_t* __restrict__ dig_out, int B, int n,
-                            int levels, int base_log) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t* tile = reinterpret_cast<uint64_t*>(smem);
-  const int u = blockIdx.y;
-  const int b0 = blockIdx.x * nc::ROWS;
-  const int rows = min(nc::ROWS, B - b0);
-  const size_t row_len = (size_t)gridDim.y * levels * n;        // R·N
-  for (int idx = threadIdx.x; idx < rows * n; idx += blockDim.x)
-    tile[idx] = acc[((size_t)u * B + b0) * n + idx];
-  __syncthreads();
-  for (int row = 0; row < rows; ++row) {
-    for (int c = 0; c < nc::COLS; ++c) {
-      const int m = threadIdx.x + c * blockDim.x;
-      nc::glue<ND>(tile + row * n, t[b0 + row], m, n, levels, base_log,
-                   dig_out + (size_t)(b0 + row) * row_len +
-                       (size_t)u * levels * n,
-                   (size_t)n, (size_t)B * row_len);
-    }
-  }
+                            int O) {
+  __shared__ __align__(16) uint64_t tile[nc::GLUE_TILE_WORDS];
+  const size_t rn = (size_t)O * L * n;
+  nc::glue_wide<ND, L, BL>(tile, acc, t, B, n, O * B, dig_out,
+                           nc::GlueOut{(size_t)L * n, rn, (size_t)n,
+                                       (size_t)B * rn});
 }
 
 // K10b. Grid (ceil(B/ROWS), O, splits), block N/2 (one warp per 64
@@ -105,19 +96,14 @@ extprod_step_longk_kernel(const int8_t* __restrict__ dig,
   });
 }
 
-template <int ND>
+template <int ND, int L, int BL>
 int launch_glue_flat(const int64_t* acc, const int32_t* t, int8_t* dig_out,
-                     int B, int n, int O, int levels, int base_log,
-                     cudaStream_t stream) {
-  const size_t smem = (size_t)nc::ROWS * n * 8;
-  auto kern = rot_diff_digits_flat_kernel<ND>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((B + nc::ROWS - 1) / nc::ROWS, O);
-  kern<<<grid, n / nc::COLS, smem, stream>>>(
-      reinterpret_cast<const uint64_t*>(acc), t, dig_out, B, n, levels,
-      base_log);
+                     int B, int n, int O, cudaStream_t stream) {
+  const int threads = O * B * (n / nc::GLUE_COLS);
+  rot_diff_digits_flat_kernel<ND, L, BL>
+      <<<(threads + nc::GLUE_THREADS - 1) / nc::GLUE_THREADS,
+         nc::GLUE_THREADS, 0, stream>>>(reinterpret_cast<const uint64_t*>(acc),
+                                        t, dig_out, B, n, O);
   return (int)cudaGetLastError();
 }
 
@@ -139,17 +125,17 @@ int launch_longk(const int8_t* dig, const int8_t* ext, int64_t* acc, int B,
 
 }  // namespace
 
+// K10a is built for the gadgets of NC_GLUE_GADGETS only, as K2; the
+// wrapper (extprod.GLUE_GADGETS) refuses any other before it gets here.
 extern "C" int tfhe_rot_diff_digits_flat(const int64_t* acc, const int32_t* t,
                                          int8_t* dig_out, int B, int n, int O,
                                          int levels, int nd, int base_log,
                                          void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  switch (nd) {
-    case 1: return launch_glue_flat<1>(acc, t, dig_out, B, n, O, levels, base_log, s);
-    case 2: return launch_glue_flat<2>(acc, t, dig_out, B, n, O, levels, base_log, s);
-    case 3: return launch_glue_flat<3>(acc, t, dig_out, B, n, O, levels, base_log, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define GLUE_FLAT_CALL(ND, L, BL)                                           \
+  launch_glue_flat<ND, L, BL>(acc, t, dig_out, B, n, O, s)
+  NC_GLUE_DISPATCH(nd, levels, base_log, GLUE_FLAT_CALL)
+#undef GLUE_FLAT_CALL
 }
 
 extern "C" int tfhe_extprod_step_longk(const int8_t* dig, const int8_t* ext,

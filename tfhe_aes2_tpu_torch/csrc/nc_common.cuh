@@ -1,9 +1,10 @@
 // Shared device code of the negacirculant limb-plane kernels (K1, K3, K5-K11)
-// and of the glue that K1, K2, K9 and K10a run. The __dp4a contraction below
-// (nc::contract) is K7's alone; the others contract on the tensor cores
-// (nc_mma.cuh) from the same S-tables. The glue comes in two forms: nc::glue,
-// one column at a time from a tile a block already holds (K1, K9, K10a), and
-// nc::glue_wide, K2's pass over the accumulator in device memory.
+// and of the glue that K1, K2, K9 and K10a run. Every contraction runs on
+// the tensor cores (nc_mma.cuh) from the S-tables defined here. The glue
+// comes in two forms: nc::glue, one column at a time from a tile a block
+// already holds (K1, K9), and nc::glue_wide, one wide pass over the
+// accumulator in device memory (K2, K10a: the same kernel body with each
+// one's output strides, built for the gadgets of NC_GLUE_GADGETS).
 //
 // The contraction these kernels evaluate, for one output component o:
 //
@@ -14,21 +15,20 @@
 // negacirculant BSK alone would be ~146 GB): each block keeps, per plane, a
 // 2N-word "S-table" in shared memory whose word x packs the four bytes
 // rext[x..x+3], rext[q] = ext[(-q) mod 2N]. The four negacirculant entries
-// NC[jj+q, m], q = 0..3, are then exactly the bytes of word (jj - m) mod 2N,
-// in the order __dp4a pairs them with the four digit bytes dig[jj..jj+3].
-// Neighbouring threads own neighbouring columns m, so their S-table words
-// are neighbours too: conflict-free shared loads.
+// NC[jj+q, m], q = 0..3, are then exactly the bytes of word (jj - m) mod 2N:
+// one 32-bit word is four consecutive k of one column, which is what an
+// int8 mma fragment register holds (nc_mma.cuh).
 //
-// One block owns ROWS output rows x all N columns of one component; thread
-// t owns columns t and t + N/2, so blockDim.x = N/2. Each (row, column)
-// keeps one int32 bucket per weight 2^(8s), s = i + j in [JS, 8); products
-// with s >= 8 vanish mod 2^64 and are skipped. Bucket bound: at most ND
-// (i, j) pairs land in one bucket, each summing R·N products of at most
-// 2^7 · 2^7, so |bucket| <= ND·R·N·2^14 — 2.5e8 for the blind rotation at
-// PARAMS_SQRD_LVL_64 (ND=2, R=15, N=512), below 2^31. The Python wrappers
-// refuse shapes past this bound. The buckets are folded into a wrapping
-// uint64 (sign-extended, shifted by 8s) once the contraction is complete;
-// any exact order of int32 partial sums gives the same bits mod 2^64.
+// One block owns ROWS output rows x all N columns of one component. Each
+// (row, column) keeps one int32 bucket per weight 2^(8s), s = i + j in
+// [JS, 8); products with s >= 8 vanish mod 2^64 and are skipped. Bucket
+// bound: at most ND (i, j) pairs land in one bucket, each summing R·N
+// products of at most 2^7 · 2^7, so |bucket| <= ND·R·N·2^14 — 2.5e8 for the
+// blind rotation at PARAMS_SQRD_LVL_64 (ND=2, R=15, N=512), below 2^31. The
+// Python wrappers refuse shapes past this bound. The buckets are folded into
+// a wrapping uint64 (sign-extended, shifted by 8s) once the contraction is
+// complete, or stored as they are (K7, K8); any exact order of int32
+// partial sums gives the same bits mod 2^64.
 #pragma once
 
 #include <cstdint>
@@ -37,134 +37,7 @@
 namespace nc {
 
 constexpr int ROWS = 8;   // output rows per block
-constexpr int COLS = 2;   // output columns per thread
-
-// Shared-memory bytes of the contraction stage: NJ S-tables of 2N words and
-// the ND x ROWS x N digit tile.
-__host__ __device__ inline size_t contraction_smem(int nd, int nj, int n) {
-  return (size_t)nj * 2 * n * 4 + (size_t)nd * ROWS * n;
-}
-
-// Fill the NJ S-tables from NJ int8 ext rows of 2N bytes; plane j's row
-// starts at ext + j*plane_stride.
-template <int NJ>
-__device__ __forceinline__ void build_s_tables(uint32_t* s_tab,
-                                               const int8_t* __restrict__ ext,
-                                               size_t plane_stride, int n) {
-  const int two_n = 2 * n;
-  const int mask = two_n - 1;
-  for (int idx = threadIdx.x; idx < NJ * two_n; idx += blockDim.x) {
-    const int j = idx / two_n;
-    const int x = idx - j * two_n;
-    const int8_t* e = ext + (size_t)j * plane_stride;
-    uint32_t word = 0;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int p = (two_n - x - q) & mask;
-      word |= (uint32_t)(uint8_t)e[p] << (8 * q);
-    }
-    s_tab[idx] = word;
-  }
-}
-
-// Load the ND x ROWS digit tile as 32-bit words: plane i of row `row` starts
-// at base + i*plane_stride + row*row_stride (all multiples of 4 bytes). Rows
-// at or past `rows_valid` load as zero.
-template <int ND>
-__device__ __forceinline__ void load_digit_tile(uint32_t* dig_w,
-                                                const int8_t* __restrict__ base,
-                                                size_t plane_stride,
-                                                size_t row_stride,
-                                                int rows_valid, int n) {
-  const int nw = n >> 2;
-  for (int idx = threadIdx.x; idx < ND * ROWS * nw; idx += blockDim.x) {
-    const int w = idx % nw;
-    const int row = (idx / nw) % ROWS;
-    const int i = idx / (nw * ROWS);
-    uint32_t v = 0;
-    if (row < rows_valid) {
-      v = *reinterpret_cast<const uint32_t*>(
-          base + i * plane_stride + row * row_stride + 4 * (size_t)w);
-    }
-    dig_w[idx] = v;
-  }
-}
-
-// Accumulate one row r of the contraction into the buckets.
-template <int ND, int JS>
-__device__ __forceinline__ void accumulate(int32_t (&part)[ROWS][COLS][8 - JS],
-                                           const uint32_t* s_tab,
-                                           const uint32_t* dig_w, int n) {
-  const int two_n = 2 * n;
-  const int mask = two_n - 1;
-  const int nw = n >> 2;
-#pragma unroll 1
-  for (int w = 0; w < nw; ++w) {
-    uint32_t a[ND][ROWS];
-#pragma unroll
-    for (int i = 0; i < ND; ++i)
-#pragma unroll
-      for (int row = 0; row < ROWS; ++row)
-        a[i][row] = dig_w[(i * ROWS + row) * nw + w];
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      const int m = threadIdx.x + c * blockDim.x;
-      const int x = (4 * w - m) & mask;
-#pragma unroll
-      for (int j = JS; j < 8; ++j) {
-        const int b = (int)s_tab[(j - JS) * two_n + x];
-#pragma unroll
-        for (int i = 0; i < ND; ++i) {
-          if (i + j < 8) {
-#pragma unroll
-            for (int row = 0; row < ROWS; ++row)
-              part[row][c][i + j - JS] =
-                  __dp4a((int)a[i][row], b, part[row][c][i + j - JS]);
-          }
-        }
-      }
-    }
-  }
-}
-
-// Where one block's operands lie, so that every kernel reads its own layout:
-// digit plane i of output row `row` at contraction row r starts at
-// dig + r*dig_r + i*dig_plane + row*dig_row; key plane j of contraction row
-// r starts at ext + r*ext_r + j*ext_plane (strides in bytes, the digit
-// strides multiples of 4).
-struct Operands {
-  const int8_t* dig;
-  size_t dig_r, dig_plane, dig_row;
-  const int8_t* ext;
-  size_t ext_r, ext_plane;
-};
-
-// The whole contraction of one block: zero the buckets, then for each of
-// the R rows stage the digit tile and the S-tables in shared memory (`smem`
-// holds contraction_smem bytes) and accumulate.
-template <int ND, int JS>
-__device__ __forceinline__ void contract(int32_t (&part)[ROWS][COLS][8 - JS],
-                                         unsigned char* smem,
-                                         const Operands& op, int R,
-                                         int rows_valid, int n) {
-  constexpr int NJ = 8 - JS;
-  uint32_t* s_tab = reinterpret_cast<uint32_t*>(smem);
-  uint32_t* dig_w = s_tab + NJ * 2 * n;
-#pragma unroll
-  for (int row = 0; row < ROWS; ++row)
-#pragma unroll
-    for (int c = 0; c < COLS; ++c)
-#pragma unroll
-      for (int s = 0; s < NJ; ++s) part[row][c][s] = 0;
-  for (int r = 0; r < R; ++r) {
-    __syncthreads();
-    load_digit_tile<ND>(dig_w, op.dig + r * op.dig_r, op.dig_plane,
-                        op.dig_row, rows_valid, n);
-    build_s_tables<NJ>(s_tab, op.ext + r * op.ext_r, op.ext_plane, n);
-    __syncthreads();
-    accumulate<ND, JS>(part, s_tab, dig_w, n);
-  }
-}
+constexpr int COLS = 2;   // columns a thread of K9's glue owns (merged.cu)
 
 // Σ_s sign_extend(bucket_s) << 8s, wrapping mod 2^64.
 template <int JS>
@@ -211,7 +84,8 @@ __device__ __forceinline__ void glue(const uint64_t* row, int t, int m, int n,
   }
 }
 
-// K2's glue as one wide pass, bound by bytes. nc::glue above serves a block
+// The glue as one wide pass, bound by bytes: K2's and K10a's kernel body,
+// each with its own output strides (GlueOut). nc::glue above serves a block
 // that already holds a tile of the accumulator (K1, K9); this one reads the
 // accumulator itself. A thread owns GLUE_COLS = 8 consecutive columns
 // m0..m0+7 of one accumulator row (o, b); a block of GLUE_THREADS threads
@@ -331,5 +205,29 @@ __device__ __forceinline__ void glue_wide(uint64_t* tile,
     case 26: return CALL(3, 2); case 27: return CALL(3, 3);                \
     case 28: return CALL(3, 4); case 29: return CALL(3, 5);                \
     case 30: return CALL(3, 6); case 31: return CALL(3, 7);                \
+    default: return (int)cudaErrorInvalidValue;                            \
+  }
+
+// The (levels, base_log) gadgets the glue kernels K2 (cmux.cu) and K10a
+// (longk.cu) are built for: the blind rotation's of every parameter set in
+// ops/params.py, and (2, 12) of the card's tests. The wrappers refuse any
+// other before the launch (extprod.GLUE_GADGETS, held equal to this list by
+// a CPU test). G(L, BL, CALL) is applied to each.
+#define NC_GLUE_GADGETS(G, CALL)                                           \
+  G(2, 12, CALL) G(2, 15, CALL) G(3, 12, CALL) G(4, 9, CALL) G(6, 7, CALL)
+
+#define NC_GLUE_CASE(L, BL, CALL)                                          \
+  case ((L) * 64 + (BL)) * 4 + 1: return CALL(1, L, BL);                   \
+  case ((L) * 64 + (BL)) * 4 + 2: return CALL(2, L, BL);                   \
+  case ((L) * 64 + (BL)) * 4 + 3: return CALL(3, L, BL);
+
+// Instantiate `launch<ND, L, BL>(args...)` for ND in 1..3 and every gadget
+// (L, BL) of NC_GLUE_GADGETS; returns cudaErrorInvalidValue for anything
+// else.
+#define NC_GLUE_DISPATCH(ND_, LEVELS_, BASE_LOG_, CALL)                    \
+  if ((ND_) < 1 || (ND_) > 3 || (BASE_LOG_) < 1 || (BASE_LOG_) > 63)       \
+    return (int)cudaErrorInvalidValue;                                     \
+  switch (((LEVELS_) * 64 + (BASE_LOG_)) * 4 + (ND_)) {                    \
+    NC_GLUE_GADGETS(NC_GLUE_CASE, CALL)                                    \
     default: return (int)cudaErrorInvalidValue;                            \
   }

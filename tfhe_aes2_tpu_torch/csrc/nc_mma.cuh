@@ -1,9 +1,10 @@
-// The negacirculant contraction of K1 and K5 (cmux.cu), K3 and K8 (vp.cu),
-// K6 (step.cu), K9 (merged.cu), K10b (longk.cu) and K11 (bucket.cu) on the
-// tensor cores: mma.sync.m16n8k32 (int8 x int8 -> int32) fed straight from
-// the shared-memory S-tables, with the key rows and digit tiles staged by
-// cp.async one contraction row ahead. K11 runs its own row loop over the
-// pieces below (one weight bucket a block).
+// The negacirculant contraction of every kernel with int8 products — K1 and
+// K5 (cmux.cu), K3 and K8 (vp.cu), K6 and K7 (step.cu), K9 (merged.cu), K10b
+// (longk.cu) and K11 (bucket.cu) — on the tensor cores: mma.sync.m16n8k32
+// (int8 x int8 -> int32) fed straight from the shared-memory S-tables, with
+// the key rows and digit tiles staged by cp.async one contraction row ahead.
+// K11 runs its own row loop over the pieces below (one weight bucket a
+// block).
 //
 // The function is nc_common.cuh's:
 //
@@ -42,8 +43,9 @@
 // words a k-step. That range needs N >= 64.
 //
 // Staging: per contraction row a block needs the 8-JS raw key rows (2N
-// bytes each; contiguous in every layout but K8's, whose planes lie B·R·O·2N
-// bytes apart and are copied plane by plane, KEY_STRIDED) and, in K1, its
+// bytes each; contiguous in every layout but K7's and K8's, whose planes lie
+// R·O·2N and B·R·O·2N bytes apart and are copied plane by plane,
+// KEY_STRIDED) and, in K1, its
 // ND x 8 digit rows. Both come by cp.async
 // (16 bytes a thread) into a second stage while the current row's mma run;
 // the S-table words of the next row are built from the shared-memory copy
@@ -231,14 +233,15 @@ __device__ __forceinline__ void mma_row(int32_t (&acc)[MT][8 - JS][4],
 // (R padded tiles of dig_tile_bytes each).
 struct Staged {
   const int8_t* ext;   // row r's NJ key rows are contiguous at ext + r*raw_bytes
-                       // or, with KEY_STRIDED (K8), plane j of row r is at
-                       // ext + r*ext_r + j*ext_plane
-  const int8_t* dig;   // K1, K3, K5, K6, K8, K10b: digit plane i of lane `row`
-                       // at row r is at dig + r*dig_r + i*dig_plane +
+                       // or, with KEY_STRIDED (K7, K8), plane j of row r is
+                       // at ext + r*ext_r + j*ext_plane
+  const int8_t* dig;   // K1, K3, K5-K8, K10b: digit plane i of lane `row` at
+                       // row r is at dig + r*dig_r + i*dig_plane +
                        // row*dig_lane
   unsigned dig_r, dig_plane;
   unsigned dig_lane;   // N where a lane's rows lie apart (K1, K3, K5), R·N in
-                       // K6's and K8's batch-major and K10b's flat layouts
+                       // K6's, K7's and K8's batch-major and K10b's flat
+                       // layouts
   const unsigned char* dig_res;   // K9: the resident digit tiles
   unsigned ext_r = 0, ext_plane = 0;   // read with KEY_STRIDED only
 };

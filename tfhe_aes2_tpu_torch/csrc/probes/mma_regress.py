@@ -1,8 +1,9 @@
 """Time the CMux-step kernels of a checkout at their main-path shapes, on the
 card, so that two versions of the shared tensor-core contraction
 (csrc/nc_mma.cuh) can be compared in one call: K1 and K5 (cmux.cu), K3 and
-K8 (vp.cu), K6 (step.cu), K9 (merged.cu), K10b (longk.cu) and K11
-(bucket.cu), which share it, and the glue K2 (cmux.cu) beside them:
+K8 (vp.cu), K6 and K7 (step.cu), K9 (merged.cu), K10b (longk.cu) and K11
+(bucket.cu), which share it, and the glue K2 (cmux.cu) and K10a (longk.cu)
+beside them:
 
     python3 tfhe_aes2_tpu_torch/csrc/probes/mma_regress.py [ROOT]
 
@@ -97,17 +98,35 @@ def main() -> int:
             times[f"{name} B={b}"] = device_ms(fn)
         print(f"B={b}: " + ", ".join(f"{name} {times[f'{name} B={b}']:.4f} "
                                      "ms" for name in step), flush=True)
-    # K2, the glue alone, at the batches the paths run it at
+    # K2 and K10a, the glue alone in two layouts, at the batches the paths
+    # run them at
     for b in (9, 128, 160, 256, 288):
         acc = torch.randint(-2 ** 63, 2 ** 63 - 1, (o, b, n), generator=gen,
                             dtype=torch.int64).cuda()
         t = torch.randint(0, 2 * n, (b,), generator=gen,
                           dtype=torch.int32).cuda()
-        if not torch.equal(kx.rot_diff_digits(acc, t, bl, lv, nd),
-                           kx.rot_diff_digits_plain(acc, t, bl, lv, nd)):
-            raise AssertionError(f"K2 differs from plain at B={b}")
-        key = f"K2 B={b}"
-        times[key] = device_ms(lambda: kx.rot_diff_digits(acc, t, bl, lv, nd))
+        if not (torch.equal(kx.rot_diff_digits(acc, t, bl, lv, nd),
+                            kx.rot_diff_digits_plain(acc, t, bl, lv, nd))
+                and torch.equal(kx.rot_diff_digits_flat(acc, t, bl, lv, nd),
+                                kx.rot_diff_digits_flat_plain(acc, t, bl, lv,
+                                                              nd))):
+            raise AssertionError(f"K2 or K10a differs from plain at B={b}")
+        for name, fn in (
+                ("K2", lambda: kx.rot_diff_digits(acc, t, bl, lv, nd)),
+                ("K10a", lambda: kx.rot_diff_digits_flat(acc, t, bl, lv,
+                                                         nd))):
+            key = f"{name} B={b}"
+            times[key] = device_ms(fn)
+            print(f"{key}: {times[key]:.4f} ms", flush=True)
+    # K7, all 8 key planes of the batch-major product
+    for b in (9, 160, 288):
+        dig_bm = r8(nd, b, o * lv, n)
+        ext8 = r8(8, o * lv, o, 2 * n)
+        if not torch.equal(kx.extprod_partials(dig_bm, ext8),
+                           kx.extprod_partials_plain(dig_bm, ext8)):
+            raise AssertionError(f"K7 differs from plain at B={b}")
+        key = f"K7 B={b}"
+        times[key] = device_ms(lambda: kx.extprod_partials(dig_bm, ext8))
         print(f"{key}: {times[key]:.4f} ms", flush=True)
     nd_vp, js_vp, r_vp = 2, 4, o                    # CBS 1 level, k+1 = 5
     for lanes, g in ((4, 8), (16, 8), (16, 24), (128, 1), (32, 24)):

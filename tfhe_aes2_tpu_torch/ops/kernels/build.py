@@ -21,8 +21,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("cmux.cu", "step.cu", "partials.cu", "vp.cu", "matmul.cu",
-           "merged.cu", "longk.cu", "bucket.cu")
+SOURCES = ("cmux.cu", "step.cu", "vp.cu", "matmul.cu", "merged.cu",
+           "longk.cu", "bucket.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -19,7 +19,7 @@ K6 `extprod_step` — the same update on batch-major layouts (glue done
    source csrc/step.cu.
 K7 `extprod_partials` — the shared-key product over all 8 key planes as raw
    int32 sums per weight 2^(8s). Replaces extprod.py::extprod_partials;
-   source csrc/partials.cu.
+   source csrc/step.cu (K6's kernel, built to store its buckets).
 K8 `extprod_partials_grouped` — the per-lane product of the vertical packing
    as raw int32 sums. Replaces extprod.py::extprod_partials_grouped; source
    csrc/vp.cu (K3's kernel, built to store its buckets).
@@ -28,7 +28,7 @@ K9 `cmux_step_merged` — one whole CMux step in one launch (glue of all
    accumulator. Replaces extprod.py::cmux_step_merged; source csrc/merged.cu.
 K10a `rot_diff_digits_flat` — K2's glue in the row-flattened layout
    [n_d, B, R·N]. Replaces extprod.py::rot_diff_digits_flat; source
-   csrc/longk.cu.
+   csrc/longk.cu (K2's nc::glue_wide with K10a's output strides).
 K10b `extprod_step_longk` — the CMux update on K10a's flat digits, one
    length-R·N contraction per lane, in place; its R rows split across
    blocks where that fills the card's waves better (`_longk_splits`). Replaces
@@ -43,15 +43,14 @@ negacirculant from shared-memory S-tables that index the 2N-byte ext row,
 so it (146 GB for the expanded BSK) never exists; the TPU's packed ladders,
 weight buckets in VMEM and sequential (n_bt, o, r) grid have no counterpart
 — a block owns ROWS lanes × all N columns of one component and loops over r
-itself. K1, K3, K5, K6, K8, K9, K10b and K11 put their products on the
-tensor cores: `mma.sync.m16n8k32` int8 whose operand fragments are S-table
+itself. Every kernel with products (K1, K3, K5-K9, K10b, K11) puts them on
+the tensor cores: `mma.sync.m16n8k32` int8 whose operand fragments are S-table
 and digit-tile words, the operands staged by `cp.async` one contraction row
 ahead (csrc/nc_mma.cuh); what is left above their bound is the instruction rate
 of `mma.sync` at N = 8 and, in K9, the glue. (K3's and K8's 8 instruction
 columns are 8 of a lane's G accumulators; K11's blocks each keep one weight
-bucket.) K7 alone still runs `__dp4a` on the CUDA cores, about 1/16 of
-that rate (csrc/nc_common.cuh). K2 is bound by bytes: one wide pass, a
-thread for every 8 columns of an accumulator row.
+bucket.) K2 and K10a are bound by bytes: one wide pass, a thread for every 8
+columns of an accumulator row (csrc/nc_common.cuh).
 
 Layouts (int64 torus values; the TPU's (lo, hi) u32 pairs do not exist):
   dig    int8  [k+1, L, n_d, B, N]   digit limb planes, row r = u·L + l
@@ -127,10 +126,10 @@ def device_refusal(n: int, device) -> str | None:
 
 def _check_geometry(name: str, n: int, n_d: int, r: int, j_start: int,
                     n_min: int = 8):
-    """n_min: 8 for the `__dp4a` kernel (K7) and the glue (K2, whose
-    threads each own 8 consecutive columns of a row; K10a); 64 for the
-    tensor-core kernels (K1, K3, K5, K6, K8, K9, K10b, K11), whose warps own
-    64 columns each and index their S-tables unmasked."""
+    """n_min: 8 for the glue (K2, K10a), whose threads each own 8
+    consecutive columns of a row; 64 for the tensor-core kernels (K1, K3,
+    K5-K9, K10b, K11), whose warps own 64 columns each and index their
+    S-tables unmasked."""
     if n & (n - 1) or not n_min <= n <= N_MAX:
         raise ValueError(f"{name}: N={n} must be a power of two in "
                          f"[{n_min}, {N_MAX}]")
@@ -184,9 +183,25 @@ def rot_diff_digits_plain(acc: torch.Tensor, t: torch.Tensor, base_log: int,
     return planes.permute(1, 4, 0, 2, 3).contiguous()
 
 
-# The (levels, base_log) gadgets K2's kernel is built for (csrc/cmux.cu):
-# the blind rotation's of every set in ops/params.py, and (2, 12).
+# The (levels, base_log) gadgets the glue kernels K2 and K10a are built for
+# (NC_GLUE_GADGETS, csrc/nc_common.cuh): the blind rotation's of every set
+# in ops/params.py, and (2, 12).
 GLUE_GADGETS = frozenset({(2, 12), (2, 15), (3, 12), (4, 9), (6, 7)})
+
+
+def _check_glue(name: str, acc, t, n: int, n_d: int, levels: int,
+                base_log: int) -> None:
+    """The glue kernels' (K2, K10a) checks before a launch: geometry, a
+    gadget they are built for, CUDA operands, acc 16-byte aligned (its
+    words are read 16 bytes at a time)."""
+    _check_geometry(name, n, n_d, 1, 0)
+    if (levels, base_log) not in GLUE_GADGETS:
+        raise ValueError(f"{name}: the kernel is not built for "
+                         f"levels={levels}, base_log={base_log} (built: "
+                         f"{sorted(GLUE_GADGETS)})")
+    _require_cuda(name, [(acc, torch.int64), (t, torch.int32)])
+    if acc.data_ptr() % 16:
+        raise ValueError(f"{name}: acc must be 16-byte aligned")
 
 
 def rot_diff_digits(acc: torch.Tensor, t: torch.Tensor, base_log: int,
@@ -199,14 +214,7 @@ def rot_diff_digits(acc: torch.Tensor, t: torch.Tensor, base_log: int,
         raise ValueError(f"rot_diff_digits: t shape {tuple(t.shape)} != ({b},)")
     if _on_cpu(acc, t):
         return rot_diff_digits_plain(acc, t, base_log, levels, n_d)
-    _check_geometry("rot_diff_digits", n, n_d, 1, 0)
-    if (levels, base_log) not in GLUE_GADGETS:
-        raise ValueError(f"rot_diff_digits: the kernel is not built for "
-                         f"levels={levels}, base_log={base_log} (built: "
-                         f"{sorted(GLUE_GADGETS)})")
-    _require_cuda("rot_diff_digits", [(acc, torch.int64), (t, torch.int32)])
-    if acc.data_ptr() % 16:
-        raise ValueError("rot_diff_digits: acc must be 16-byte aligned")
+    _check_glue("rot_diff_digits", acc, t, n, n_d, levels, base_log)
     out = torch.empty((o, levels, n_d, b, n), dtype=torch.int8,
                       device=acc.device)
     f = _fn("cmux", "tfhe_rot_diff_digits", [_P, _P, _P] + [_I] * 6 + [_P])
@@ -429,12 +437,15 @@ def extprod_partials(digit_planes: torch.Tensor,
         return extprod_partials_plain(digit_planes, ext_planes)
     # all 8 key planes make up to 8·n_d pairs (i, j), but a bucket s still
     # takes at most n_d of them (one per i), which is _check_geometry's bound
-    _check_geometry("extprod_partials", n, n_d, r, 0)
+    _check_geometry("extprod_partials", n, n_d, r, 0, n_min=64)
+    _check_smem("extprod_partials",
+                _mma_stage_bytes(n, 8) + 2 * _mma_dig_tile_bytes(n, n_d))
     _require_cuda("extprod_partials", [(digit_planes, torch.int8),
                                        (ext_planes, torch.int8)])
+    _check_staged("extprod_partials", digit_planes, ext_planes)
     out = torch.empty((8, b, o, n), dtype=torch.int32,
                       device=digit_planes.device)
-    f = _fn("partials", "tfhe_extprod_partials", [_P] * 3 + [_I] * 5 + [_P])
+    f = _fn("step", "tfhe_extprod_partials", [_P] * 3 + [_I] * 5 + [_P])
     rc = f(digit_planes.data_ptr(), ext_planes.data_ptr(), out.data_ptr(), b,
            n, o, r, n_d, build.stream_ptr(out.device))
     build.check(rc, "extprod_partials")
@@ -554,16 +565,16 @@ def rot_diff_digits_flat(acc: torch.Tensor, t: torch.Tensor, base_log: int,
                          levels: int, n_d: int) -> torch.Tensor:
     """K10a. acc int64 [O, B, N]; t int32 [B] -> int8 [n_d, B, R·N], the
     digit limb planes of X^t·acc - acc with a lane's R = O·L digit
-    polynomials side by side (column r·N + m, r = u·L + l)."""
+    polynomials side by side (column r·N + m, r = u·L + l). On a CUDA
+    device the gadget (levels, base_log) must be one of GLUE_GADGETS, as
+    for K2."""
     o, b, n = acc.shape
     if t.shape != (b,):
         raise ValueError(
             f"rot_diff_digits_flat: t shape {tuple(t.shape)} != ({b},)")
     if _on_cpu(acc, t):
         return rot_diff_digits_flat_plain(acc, t, base_log, levels, n_d)
-    _check_geometry("rot_diff_digits_flat", n, n_d, 1, 0)
-    _require_cuda("rot_diff_digits_flat",
-                  [(acc, torch.int64), (t, torch.int32)])
+    _check_glue("rot_diff_digits_flat", acc, t, n, n_d, levels, base_log)
     out = torch.empty((n_d, b, o * levels * n), dtype=torch.int8,
                       device=acc.device)
     f = _fn("longk", "tfhe_rot_diff_digits_flat",
