@@ -57,7 +57,21 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      counter increment, ten rounds on the two derived blocks. Both decrypt
      to the AES authority's keystream. Then the counter derivation alone
      under the default, "longk" and "bucket" lowerings, bit-equal. Launch
-     counters reset and read around each request and each derivation.
+     counters reset and read around each request and each derivation;
+  7. the N = 1024 sets (lvl256, lvl1) at full width under the default
+     lowering, decrypt-checked against the AES authority: lvl256 through
+     cli.main with 1 block (the fused latency path) and with 2 (staged), then
+     under ShortintWoppbs1BitSboxPbsAesEncrypt (the depth-11 pipeline, its
+     key expanded by the eager schedule), the lvl256 latency path under the
+     default lowering and under ("grid", "partials"), bit-equal, then lvl1's
+     SBOX+GalMul circuit bootstrap of one block's 16 bytes (its pfKS the K4
+     launch with four digit limbs; lvl1's noise budget stops the AES
+     pipeline itself); launch counters reset and read around each; then K3
+     and K8 at the (lanes, G)
+     the lvl256 latency path launched. Phase 2 also holds K1, K5 and K2 at
+     N = 1024 (both N = 1024 gadgets, B in {1, 9, 13, 288}, js in {0, 2},
+     every byte -128 at R = 12) and K4 at lvl1's pfKS and lvl256's keyswitch
+     and pfKS against their plain versions, timed.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or tfhe_aes2_tpu.
 
@@ -85,8 +99,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tfhe_aes2_tpu_torch import serve
-from tfhe_aes2_tpu_torch.aes_128 import aes_lib, ctr_fhe, fhe, plain, scenario
+from tfhe_aes2_tpu_torch import cli, serve
+from tfhe_aes2_tpu_torch.aes_128 import SBOX, aes_lib, ctr_fhe, fhe, gf_256_mul
+from tfhe_aes2_tpu_torch.aes_128 import plain, sbox_gal_mul_pbs, scenario
 from tfhe_aes2_tpu_torch.models import shortint_woppbs_1bit as model
 from tfhe_aes2_tpu_torch.ops import blind_rotate, compression, decomposition
 from tfhe_aes2_tpu_torch.ops import keys as keys_mod
@@ -274,7 +289,7 @@ def phase_device() -> str:
               if "spill" in ln and " 0 bytes spill" not in ln]
     log(f"ptxas: {len(spills)} kernel instantiations report spills"
         + "".join(f"\n  {name}" for name in spills))
-    # the main path's instantiations: K1, K5 (K1 without glue), K6, K9 and
+    # the main paths' instantiations: K1, K5 (K1 without glue), K6, K9 and
     # K10b (ND=2, JS=2), K7 (ND=2, JS=0, PARTIALS), K2 and K10a (ND=2, L=3,
     # base_log 12), K11 (ND=2), K3 and K8 (ND=2, JS=4), K4's keyswitch
     # (ND=1, JS=5) and pfKS (ND=3, JS=1)
@@ -287,7 +302,14 @@ def phase_device() -> str:
                 "step3_kernelILi2E",
                 "merged_kernelILi2ELi2E", "longk_kernelILi2ELi2E",
                 "grouped_fused_kernelILi2ELi4E",
-                "limb_matmul_kernelILi1ELi5E", "limb_matmul_kernelILi3ELi1E")):
+                "limb_matmul_kernelILi1ELi5E", "limb_matmul_kernelILi3ELi1E",
+                # N = 1024 (the names above cover K1, K5, K3 and K8, whose
+                # column split is chosen at run time): K3/K8 at lvl256's
+                # js = 3, K2 at the two N = 1024 gadgets, K4 with four limbs
+                "grouped_fused_kernelILi2ELi3E",
+                "rot_diff_digits_kernelILi2ELi2ELi15E",
+                "rot_diff_digits_kernelILi2ELi4ELi9E",
+                "limb_matmul_kernelILi4ELi1E")):
             log("ptxas: " + " | ".join(x.strip() for x in report[i:i + 3]))
     return smi
 
@@ -712,23 +734,26 @@ def phase_kernels() -> tuple[dict, float]:
         f"spin takes {floor:.4f} ms")
 
     check_limb_matmul(rows, gen)
+    log("  N=1024 (lvl1, lvl4, lvl256):")
+    check_wide_steps(rows, gen)
+    check_wide_limb_matmul(rows, gen)
     sync()
     return rows, floor
 
 
-def k4_shapes():
-    """The keyswitch's and the pfKS's (name, n_d, K, N, js) at
-    PARAMS_SQRD_LVL_64."""
-    kn = P.glwe_dimension * P.polynomial_size
-    k1 = P.glwe_dimension + 1
+def k4_shapes(p=P):
+    """The keyswitch's and the pfKS's (name, n_d, K, N, js) at the set p
+    (PARAMS_SQRD_LVL_64 by default)."""
+    kn = p.glwe_dimension * p.polynomial_size
+    k1 = p.glwe_dimension + 1
     return [
         ("keyswitch", torus.limbs_for_bound(
-            decomposition.digit_bound(P.ks_base_log)),
-         kn * P.ks_level, P.lwe_dimension + 1, truncation.ksk_j_start(P)),
+            decomposition.digit_bound(p.ks_base_log)),
+         kn * p.ks_level, p.lwe_dimension + 1, truncation.ksk_j_start(p)),
         ("pfKS", torus.limbs_for_bound(
-            decomposition.digit_bound(P.pfks_base_log)),
-         (kn + 1) * P.pfks_level, k1 * k1 * P.polynomial_size,
-         truncation.pfpksk_j_start(P)),
+            decomposition.digit_bound(p.pfks_base_log)),
+         (kn + 1) * p.pfks_level, k1 * k1 * p.polynomial_size,
+         truncation.pfpksk_j_start(p)),
     ]
 
 
@@ -842,8 +867,9 @@ def launch_shapes():
         return k3(dig, ext, n_d, j_start)
 
     def k4_seen(d_planes, m_planes, j_start=0):
-        what = "pfKS" if m_planes.shape[2] > P.lwe_dimension + 1 else "KS"
-        key = f"K4 {what} B={d_planes.shape[1]}"
+        # the keyswitch's N is n + 1 (< 1000), the pfKS's (k+1)²·N
+        what = "pfKS" if m_planes.shape[2] > 1000 else "KS"
+        key = f"K4 {what} n_d={d_planes.shape[0]} B={d_planes.shape[1]}"
         tally[key] = tally.get(key, 0) + 1
         return k4(d_planes, m_planes, j_start)
     k3_seen.launches, k4_seen.launches = k3.launches, k4.launches
@@ -1206,6 +1232,333 @@ def phase_server(client, raw, ctx, request, out_default):
     return [served_a, served_b] + list(counts.values())
 
 
+# ------------------------------------------- N = 1024: lvl1, lvl4, lvl256
+
+P1 = params_mod.PARAMS_SQRD_LVL_1
+P256 = params_mod.PARAMS_SQRD_LVL_256
+WIDE = "N=1024"       # the name prefix of the rows measured at N = 1024
+
+
+def wide_step_operands(gen, b, lv, js, nd=2, fill=None):
+    """A step's operands at N = 1024, k = 2: acc, t (the rotations 0, N-1,
+    N and 2N-1 among the lanes), digits and a BSK entry."""
+    n, k1 = 1024, 3
+    acc = torch.randint(-2**62, 2**62, (k1, b, n), generator=gen,
+                        dtype=torch.int64).to(DEV)
+    t = torch.randint(0, 2 * n, (b,), generator=gen, dtype=torch.int32)
+    t[:min(b, 4)] = torch.tensor([0, n - 1, n, 2 * n - 1])[:min(b, 4)]
+    lo, hi = (-128, 128) if fill is None else (fill, fill + 1)
+    return (acc, t.to(DEV), rand_i8(gen, (k1, lv, nd, b, n), lo, hi),
+            rand_i8(gen, (k1, k1 * lv, 8 - js, 2 * n), lo, hi))
+
+
+def check_wide_steps(rows, gen) -> None:
+    """K1 (its two column halves a cluster, the glue reading across them)
+    and K5 at N = 1024 for both N = 1024 gadgets — lvl1/lvl4's (2, 15) at
+    R = 6 and lvl256's (4, 9) at R = 12 — over B in {1, 9, 13, 288} and js
+    in {0, 2}, each against its plain version, K2 then K5 equal to K1; again
+    with every digit and key byte -128 at R = 12; K2 at N = 1024 for every
+    gadget it is built for at B in {9, 288}; then K1, K5 and K2 timed at the
+    main path's B = 288 and 160 for both sets."""
+    done = 0
+    for lv, bl in ((2, 15), (4, 9)):
+        for b, js, fill in ([(b, js, None) for b in (1, 9, 13, 288)
+                             for js in (0, 2)]
+                            + ([(13, 2, -128), (288, 2, -128)] if lv == 4
+                               else [])):
+            acc, t, dig, ext = wide_step_operands(gen, b, lv, js, fill=fill)
+            got = kx.extprod_step2g(dig, ext, acc.clone(), t, bl, lv, js)
+            ref = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, bl, lv,
+                                          js)
+            a5 = kx.extprod_step2(dig, ext, acc.clone(), js)
+            ref5 = kx.extprod_step2_plain(dig, ext, acc.clone(), js)
+            sync()
+            if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+                    and torch.equal(a5, ref5) and torch.equal(a5, got[0])
+                    and torch.equal(kx.rot_diff_digits(a5, t, bl, lv, 2),
+                                    got[1])):
+                raise AssertionError(f"K1, K5 or K2 then K5 differs at "
+                                     f"N=1024, gadget ({lv}, {bl}), B={b}, "
+                                     f"js={js}, fill={fill}")
+            done += 1
+    log(f"  N=1024: K1 and K5 bit-equal to plain and K2 then K5 == K1 in "
+        f"{done} cases: gadgets (2, 15) at R=6 and (4, 9) at R=12 x B in "
+        "{1, 9, 13, 288} x js in {0, 2}, and every digit and key byte -128 "
+        "at R=12, B in {13, 288}")
+    cases = 0
+    for b in (9, 288):
+        acc, t, _, _ = wide_step_operands(gen, b, 1, 7)
+        for lv, bl in sorted(kx.GLUE_GADGETS):
+            nd = torus.limbs_for_bound(decomposition.digit_bound(bl))
+            if not torch.equal(kx.rot_diff_digits(acc, t, bl, lv, nd),
+                               kx.rot_diff_digits_plain(acc, t, bl, lv, nd)):
+                raise AssertionError(f"K2 differs at N=1024, B={b}, gadget "
+                                     f"({lv}, {bl})")
+            cases += 1
+    log(f"  N=1024: K2 bit-equal to plain for every built gadget "
+        f"{sorted(kx.GLUE_GADGETS)} at B in {{9, 288}} ({cases} cases)")
+    for name, p in (("lvl256", P256), ("lvl1", P1)):
+        lv, bl = p.pbs_level, p.pbs_base_log
+        nd = torus.limbs_for_bound(decomposition.digit_bound(bl))
+        js = truncation.bsk_j_start(p)
+        for b in (160, 288):
+            acc, t, dig, ext = wide_step_operands(gen, b, lv, js, nd)
+            k1, _, n = acc.shape
+            r = k1 * lv
+            macs = b * k1 * r * n * n * pairs(nd, js)
+            scratch = acc.clone()
+            got = kx.extprod_step2g(dig, ext, acc.clone(), t, bl, lv, js)
+            ref = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, bl, lv,
+                                          js)
+            sync()
+            err = max(max_abs_err(got[0], ref[0]), max_abs_err(got[1], ref[1]))
+            record(f"extprod_step2g {WIDE} {name} B={b}",
+                   rows["extprod_step2g"], macs,
+                   dig.numel() * 2 + ext.numel() + acc.numel() * 16 + b * 4,
+                   time_ms(lambda: kx.extprod_step2g(dig, ext, scratch, t, bl,
+                                                     lv, js)),
+                   time_ms(lambda: kx.extprod_step2g_plain(
+                       dig, ext, scratch, t, bl, lv, js), reps=2), err)
+            err = max_abs_err(kx.extprod_step2(dig, ext, acc.clone(), js),
+                              kx.extprod_step2_plain(dig, ext, acc.clone(),
+                                                     js))
+            record(f"extprod_step2 {WIDE} {name} B={b}",
+                   rows["extprod_step2"], macs,
+                   dig.numel() + ext.numel() + acc.numel() * 16,
+                   time_ms(lambda: kx.extprod_step2(dig, ext, scratch, js)),
+                   time_ms(lambda: kx.extprod_step2_plain(dig, ext, scratch,
+                                                          js), reps=2), err)
+            out = kx.rot_diff_digits(acc, t, bl, lv, nd)
+            err = max_abs_err(out, kx.rot_diff_digits_plain(acc, t, bl, lv,
+                                                            nd))
+            record(f"rot_diff_digits {WIDE} {name} B={b}",
+                   rows["rot_diff_digits"], 0,
+                   acc.numel() * 8 + out.numel() + b * 4,
+                   time_ms(lambda: kx.rot_diff_digits(acc, t, bl, lv, nd)),
+                   time_ms(lambda: kx.rot_diff_digits_plain(acc, t, bl, lv,
+                                                            nd), reps=2),
+                   err)
+
+
+def check_wide_limb_matmul(rows, gen) -> None:
+    """K4 at lvl1's pfKS (four digit limbs) for B in {9, 288} and at
+    lvl256's keyswitch and pfKS for B = 288, each against its plain
+    version, timed."""
+    for name, p, bs in (("lvl1", P1, (9, 288)), ("lvl256", P256, (288,))):
+        for what, nd_m, kk, nn, js_m in k4_shapes(p):
+            if name == "lvl1" and what != "pfKS":
+                continue
+            m = kmm.kmajor_key_planes(rand_i8(gen, (8 - js_m, kk, nn)))
+            for b in bs:
+                d = rand_i8(gen, (nd_m, b, kk))
+                got = kmm.fused_limb_matmul(d, m, js_m)
+                ref = kmm.fused_limb_matmul_plain(d, m, js_m)
+                sync()
+                record(f"fused_limb_matmul {WIDE} {name} {what} n_d={nd_m} "
+                       f"B={b} (split {kmm._splits(b, kk, nn)})",
+                       rows["fused_limb_matmul"],
+                       b * kk * nn * pairs(nd_m, js_m),
+                       d.numel() + m.numel() + got.numel() * 8,
+                       time_ms(lambda: kmm.fused_limb_matmul(d, m, js_m)),
+                       time_ms(lambda: kmm.fused_limb_matmul_plain(d, m,
+                                                                   js_m),
+                               reps=2), max_abs_err(got, ref))
+            del m
+
+
+def check_wide_vp(rows, gen, shapes) -> None:
+    """K3 and K8 at N = 1024 at each (lanes, G) the lvl256 latency path
+    launched K3 at (its launch_shapes tally), against their plain versions,
+    K8 recombined equal to K3, timed; and with every digit and key byte
+    -128 at the widest of them."""
+    k1, n = P256.glwe_dimension + 1, P256.polynomial_size
+    r = k1 * P256.cbs_level
+    nd = torus.limbs_for_bound(decomposition.digit_bound(P256.cbs_base_log))
+    js = truncation.vp_ggsw_j_start(P256)
+    found = sorted({(int(k.split("lanes=")[1].split()[0]),
+                     int(k.split("G=")[1])) for k in shapes
+                    if k.startswith("K3 ")})
+    if not found:
+        raise AssertionError("the lvl256 latency path launched no K3")
+    for lanes, g in found:
+        dig = rand_i8(gen, (lanes, r, nd * g, n))
+        ext = rand_i8(gen, (lanes, k1, r, 8 - js, 2 * n))
+        fused = kx.extprod_grouped_fused(dig, ext, nd, js)
+        ref = kx.extprod_grouped_fused_plain(dig, ext, nd, js)
+        dig_8 = dig.reshape(lanes, r, nd, g, n).permute(2, 0, 3, 1,
+                                                       4).contiguous()
+        ext_8 = ext.permute(3, 0, 2, 1, 4).contiguous()
+        parts = kx.extprod_partials_grouped(dig_8, ext_8, js)
+        ref8 = kx.extprod_partials_grouped_plain(dig_8, ext_8, js)
+        sync()
+        if not torch.equal(polynomial.recombine_partials(parts, js),
+                           fused.permute(0, 2, 1, 3)):
+            raise AssertionError(f"K8 recombined differs from K3 at N=1024, "
+                                 f"{lanes} lanes, G={g}")
+        macs = lanes * g * k1 * r * n * n * pairs(nd, js)
+        record(f"extprod_grouped_fused {WIDE} lvl256 lanes={lanes} G={g}",
+               rows["extprod_grouped_fused"], macs,
+               dig.numel() + ext.numel() + fused.numel() * 8,
+               time_ms(lambda: kx.extprod_grouped_fused(dig, ext, nd, js)),
+               time_ms(lambda: kx.extprod_grouped_fused_plain(dig, ext, nd,
+                                                              js), reps=2),
+               max_abs_err(fused, ref))
+        record(f"extprod_partials_grouped {WIDE} lvl256 lanes={lanes} G={g}",
+               rows["extprod_partials_grouped"], macs,
+               dig.numel() + ext.numel() + parts.numel() * 4,
+               time_ms(lambda: kx.extprod_partials_grouped(dig_8, ext_8, js)),
+               time_ms(lambda: kx.extprod_partials_grouped_plain(
+                   dig_8, ext_8, js), reps=2), max_abs_err(parts, ref8))
+    lanes, g = max(found, key=lambda x: x[0] * x[1])
+    dig = torch.full((lanes, r, nd * g, n), -128, dtype=torch.int8,
+                     device=DEV)
+    ext = torch.full((lanes, k1, r, 8 - js, 2 * n), -128, dtype=torch.int8,
+                     device=DEV)
+    fused = kx.extprod_grouped_fused(dig, ext, nd, js)
+    dig_8 = torch.full((nd, lanes, g, r, n), -128, dtype=torch.int8,
+                       device=DEV)
+    ext_8 = torch.full((8 - js, lanes, r, k1, 2 * n), -128, dtype=torch.int8,
+                       device=DEV)
+    parts = kx.extprod_partials_grouped(dig_8, ext_8, js)
+    if not (torch.equal(fused, kx.extprod_grouped_fused_plain(dig, ext, nd,
+                                                              js))
+            and torch.equal(parts, kx.extprod_partials_grouped_plain(
+                dig_8, ext_8, js))
+            and torch.equal(polynomial.recombine_partials(parts, js),
+                            fused.permute(0, 2, 1, 3))):
+        raise AssertionError("K3 or K8 differs at N=1024 at the value -128")
+    log(f"  N=1024: K3 and K8 bit-equal to plain at the lvl256 path's "
+        f"(lanes, G) {found} and with every byte -128 at {lanes} x {g}, K8 "
+        "recombined equal to K3")
+
+
+def run_cli(argv, what, wanted) -> tuple[dict, dict, float]:
+    """cli.main on the card with the launch counters reset just before and
+    read just after, K3's and K4's launches tallied by shape; returns (the
+    counts, the tally, wall seconds). cli.main checks the keystream against
+    the AES authority itself and raises if it differs."""
+    log(f"-- {what}: python -m tfhe_aes2_tpu_torch.cli {' '.join(argv)}")
+    reset_counters()
+    t0 = time.time()
+    with launch_shapes() as shapes:
+        if cli.main(argv, device=DEV) != 0:
+            raise AssertionError(f"{what}: cli.main did not return 0")
+    sync()
+    secs = time.time() - t0
+    counts = read_counters()
+    log(f"{what}: K3 and K4 launches by shape: " + ", ".join(
+        f"{key}: {count}" for key, count in sorted(shapes.items())))
+    require_launches(what, counts, wanted)
+    return counts, shapes, secs
+
+
+def phase_wide(rows, gen):
+    """The N = 1024 sets at full width under the default lowering, each
+    decrypted and checked against the AES authority: lvl256 through the
+    CLI with one block (the fused latency path) and with two (the staged
+    key schedule and rounds), lvl256 under the reference's pairing
+    ShortintWoppbs1BitSboxPbsAesEncrypt (the depth-11 pipeline, its key
+    expanded by the eager schedule), and lvl1's SBOX+GalMul circuit
+    bootstrap of one block's 16 bytes, the only K4 launch with four digit
+    limbs (lvl1's budget, max_noise_level_squared 1, stops the AES
+    pipeline at its first XOR, as in the JAX package). Between them the
+    lvl256 latency path on one encrypted request under the default lowering
+    and under (grid, partials), bit-equal. Then K3 and K8 at the (lanes, G)
+    the lvl256 latency path launched. Returns the launch counts of the
+    CLI's two runs, the pairing's, the (grid, partials) run's and lvl1's."""
+    log("== phase 7: the N = 1024 sets at full width, default lowering "
+        "(gridg, fused)")
+    main_path = ("extprod_step2g", "rot_diff_digits", "extprod_grouped_fused",
+                 "fused_limb_matmul")
+    argv = ["--key", KEY.hex(), "--iv", IV.hex(), "--params", "lvl256"]
+    lat, lat_shapes, lat_s = run_cli(argv + ["--number-of-outputs", "1"],
+                                     "lvl256, 1 block (latency path)",
+                                     main_path)
+    batch, _, batch_s = run_cli(argv + ["--number-of-outputs", "2"],
+                                "lvl256, 2 blocks (staged)", main_path)
+    log(f"lvl256 through cli.main: 1 block {lat_s:.2f} s and 2 blocks "
+        f"{batch_s:.2f} s of wall time, keygen included; both verified "
+        "against the AES authority")
+
+    t0 = time.time()
+    client, raw = keys_mod.generate_keys(P256, seed=0, device=DEV)
+    ctx = model.context_from_keys(P256, raw, lowering=Lowering())
+    sync()
+    log(f"lvl256 keygen (seeded) + key preparation: {time.time() - t0:.1f} s")
+    reset_counters()
+    out, t = scenario.run_client_server_aes_scenario(
+        client, ctx, KEY, IV, 1,
+        strategy=fhe.ShortintWoppbs1BitSboxPbsAesEncrypt)
+    pairing = read_counters()
+    assert out == aes_lib.encrypt_blocks(KEY, scenario.ctr_blocks(IV, 1))
+    require_launches("lvl256 under ShortintWoppbs1BitSboxPbsAesEncrypt",
+                     pairing, main_path)
+    log(f"lvl256 under ShortintWoppbs1BitSboxPbsAesEncrypt, 1 block: key "
+        f"expansion (eager) {t['key_expansion_s']:.2f} s, 10 rounds "
+        f"{t['blocks_s']:.2f} s ({pairing['rot_diff_digits']} bootstraps in "
+        "all, one a round); verified against the AES authority")
+    # the latency path on one encrypted request under the default lowering
+    # and under (grid, partials): K2 + K5 a step, K8 + torch recombination
+    # a vertical-packing stage, at N = 1024
+    request = scenario.encrypt_request(client, ctx, STRATEGY, KEY,
+                                       scenario.ctr_blocks(IV, 1))
+    outs, grid_counts = {}, None
+    for low in (Lowering(), Lowering("grid", "partials")):
+        reset_counters()
+        out, t = scenario.serve_request(
+            dataclasses.replace(ctx, lowering=low), STRATEGY, *request,
+            rounds=10)
+        outs[low] = out.array
+        if low.br == "grid":
+            grid_counts = read_counters()
+        got = scenario.read_response(client, ctx, STRATEGY, out)
+        assert got == aes_lib.encrypt_blocks(KEY, scenario.ctr_blocks(IV, 1))
+        log(f"lvl256 latency path under ({low.br}, {low.vp}): "
+            f"{t['fused_latency_s']:.2f} s")
+    if not torch.equal(*outs.values()):
+        raise AssertionError("lvl256: (grid, partials) ciphertext differs "
+                             "from the default lowering's")
+    require_launches("lvl256 latency path under (grid, partials)",
+                     grid_counts, ("rot_diff_digits", "extprod_step2",
+                                   "extprod_partials_grouped",
+                                   "fused_limb_matmul"))
+    log("lvl256: the two lowerings' ciphertexts bit-equal, both verified")
+    del ctx, raw
+
+    t0 = time.time()
+    client1, raw1 = keys_mod.generate_keys(P1, seed=0, device=DEV)
+    ctx1 = model.context_from_keys(P1, raw1, lowering=Lowering())
+    sync()
+    log(f"lvl1 keygen (seeded) + key preparation: {time.time() - t0:.1f} s")
+    block = aes_lib.encrypt_blocks(KEY, scenario.ctr_blocks(IV, 1))[0]
+    bits = np.unpackbits(np.frombuffer(block, np.uint8)[:, None], axis=-1)
+    state = model.fresh_bitct(torus.to_tensor(client1.encrypt_bits(bits),
+                                              DEV), ctx1, lane_ndim=2)
+    reset_counters()
+    t0 = time.time()
+    with launch_shapes() as shapes1:
+        muls = sbox_gal_mul_pbs.sub_bytes_with_gal_mul(ctx1, state)
+    sync()
+    cbs_s = time.time() - t0
+    lvl1 = read_counters()
+    for mul, got in zip((1, 2, 3), muls):
+        dec = np.packbits(client1.decrypt_bits(torus.to_numpy(got.array))
+                          .astype(np.uint8), axis=-1)[:, 0]
+        want = [gf_256_mul(int(SBOX[x]), mul) for x in block]
+        if list(dec) != want:
+            raise AssertionError(f"lvl1 SBOX x {mul} decrypts wrong")
+    log("lvl1: K3 and K4 launches by shape: " + ", ".join(
+        f"{key}: {count}" for key, count in sorted(shapes1.items())))
+    require_launches("lvl1 SBOX+GalMul circuit bootstrap", lvl1, main_path)
+    if not any(k.startswith("K4 pfKS n_d=4") for k in shapes1):
+        raise AssertionError("lvl1's pfKS did not launch K4 at n_d=4")
+    log(f"lvl1 SBOX+GalMul circuit bootstrap of 16 bytes (128 lanes): "
+        f"{cbs_s:.2f} s; S(x)·1, ·2, ·3 decrypt right for every byte")
+    del ctx1, raw1
+    check_wide_vp(rows, gen, lat_shapes)
+    return [lat, batch, pairing, grid_counts, lvl1]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1226,17 +1579,21 @@ def main() -> int:
     grid, glue = phase_second_path(client, ctx, request, out1, latency,
                                    k1_ms_160)
     third = phase_server(client, raw, ctx, request, out1)
+    del client, raw, ctx
+    wide = phase_wide(rows, torch.Generator().manual_seed(4321))
     # each kernel's launches on the main paths: the default lowering's two
     # runs (phase 4), the (grid, partials) run and the glue_out rotation
-    # (phase 5), the two served requests and the three derivations (phase 6)
+    # (phase 5), the two served requests and the three derivations (phase
+    # 6), the N = 1024 runs (phase 7)
     launches = {name: sum(c[name] for c in [batch, latency, grid, glue]
-                          + third) for name in KERNELS}
+                          + third + wide) for name in KERNELS}
     missing = [name for name, count in launches.items() if count <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")
     kernels = []
     for name, spec in KERNELS.items():
-        last = rows[name][-1]
+        # the main path's row: the last at PARAMS_SQRD_LVL_64's shapes
+        last = [x for x in rows[name] if WIDE not in x["name"]][-1]
         kernels.append(dict(
             name=name, route="cuda", source=spec["source"],
             replaces=spec["replaces"], launches=launches[name],

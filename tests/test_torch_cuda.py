@@ -8,7 +8,7 @@ machine without it run: python -m pytest tests/test_torch_cuda.py -m cuda
 import pytest
 import torch
 
-from tfhe_aes2_tpu_torch.ops import polynomial
+from tfhe_aes2_tpu_torch.ops import decomposition, polynomial, torus
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
 from tfhe_aes2_tpu_torch.ops.kernels import matmul as kmm
 from tests.torch_port_common import require_cuda
@@ -444,4 +444,178 @@ def test_cuda_partials_extreme_values():
         ext8 = torch.full((8, 15, 5, 1024), -128, dtype=torch.int8,
                           device="cuda")
         _assert_k7_matches_plain_and_k6(dig_bm, ext8)
+    torch.cuda.synchronize()
+
+
+# ------------------------------------------------ N = 1024 (lvl1/4/256)
+
+# The N = 1024 blind rotations' gadgets (levels, base_log) and R = (k+1)·L
+# at k = 2: lvl1 and lvl4 (2, 15), lvl256 (4, 9); both give two limbs a digit
+WIDE_GADGETS = ((2, 15), (4, 9))
+
+
+def _wide_step_operands(gen, b, levels, js, fill=None):
+    k1, n, n_d = 3, 1024, 2
+    acc = torch.randint(-2 ** 62, 2 ** 62, (k1, b, n), generator=gen,
+                        dtype=torch.int64).cuda()
+    t = torch.randint(0, 2 * n, (b,), generator=gen, dtype=torch.int32)
+    t[: min(b, 4)] = torch.tensor([0, n - 1, n, 2 * n - 1])[: min(b, 4)]
+    lo, hi = (-128, 128) if fill is None else (fill, fill + 1)
+    dig = torch.randint(lo, hi, (k1, levels, n_d, b, n), generator=gen,
+                        dtype=torch.int8).cuda()
+    ext = torch.randint(lo, hi, (k1, k1 * levels, 8 - js, 2 * n),
+                        generator=gen, dtype=torch.int8).cuda()
+    return dig, ext, acc, t.cuda()
+
+
+def _assert_wide_step(dig, ext, acc, t, base_log, levels, js):
+    """K1 (its glue across a cluster of the two column halves) and K5 at
+    N = 1024 bit-equal to their plain versions; K2 then K5 equal to K1."""
+    n_d = dig.shape[2]
+    a1, d1 = kx.extprod_step2g(dig, ext, acc.clone(), t, base_log, levels, js)
+    a2, d2 = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, base_log,
+                                     levels, js)
+    assert torch.equal(a1, a2) and torch.equal(d1, d2)
+    a5 = kx.extprod_step2(dig, ext, acc.clone(), js)
+    assert torch.equal(a5, kx.extprod_step2_plain(dig, ext, acc.clone(), js))
+    assert torch.equal(a5, a1)
+    assert torch.equal(kx.rot_diff_digits(a5, t, base_log, levels, n_d), d1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 9, 13, 288])
+def test_cuda_wide_steps_match_plain(b):
+    """On the card at N = 1024, k = 2: K1 and K5 (a block owns 8 lanes x 512
+    columns; K1's two halves one cluster, its glue reading the rotated
+    sources from either half) bit-equal to their plain versions, for both
+    N = 1024 gadgets and js in {0, 2}, with a ragged last lane tile (rows
+    past the batch edge in both halves) and the rotations 0, N-1, N and
+    2N-1 among the lanes."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(7000 + b)
+    for levels, base_log in WIDE_GADGETS:
+        for js in (0, 2):
+            _assert_wide_step(*_wide_step_operands(gen, b, levels, js),
+                              base_log, levels, js)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [13, 288])
+def test_cuda_wide_steps_extreme_values(b):
+    """On the card at N = 1024, R = 12 (lvl256's gadget (4, 9)), js = 2:
+    every digit and key byte -128, each int32 bucket at n_d·R·N·2^14."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(7100 + b)
+    _assert_wide_step(*_wide_step_operands(gen, b, 4, 2, fill=-128), 9, 4, 2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 9, 13, 288])
+def test_cuda_wide_glue_matches_plain(b):
+    """On the card: K2 at N = 1024 (a block of 128 threads holds one row)
+    for every gadget it is built for, each with its own limb count, bit-equal
+    to its plain version, the rotations 0, N-1, N and 2N-1 among the lanes."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(7200 + b)
+    k1, n = 3, 1024
+    acc = torch.randint(-2 ** 63, 2 ** 63 - 1, (k1, b, n), generator=gen,
+                        dtype=torch.int64).cuda()
+    t = torch.randint(0, 2 * n, (b,), generator=gen, dtype=torch.int32)
+    t[: min(b, 4)] = torch.tensor([0, n - 1, n, 2 * n - 1])[: min(b, 4)]
+    t = t.cuda()
+    for levels, base_log in sorted(kx.GLUE_GADGETS):
+        n_d = torus.limbs_for_bound(decomposition.digit_bound(base_log))
+        assert torch.equal(
+            kx.rot_diff_digits(acc, t, base_log, levels, n_d),
+            kx.rot_diff_digits_plain(acc, t, base_log, levels, n_d))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("js", [3, 4])
+@pytest.mark.parametrize("lanes,g", [(4, 8), (3, 11), (5, 1), (2, 24)])
+def test_cuda_wide_grouped_match_plain(js, lanes, g):
+    """On the card at N = 1024, k = 2, one cbs level (R = 3), two limbs: K3
+    and K8 (the columns split between two blocks, no cluster) bit-equal to
+    their plain versions at the vertical packing's js of lvl256 (3) and of
+    lvl1/lvl4 (4), ragged G-tiles included; K8 recombined equal to K3."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(7300 + 100 * js + 10 * lanes + g)
+    n, k1, r, n_d = 1024, 3, 3, 2
+    dig = torch.randint(-128, 128, (lanes, r, n_d * g, n), generator=gen,
+                        dtype=torch.int8).cuda()
+    ext = torch.randint(-128, 128, (lanes, k1, r, 8 - js, 2 * n),
+                        generator=gen, dtype=torch.int8).cuda()
+    fused = kx.extprod_grouped_fused(dig, ext, n_d, js)
+    assert torch.equal(fused,
+                       kx.extprod_grouped_fused_plain(dig, ext, n_d, js))
+    dig_8 = dig.reshape(lanes, r, n_d, g, n).permute(2, 0, 3, 1,
+                                                    4).contiguous()
+    ext_8 = ext.permute(3, 0, 2, 1, 4).contiguous()
+    parts = kx.extprod_partials_grouped(dig_8, ext_8, js)
+    assert torch.equal(parts,
+                       kx.extprod_partials_grouped_plain(dig_8, ext_8, js))
+    assert torch.equal(polynomial.recombine_partials(parts, js),
+                       fused.permute(0, 2, 1, 3))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_wide_grouped_extreme_values():
+    """On the card at N = 1024, js = 3: every digit and key byte -128 in K3
+    and in K8, K8 recombined equal to K3."""
+    require_cuda()
+    n, k1, r, n_d, js, lanes, g = 1024, 3, 3, 2, 3, 4, 24
+    dig = torch.full((lanes, r, n_d * g, n), -128, dtype=torch.int8,
+                     device="cuda")
+    ext = torch.full((lanes, k1, r, 8 - js, 2 * n), -128, dtype=torch.int8,
+                     device="cuda")
+    fused = kx.extprod_grouped_fused(dig, ext, n_d, js)
+    assert torch.equal(fused,
+                       kx.extprod_grouped_fused_plain(dig, ext, n_d, js))
+    dig_8 = torch.full((n_d, lanes, g, r, n), -128, dtype=torch.int8,
+                       device="cuda")
+    ext_8 = torch.full((8 - js, lanes, r, k1, 2 * n), -128, dtype=torch.int8,
+                       device="cuda")
+    parts = kx.extprod_partials_grouped(dig_8, ext_8, js)
+    assert torch.equal(parts,
+                       kx.extprod_partials_grouped_plain(dig_8, ext_8, js))
+    assert torch.equal(polynomial.recombine_partials(parts, js),
+                       fused.permute(0, 2, 1, 3))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 9, 13, 288])
+def test_cuda_limb_matmul_four_limbs_match_plain(b):
+    """On the card: K4 with four digit limbs (lvl1's pfKS, gadget (1, 24))
+    bit-equal to its plain version, at lvl1's pfKS shape (K = 2049,
+    N = 9216, js = 1), at js = 0 (eight key planes) and at ragged shapes."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(7400 + b)
+    for k, n, js in ((2049, 9216, 1), (130, 40, 0), (4098, 678, 1),
+                     (77, 33, 5)):
+        d = torch.randint(-128, 128, (4, b, k), generator=gen,
+                          dtype=torch.int8).cuda()
+        m = torch.randint(-128, 128, (8 - js, k, n), generator=gen,
+                          dtype=torch.int8).cuda()
+        assert torch.equal(kmm.fused_limb_matmul(d, m, js),
+                           kmm.fused_limb_matmul_plain(d, m, js))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_limb_matmul_four_limbs_extreme_values():
+    """On the card: K4 with four limbs and every byte -128 at K = 16383, the
+    longest the plain version computes exactly in float64, one block a tile
+    (132 tiles of 96 x 64: no split)."""
+    require_cuda()
+    kk = 16383
+    d = torch.full((4, 96, kk), -128, dtype=torch.int8, device="cuda")
+    m = torch.full((7, kk, 64 * 132), -128, dtype=torch.int8, device="cuda")
+    assert kmm._splits(96, kk, 64 * 132) == 1
+    assert torch.equal(kmm.fused_limb_matmul(d, m, 1),
+                       kmm.fused_limb_matmul_plain(d, m, 1))
     torch.cuda.synchronize()

@@ -1,22 +1,44 @@
-"""The CLI and the server refuse, on a CUDA device, the parameter sets whose
-polynomial size the CUDA kernels do not take (N = 1024: lvl1, lvl4,
-lvl256), before any keygen or request; on the CPU they take them. CPU
-only: the refusal comes before anything touches a card, and the accepting
-runs are stopped where keygen or key loading would begin."""
+"""On a CUDA device the CLI and the server take the parameter sets with
+N = 1024 (lvl1, lvl4, lvl256) under the lowerings whose kernels take
+N = 1024 — (gridg | grid) x (fused | partials), the default among them —
+and refuse them under merged, longk, bucket and glue_out, whose kernels
+take N <= 512, before any keygen or request; on the CPU they take them
+under every lowering. CPU only: the refusal comes before anything touches a
+card, and the accepting runs are stopped where keygen or key loading would
+begin."""
 
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 from tfhe_aes2_tpu_torch import cli, serve
 from tfhe_aes2_tpu_torch.models import shortint_woppbs_1bit as model
+from tfhe_aes2_tpu_torch.ops import blind_rotate as br_mod
+from tfhe_aes2_tpu_torch.ops import circuit_bootstrap as cbs_mod
 from tfhe_aes2_tpu_torch.ops import params as params_mod
 from tfhe_aes2_tpu_torch.ops import serialization
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
+from tfhe_aes2_tpu_torch.ops.lowering import BR_CHOICES, VP_CHOICES, Lowering
 
 ARGV = ["--key", "00" * 16, "--iv", "00" * 8, "--number-of-outputs", "1"]
 WIDE = ["lvl1", "lvl4", "lvl256"]
+NARROW_BR = ["merged", "longk", "bucket", "glue_out"]   # kernels take N <= 512
+WIDE_BR = ["gridg", "grid"]
+
+
+def _set_lowering(monkeypatch, br, vp="fused"):
+    """The environment that selects Lowering(br, vp) (Lowering.from_env)."""
+    for name in ("TFHE_BR_KERNEL", "TFHE_BR_GLUE", "TFHE_VP_FUSED"):
+        monkeypatch.delenv(name, raising=False)
+    if br == "glue_out":
+        monkeypatch.setenv("TFHE_BR_GLUE", "xla")
+    else:
+        monkeypatch.setenv("TFHE_BR_KERNEL", br)
+    if vp == "partials":
+        monkeypatch.setenv("TFHE_VP_FUSED", "0")
+    assert Lowering.from_env() == Lowering(br, vp)
 
 
 class Reached(Exception):
@@ -28,20 +50,77 @@ def _stop(*args, **kwargs):
 
 
 def test_the_wide_sets_are_the_ones_above_the_kernels_limit():
+    """The sets with N = 1024 are the wide ones; of the lowerings, exactly
+    (gridg | grid) x (fused | partials) take them on the card, each kernel
+    by its own N_MAX."""
     above = {name for name, p in cli.PARAM_CHOICES.items()
-             if p.polynomial_size > kx.N_MAX}
+             if p.polynomial_size > 512}
     assert above == set(WIDE)
-    assert kx.N_MAX == 512
+    assert {p.polynomial_size for name, p in cli.PARAM_CHOICES.items()
+            if name in WIDE} == {1024}
+    takes = {(br, vp) for br in BR_CHOICES for vp in VP_CHOICES
+             if kx.device_refusal(1024, "cuda", Lowering(br, vp)) is None}
+    assert takes == {(br, vp) for br in WIDE_BR for vp in VP_CHOICES}
+    # every kernel a lowering runs has its range; K7 runs in none
+    assert set(kx.N_MAX) - {k for br in BR_CHOICES for vp in VP_CHOICES
+                            for k in Lowering(br, vp).kernels()} == {
+        "extprod_partials"}
+    assert all(kx.device_refusal(512, "cuda", Lowering(br, vp)) is None
+               for br in BR_CHOICES for vp in VP_CHOICES)
+    assert kx.device_refusal(2048, "cuda", Lowering()) is not None
 
 
+@pytest.mark.parametrize("vp", VP_CHOICES)
+@pytest.mark.parametrize("br", BR_CHOICES)
+def test_each_lowering_launches_the_kernels_it_names(br, vp, monkeypatch):
+    """Lowering.kernels(), which device_refusal reads, names exactly the
+    kernel wrappers that the blind rotation and the vertical packing call
+    under that lowering: each wrapper of ops/kernels/extprod.py is spied on
+    while both run on small random operands on the CPU."""
+    called = set()
+    for name in kx.N_MAX:
+        def spy(*args, _name=name, _fn=getattr(kx, name), **kwargs):
+            called.add(_name)
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(kx, name, spy)
+    p = params_mod.PARAMS_TEST
+    k1, n = p.glwe_dimension + 1, p.polynomial_size
+    gen = torch.Generator().manual_seed(5)
+
+    def i64(*shape):
+        return torch.randint(-2 ** 62, 2 ** 62, shape, generator=gen,
+                             dtype=torch.int64)
+    low = Lowering(br, vp)
+    bsk = torch.randint(-128, 128, (2, k1, k1 * p.pbs_level, 6, 2 * n),
+                        generator=gen, dtype=torch.int8)
+    br_mod.blind_rotate_glwe(i64(3, 3), bsk, i64(k1, n), p, low)
+    ggsw = i64(2, 2, p.cbs_level, k1, k1, n)
+    cbs_mod.vertical_packing(ggsw, i64(1, 1, n), p, 4, low)
+    assert called == set(low.kernels())
+
+
+@pytest.mark.parametrize("br", NARROW_BR)
 @pytest.mark.parametrize("name", WIDE)
-def test_cli_refuses_n1024_on_cuda_before_keygen(name, monkeypatch, capsys):
+def test_cli_refuses_n1024_on_cuda_before_keygen(name, br, monkeypatch,
+                                                 capsys):
+    _set_lowering(monkeypatch, br)
     monkeypatch.setattr(model, "generate_keys", _stop)
     with pytest.raises(SystemExit) as exc:
         cli.main(ARGV + ["--params", name], device="cuda")
     assert exc.value.code == 2                   # argparse's error exit
     err = capsys.readouterr().err
-    assert "ROADMAP.md Queue 1" in err and "1024" in err and name in err
+    assert ("ROADMAP.md Queue 1" in err and "1024" in err and name in err
+            and f"br={br}" in err)
+
+
+@pytest.mark.parametrize("vp", VP_CHOICES)
+@pytest.mark.parametrize("br", WIDE_BR)
+@pytest.mark.parametrize("name", WIDE)
+def test_cli_on_cuda_takes_n1024_to_keygen(name, br, vp, monkeypatch):
+    _set_lowering(monkeypatch, br, vp)
+    monkeypatch.setattr(model, "generate_keys", _stop)
+    with pytest.raises(Reached):
+        cli.main(ARGV + ["--params", name], device="cuda")
 
 
 @pytest.mark.parametrize("name", WIDE + ["lvl64", "test"])
@@ -66,12 +145,30 @@ def _bundle(path, params):
     return path
 
 
-def test_server_refuses_an_n1024_bundle_on_cuda(tmp_path, monkeypatch):
+@pytest.mark.parametrize("br", NARROW_BR)
+def test_server_refuses_an_n1024_bundle_on_cuda(br, tmp_path, monkeypatch):
+    monkeypatch.setattr(serialization, "server_keys_on", _stop)
     monkeypatch.setattr(model, "context_from_keys", _stop)
     keys = _bundle(str(tmp_path / "keys.npz"), params_mod.PARAMS_SQRD_LVL_1)
     with pytest.raises(ValueError, match="ROADMAP.md Queue 1"):
         serve.serve(keys, str(tmp_path / "s.sock"), max_requests=1,
-                    device="cuda")
+                    device="cuda", lowering=Lowering(br))
+
+
+@pytest.mark.parametrize("lowering", [None, Lowering("grid", "partials")])
+def test_server_on_cuda_loads_an_n1024_bundle(lowering, tmp_path,
+                                              monkeypatch):
+    """Under the default lowering (from the environment, here unset) and
+    under (grid, partials) the server goes on to move the keys onto the
+    card."""
+    for name in ("TFHE_BR_KERNEL", "TFHE_BR_GLUE", "TFHE_VP_FUSED"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setattr(serialization, "server_keys_on", _stop)
+    keys = _bundle(str(tmp_path / "keys.npz"),
+                   params_mod.PARAMS_SQRD_LVL_256)
+    with pytest.raises(Reached):
+        serve.serve(keys, str(tmp_path / "s.sock"), max_requests=1,
+                    device="cuda", lowering=lowering)
 
 
 def test_server_on_cpu_loads_an_n1024_bundle(tmp_path, monkeypatch):

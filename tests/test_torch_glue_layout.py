@@ -83,6 +83,8 @@ def glue_emulated(acc, t, base_log, levels, n_d, out_layout=k2_out):
         for k in range(COLS):
             src = (m0 + k - tb) & (2 * n - 1)
             x = src & (n - 1)
+            # within the block's padded copy of its rows (one at N = 1024)
+            assert (lr * (n + n // 8) + x + (x >> 3) < TILE_WORDS).all()
             v = tile[srow + x + (x >> 3)]
             rot = np.where(src < n, v, U64(0) - v)
             y = (((rot - own[:, k] + U64(1 << (shift - 1))) >> U64(shift))
@@ -124,11 +126,11 @@ def lane_shifts(case, n, b, rng):
     return np.full(b, value, dtype=np.int32)
 
 
-@pytest.mark.parametrize("n", [64, 256, 512])
+@pytest.mark.parametrize("n", [64, 256, 512, 1024])
 @pytest.mark.parametrize("t_case", T_CASES)
 def test_k2_thread_map_matches_plain(n, t_case):
     """At B=13 (O·B = 65 rows: the last block holds fewer rows than it has
-    room for at every N), with the rotation 0, 1, N-1, N, N+1, 2N-1 and a
+    room for at every N below 1024, where a block holds one row), with the rotation 0, 1, N-1, N, N+1, 2N-1 and a
     random one a lane: the emulated kernel equals rot_diff_digits_plain
     bit for bit for every gadget it is built for."""
     rng = np.random.default_rng(1000 * n + T_CASES.index(t_case))

@@ -205,6 +205,8 @@ def _plain(d, m, js):
     (13, 4098, 678, 1, 5),     # the keyswitch's N at the pfKS's K
     (70, 4098, 40, 1, 1),      # two row tiles of warps, one past the edge
     (1, 130, 678, 3, 5),
+    (13, 2049, 40, 4, 1),      # lvl1's pfKS: four limbs, K = (kN+1)·L
+    (70, 130, 40, 4, 0),       # four limbs against all eight key planes
 ])
 def test_k4_fragment_map_matches_plain(b, k, n, n_d, js):
     """The emulated K4 equals fused_limb_matmul_plain bit for bit on random
@@ -314,3 +316,41 @@ def test_k3_staged_addressing_matches_plain(g, n_d, js):
                 block = contract_emulated(tile, key, js)
                 got[lane, o, g0:g0 + rows_valid] = block[:rows_valid]
     assert np.array_equal(got, want)
+
+
+def _slice_products(nd, js, by_rows):
+    """The (mt, nt, i, j, bucket) of every mma one warp issues in one k-step
+    of mma_slice (by_rows False: all A fragments live, j then i then mt, nt)
+    or of mma_slice_by_rows (ND = 4: mt outermost, one row tile's A
+    fragments live), as csrc/matmul.cu orders them."""
+    issued = []
+    if not by_rows:
+        for j in range(js, 8):
+            for i in range(nd):
+                if i + j < 8:
+                    issued += [(mt, nt, i, j, i + j - js)
+                               for mt in range(2) for nt in range(2)]
+    else:
+        for mt in range(2):
+            for j in range(js, 8):
+                for i in range(nd):
+                    if i + j < 8:
+                        issued += [(mt, nt, i, j, i + j - js)
+                                   for nt in range(2)]
+    return issued
+
+
+@pytest.mark.parametrize("js", range(8))
+def test_k4_four_limb_bucket_map(js):
+    """ND = 4's k-step (mma_slice_by_rows) issues the same products into the
+    same weight buckets as mma_slice's order would: each (row tile, column
+    tile, limb i, key plane j) with i + j < 8 once, into bucket i + j - js;
+    the products of weight 2^64 and above are never issued. A fragments
+    live at once: 4 registers a limb, 16 instead of 32."""
+    by_rows = _slice_products(4, js, True)
+    assert sorted(by_rows) == sorted(_slice_products(4, js, False))
+    assert len(set(by_rows)) == len(by_rows)
+    want = {(mt, nt, i, j) for mt in range(2) for nt in range(2)
+            for i in range(4) for j in range(js, 8) if i + j < 8}
+    assert {x[:4] for x in by_rows} == want
+    assert all(0 <= x[4] < 8 - js for x in by_rows)

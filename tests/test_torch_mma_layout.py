@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from tfhe_aes2_tpu_torch.ops import polynomial
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
 
 ROWS = 8          # batch lanes of a block = N of the instruction
@@ -109,11 +110,12 @@ def mma_m16n8k32(a_regs, b_regs):
         lead + (32, 4)).astype(np.int64)
 
 
-def window_word(tab, n, warp, kt, p):
+def window_word(tab, n, warp, kt, p, c0=0):
     """Window entry p of k-step kt, per (warp, lane): table word
-    N + 32·kt + 16 - 8p + 4·tig - gid - 64·warp, never wrapped."""
+    N + 32·kt + 16 - 8p + 4·tig - gid - 64·warp - c0, never wrapped (c0:
+    the block's first column, 0 or 512 at N = 1024)."""
     idx = (n + 32 * kt + 16 - 8 * p
-           + (4 * TIG - GID)[None, :] - 64 * warp[:, None])
+           + (4 * TIG - GID)[None, :] - 64 * warp[:, None] - c0)
     assert idx.min() >= 0 and idx.max() < 2 * n, "window leaves the table"
     return tab[idx]
 
@@ -127,21 +129,27 @@ def tile_words(dig_r):
     return tile.reshape(-1).view(np.uint32)
 
 
-def plane_fragments(tab, tile_w, limbs, n):
+def block_warps(n):
+    """Warps of a block: one per 64 of its min(N, 512) columns."""
+    return max(1, min(n, 512) // 64)
+
+
+def plane_fragments(tab, tile_w, limbs, n, c0=0):
     """mma_row's k-loop over one key plane (its rotated S-table `tab`)
     against each digit limb i in `limbs` of a padded tile: int64 [len(limbs),
-    warps, MT, 32, 4], the D fragments of every warp's MT column tiles."""
-    warps = np.arange(max(1, n // 64))
+    warps, MT, 32, 4], the D fragments of every warp's MT column tiles, the
+    block's columns from c0."""
+    warps = np.arange(block_warps(n))
     stride = (n + PAD) // 4                                   # words a row
     out = np.zeros((len(limbs), len(warps), MT, 32, 4), dtype=np.int64)
     v = [None] * 10
     for p in range(4, 10):
-        v[p] = window_word(tab, n, warps, 0, p)
+        v[p] = window_word(tab, n, warps, 0, p, c0)
     for kt in range(n // 32):
         for p in range(4):
-            v[p] = window_word(tab, n, warps, kt, p)
+            v[p] = window_word(tab, n, warps, kt, p, c0)
         for p in range(4, 10):              # carried from the last k-step
-            assert np.array_equal(v[p], window_word(tab, n, warps, kt, p))
+            assert np.array_equal(v[p], window_word(tab, n, warps, kt, p, c0))
         a_regs = np.stack([np.stack([v[2 * q + 2], v[2 * q + 3], v[2 * q],
                                      v[2 * q + 1]], -1) for q in range(MT)],
                           1)                             # [warps, MT, 32, 4]
@@ -154,18 +162,22 @@ def plane_fragments(tab, tile_w, limbs, n):
     return out
 
 
-def block_output(frags, n):
+def block_output(frags, n, c0=0):
     """The epilogue's map: frags int64 [warps, MT, 32, 4], one value per D
     register -> [ROWS, N]: register c of tile q of a thread is column
-    64·warp + 16·q + gid + 8·(c / 2) of batch lane 2·tig + c % 2."""
+    c0 + 64·warp + 16·q + gid + 8·(c / 2) of batch lane 2·tig + c % 2. The
+    block's columns are written once each, the others left zero."""
     out = np.zeros((ROWS, n), dtype=np.int64)
+    written = np.zeros((ROWS, n), dtype=np.int64)
     for w in range(frags.shape[0]):
         for q in range(MT):
             for reg in range(4):
-                m = 64 * w + 16 * q + GID + 8 * (reg >> 1)
+                m = c0 + 64 * w + 16 * q + GID + 8 * (reg >> 1)
                 lane = 2 * TIG + (reg & 1)
                 keep = m < n
                 out[lane[keep], m[keep]] = frags[w, q, :, reg][keep]
+                np.add.at(written, (lane[keep], m[keep]), 1)
+    assert (written[:, c0:c0 + min(n, 512)] == 1).all()
     return out
 
 
@@ -175,35 +187,37 @@ def checked_table(raw_plane, n):
     return tab
 
 
-def contract_buckets(dig, ext, js):
+def contract_buckets(dig, ext, js, c0=0):
     """dig int8 [R, n_d, ROWS, N], ext int8 [R, 8-js, 2N] -> the block's
     int32 buckets as D fragments, int64 [8-js, warps, MT, 32, 4] (bucket s
-    of weight 2^(8(s+js))), computed as the kernel computes them."""
+    of weight 2^(8(s+js))), computed as the kernel computes them for the
+    block whose columns start at c0."""
     r_cnt, n_d, _, n = dig.shape
     nj = 8 - js
-    acc = np.zeros((nj, max(1, n // 64), MT, 32, 4), dtype=np.int64)
+    acc = np.zeros((nj, block_warps(n), MT, 32, 4), dtype=np.int64)
     for r in range(r_cnt):
         tile_w = tile_words(dig[r])
         for j in range(js, 8):
             limbs = [i for i in range(n_d) if i + j < 8]
             frags = plane_fragments(checked_table(ext[r, j - js], n), tile_w,
-                                    limbs, n)
+                                    limbs, n, c0)
             for x, i in enumerate(limbs):
                 acc[i + j - js] += frags[x]
     assert np.abs(acc).max() < 2 ** 31       # the int32 buckets hold it
     return acc
 
 
-def contract_emulated(dig, ext, js):
+def contract_emulated(dig, ext, js, c0=0):
     """dig int8 [R, n_d, ROWS, N], ext int8 [R, 8-js, 2N] -> the block's
-    int64 [ROWS, N] sum, computed as the kernel computes it."""
+    int64 [ROWS, N] sum, computed as the kernel computes it: all N columns
+    up to N = 512, the 512 from c0 at N = 1024 (the others zero)."""
     n = dig.shape[3]
     nj = 8 - js
-    acc = contract_buckets(dig, ext, js)
+    acc = contract_buckets(dig, ext, js, c0)
     total = np.zeros(acc.shape[1:], dtype=np.uint64)
     for s in range(nj):
         total += acc[s].view(np.uint64) << np.uint64(8 * (s + js))
-    return block_output(total.view(np.int64), n)
+    return block_output(total.view(np.int64), n, c0)
 
 
 def bucket_emulated(dig, key):
@@ -212,7 +226,7 @@ def bucket_emulated(dig, key):
     bucket s) -> the int32 bucket int64 [ROWS, N], plane t against limb
     limbs-1-t (mma_row<1, 7> once a plane)."""
     r_cnt, limbs, _, n = dig.shape
-    acc = np.zeros((max(1, n // 64), MT, 32, 4), dtype=np.int64)
+    acc = np.zeros((block_warps(n), MT, 32, 4), dtype=np.int64)
     for r in range(r_cnt):
         tile_w = tile_words(dig[r])
         for t in range(limbs):
@@ -287,3 +301,77 @@ def test_toeplitz_identities(n):
             k = 4 * TIG + q + 16 * (reg >> 1)
             assert np.array_equal(
                 by[reg, :, q], ext[(16 * mt + row - 32 * kt - k) % (2 * n)])
+
+
+@pytest.mark.parametrize("js", [0, 2])
+def test_mma_column_split_at_n1024(js):
+    """N = 1024: the two blocks of a row tile, c0 = 0 and c0 = 512, each
+    contracting over all 1024 digit columns with 8 warps, write each of
+    their own 512 columns once and nothing else; stitched together they
+    equal extprod_step2_plain, bit for bit. Every window index stays in the
+    rotated table unmasked (window_word asserts it)."""
+    rng = np.random.default_rng(1024 + js)
+    n, n_d, k1, levels = 1024, 2, 2, 1
+    r_cnt = k1 * levels
+    dig = rng.integers(-128, 128, (k1, levels, n_d, ROWS, n), dtype=np.int8)
+    ext = rng.integers(-128, 128, (k1, r_cnt, 8 - js, 2 * n), dtype=np.int8)
+    want = kx.extprod_step2_plain(
+        torch.from_numpy(dig), torch.from_numpy(ext),
+        torch.zeros((k1, ROWS, n), dtype=torch.int64), js).numpy()
+    o = 1
+    halves = [contract_emulated(dig.reshape(r_cnt, n_d, ROWS, n), ext[o], js,
+                                c0) for c0 in (0, 512)]
+    assert not halves[0][:, 512:].any() and not halves[1][:, :512].any()
+    assert np.array_equal(halves[0] + halves[1], want[o])
+
+
+def cluster_glue_sources(acc_rows, t, c0):
+    """K1's glue at N = 1024 for the block of columns [c0, c0 + 512): each
+    block's tile holds its [ROWS][512] half of the new accumulator; for
+    column m the source src = (m - t) mod 2N, x = src mod N, is read from
+    this block's tile when x lies in its half ((x ^ c0) < 512), else from
+    the partner's, at row·512 + x mod 512, negated when src >= N
+    (csrc/cmux.cu, N > 512). acc_rows uint64 [ROWS, N] -> the rotated values
+    (X^t·acc)[m] uint64 [ROWS, 512] and how often each half was read."""
+    n, cols = acc_rows.shape[1], 512
+    tiles = {h: acc_rows[:, h * cols:(h + 1) * cols].reshape(-1)
+             for h in (0, 1)}
+    own, other = tiles[c0 // cols], tiles[1 - c0 // cols]
+    rot = np.zeros((ROWS, cols), dtype=np.uint64)
+    reads = {"own": 0, "other": 0}
+    for row in range(ROWS):
+        m = c0 + np.arange(cols)
+        src = (m - t[row]) & (2 * n - 1)
+        x = src & (n - 1)
+        mine = (x ^ c0) < cols
+        v = np.where(mine, own[row * cols + (x & (cols - 1))],
+                     other[row * cols + (x & (cols - 1))])
+        with np.errstate(over="ignore"):
+            rot[row] = np.where(src < n, v, np.uint64(0) - v)
+        reads["own"] += int(mine.sum())
+        reads["other"] += int((~mine).sum())
+    return rot, reads
+
+
+@pytest.mark.parametrize("t_case", ["none", "at N", "at 2N", "mixed"])
+def test_cluster_glue_reads_across_the_halves(t_case):
+    """The rotated sources K1's cluster glue reads, for both blocks, equal
+    X^t·acc (polynomial.monomial_mul) for every rotation class: no wrap
+    (src = m - t in [0, N)), a wrap at N (src in [N, 2N): the sign of
+    ext = [acc, -acc]) and a wrap at 2N (m < t); each class reads both
+    halves where its rotation crosses one."""
+    n = 1024
+    rng = np.random.default_rng(["none", "at N", "at 2N",
+                                 "mixed"].index(t_case))
+    acc = rng.integers(-2 ** 63, 2 ** 63, (ROWS, n), dtype=np.int64)
+    t = {"none": np.array([0, 1, 100, 511, 512, 513, 700, 1000]),
+         "at N": np.array([1024, 1025, 1100, 1535, 1536, 1700, 2000, 2047]),
+         "at 2N": np.array([1, 7, 300, 511, 512, 900, 1023, 1024]),
+         "mixed": rng.integers(0, 2 * n, ROWS)}[t_case].astype(np.int64)
+    want = polynomial.monomial_mul(torch.from_numpy(acc),
+                                   torch.from_numpy(t)).numpy()
+    for c0 in (0, 512):
+        rot, reads = cluster_glue_sources(acc.view(np.uint64), t, c0)
+        assert np.array_equal(rot.view(np.int64), want[:, c0:c0 + 512])
+        if t_case != "none":
+            assert reads["other"] > 0

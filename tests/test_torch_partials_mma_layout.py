@@ -24,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from tfhe_aes2_tpu_torch.ops import polynomial
+from tfhe_aes2_tpu_torch import cli
+from tfhe_aes2_tpu_torch.ops import decomposition, polynomial, torus
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
 from tests.test_torch_mma_layout import ROWS, block_output, contract_buckets
 from tests.test_torch_step_mma_layout import staged_block
@@ -110,7 +111,8 @@ def test_k8_extreme_values_stay_in_int32():
 
 def test_k8_needs_n_64_off_the_cpu():
     """K8's kernel is a tensor-core kernel: off the CPU it refuses N < 64
-    before any launch; on the CPU the plain version takes N = 32."""
+    before any launch (it takes N from 64 to 1024); on the CPU the plain
+    version takes N = 32."""
     for dev in ("meta", "cpu"):
         dig = torch.zeros((2, 1, 3, 2, 32), dtype=torch.int8, device=dev)
         ext = torch.zeros((4, 1, 2, 2, 64), dtype=torch.int8, device=dev)
@@ -118,8 +120,32 @@ def test_k8_needs_n_64_off_the_cpu():
             assert kx.extprod_partials_grouped(dig, ext, 4).shape == (
                 8, 1, 3, 2, 32)
         else:
-            with pytest.raises(ValueError, match=r"\[64, 512\]"):
+            with pytest.raises(ValueError, match=r"\[64, 1024\]"):
                 kx.extprod_partials_grouped(dig, ext, 4)
+
+
+@pytest.mark.parametrize("n_d", [1, 3])
+def test_k3_k8_take_two_limbs_at_n1024_off_the_cpu(n_d):
+    """At N = 1024 K3 and K8 are built for n_d = 2 only (csrc/vp.cu): off
+    the CPU any other n_d is refused before a launch, and n_d = 2 is what
+    the circuit bootstrap of every parameter set with N = 1024 that the
+    1-bit model runs (lvl1, lvl4, lvl256) gives."""
+    n, js = 1024, 3
+    dig3 = torch.zeros((1, 3, n_d, n), dtype=torch.int8, device="meta")
+    ext3 = torch.zeros((1, 3, 3, 8 - js, 2 * n), dtype=torch.int8,
+                       device="meta")
+    with pytest.raises(ValueError, match="n_d=2 only"):
+        kx.extprod_grouped_fused(dig3, ext3, n_d, js)
+    dig8 = torch.zeros((n_d, 1, 1, 3, n), dtype=torch.int8, device="meta")
+    ext8 = torch.zeros((8 - js, 1, 3, 3, 2 * n), dtype=torch.int8,
+                       device="meta")
+    with pytest.raises(ValueError, match="n_d=2 only"):
+        kx.extprod_partials_grouped(dig8, ext8, js)
+    wide = [p for p in cli.PARAM_CHOICES.values()
+            if p.polynomial_size == 1024]
+    assert len(wide) == 3
+    assert {torus.limbs_for_bound(decomposition.digit_bound(p.cbs_base_log))
+            for p in wide} == set(kx.WIDE_ND.values()) == {2}
 
 
 def k7_emulated(dig, ext):

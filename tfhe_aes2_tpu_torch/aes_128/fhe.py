@@ -1,7 +1,9 @@
-"""FHE AES-128 strategy and server entry points.
+"""FHE AES-128 strategies and server entry points.
 
 The production strategy binds the 1-bit WoP-PBS model to the
-SBOX+GalMul round pipeline (the reference's submitted solution). The entry
+SBOX+GalMul round pipeline (the reference's submitted solution); the second
+binds it to the depth-11 SBOX-only pipeline (aes_128/sbox_pbs.py), the
+reference's pairing for the sqrd_lvl_256 set. The entry
 points keep the JAX package's names and schedules: the fused key schedule
 (11 circuit-bootstrap calls), the round loop, and the single-block latency
 path (11 fused circuit bootstraps for key expansion AND all rounds). PyTorch
@@ -15,7 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tfhe_aes2_tpu_torch.aes_128 import RC, fhe_encryption, sbox_gal_mul_pbs
+from tfhe_aes2_tpu_torch.aes_128 import (RC, fhe_encryption, sbox_gal_mul_pbs,
+                                         sbox_pbs)
 from tfhe_aes2_tpu_torch.models.shortint_woppbs_1bit import (
     BitCt, FheContext, fresh_bitct)
 
@@ -38,6 +41,47 @@ class ShortintWoppbs1BitSboxGalMulPbsAesEncrypt:
     def decrypt_client(client, arrays) -> list[bytes]:
         return fhe_encryption.decrypt_blocks(client, arrays)
 
+    @staticmethod
+    def make_ops(ctx):
+        return None          # the pipeline runs its own bootstraps
+
+
+class ShortintWoppbs1BitSboxPbsAesEncrypt(
+        ShortintWoppbs1BitSboxGalMulPbsAesEncrypt):
+    """Model shortint_woppbs_1bit + pipeline fhe_sbox_pbs (leveled Galois
+    multiplication, XOR depth 11; pairs with PARAMS_SQRD_LVL_256). It has no
+    fused key-schedule groups, so key_schedule_staged runs the eager
+    schedule for it, and no latency path (aes_128/scenario.py)."""
+
+    pipeline = sbox_pbs
+
+    @staticmethod
+    def make_ops(ctx):
+        return sbox_pbs.Woppbs1BitByteOps(ctx)
+
+
+def _pipeline_kwargs(strategy, ctx) -> dict:
+    ops = strategy.make_ops(ctx)
+    return {} if ops is None else {"ops": ops}
+
+
+def key_schedule_eager(strategy, ctx: FheContext,
+                       key_arr: torch.Tensor) -> BitCt:
+    """FHE key expansion word by word, the pipeline's own key_schedule:
+    key_arr [16, 8, kN+1] -> BitCt lanes [44, 4, 8]."""
+    key = fresh_bitct(key_arr, ctx, lane_ndim=2)
+    return strategy.pipeline.key_schedule(ctx, key,
+                                          **_pipeline_kwargs(strategy, ctx))
+
+
+def encrypt_blocks_eager(strategy, ctx: FheContext, eks: BitCt,
+                         blocks_arr: torch.Tensor, rounds: int) -> BitCt:
+    """AES rounds on blocks [B, 16, 8, kN+1] under `eks` (from
+    key_schedule_eager, or a clear schedule wrapped fresh)."""
+    blocks = fresh_bitct(blocks_arr, ctx, lane_ndim=2)
+    return strategy.pipeline.encrypt_block_for_rounds(
+        ctx, eks, blocks, rounds, **_pipeline_kwargs(strategy, ctx))
+
 
 def _rc(ctx: FheContext, g: int) -> BitCt:
     """Round constant g as 8 trivial bits, MSB first."""
@@ -49,8 +93,11 @@ def key_schedule_staged(strategy, ctx: FheContext,
     """FHE key expansion, fused form: the SubWord half of group 1, then 9
     steps each running [boot of group g ‖ SubWord of group g+1] through ONE
     shared circuit-bootstrap front end, then the final boot — 11 blind
-    rotations. key_arr [16, 8, kN+1] -> BitCt lanes [44, 4, 8]."""
+    rotations. key_arr [16, 8, kN+1] -> BitCt lanes [44, 4, 8]. A pipeline
+    without the fused groups (sbox_pbs) runs key_schedule_eager."""
     pipe = strategy.pipeline
+    if not hasattr(pipe, "key_schedule_group_preboot"):
+        return key_schedule_eager(strategy, ctx, key_arr)
     group0 = fresh_bitct(key_arr.reshape((4, 4) + key_arr.shape[1:]), ctx,
                          lane_ndim=3)
     prev = group0.slice_lanes(slice(3, 4), axis=0).reshape_lanes(4, 8)
@@ -78,8 +125,8 @@ def encrypt_blocks_staged(strategy, ctx: FheContext, eks: BitCt,
         blocks = fresh_bitct(blocks_arr, ctx, lane_ndim=2)
     else:
         blocks = BitCt(blocks_arr, blocks_meta[0], blocks_meta[1], ctx)
-    return strategy.pipeline.encrypt_block_for_rounds(ctx, eks, blocks,
-                                                      rounds)
+    return strategy.pipeline.encrypt_block_for_rounds(
+        ctx, eks, blocks, rounds, **_pipeline_kwargs(strategy, ctx))
 
 
 def encrypt_block_latency(strategy, ctx: FheContext, key_arr: torch.Tensor,

@@ -50,8 +50,9 @@ def serve_request(ctx: FheContext, strategy, key_ct: torch.Tensor,
     """Server: expand the key and run the rounds under FHE ->
     (output BitCt [B | 16, 8], timings dict).
 
-    A single block at 10 rounds takes the fused latency path and reports
-    only `fused_latency_s`: that path has no expansion/rounds split.
+    A single block at 10 rounds takes the fused latency path, where the
+    strategy's pipeline has one (not sbox_pbs), and reports only
+    `fused_latency_s`: that path has no expansion/rounds split.
 
     fhe_counter_count = C > 0: block_cts holds ONE encrypted iv‖ctr block;
     the server derives blocks 1..C-1 by homomorphic counter increments
@@ -60,7 +61,8 @@ def serve_request(ctx: FheContext, strategy, key_ct: torch.Tensor,
     """
     dev = ctx.device
     block_count = fhe_counter_count or block_cts.shape[0]
-    if block_count == 1 and rounds == 10 and not fhe_counter_count:
+    if (block_count == 1 and rounds == 10 and not fhe_counter_count
+            and hasattr(strategy.pipeline, "latency_fused_middle")):
         t0 = time.time()
         out = fhe_mod.encrypt_block_latency(strategy, ctx, key_ct, block_cts)
         _sync(dev)

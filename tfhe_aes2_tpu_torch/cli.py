@@ -10,8 +10,12 @@ encrypted iv‖ctr block and the server derives the rest by homomorphic
 counter increments (aes_128/ctr_fhe.py). The kernels the bootstraps run follow the JAX
 package's TFHE_BR_KERNEL / TFHE_BR_GLUE / TFHE_VP_FUSED environment
 (ops/lowering.py); the lowering in use is printed. On a CUDA device the
-parameter sets with N = 1024 (lvl1, lvl4, lvl256) are refused before keygen:
-the kernels take N <= 512 (ROADMAP.md Queue 1 item 3).
+parameter sets with N = 1024 (lvl1, lvl4, lvl256) run under the default
+lowering (gridg, fused) and under grid / partials, and are refused before
+keygen under a lowering whose kernels take N <= 512 (merged, longk, bucket,
+glue_out: ROADMAP.md Queue 1). lvl1's and lvl4's noise budgets
+(max_noise_level_squared 1 and 4) are below what the AES pipeline's XORs
+need, so there the run stops with NoiseError, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,9 +23,11 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
+import time
 
 from tfhe_aes2_tpu_torch.ops import params as params_mod
 from tfhe_aes2_tpu_torch.ops.kernels.extprod import device_refusal
+from tfhe_aes2_tpu_torch.ops.lowering import Lowering
 
 PARAM_CHOICES = {"lvl1": params_mod.PARAMS_SQRD_LVL_1,
                  "lvl4": params_mod.PARAMS_SQRD_LVL_4,
@@ -46,7 +52,10 @@ def main(argv=None, device: str = "cuda") -> int:
     ap.add_argument("--params", type=str, default="lvl64",
                     choices=sorted(PARAM_CHOICES),
                     help="parameter set for the 1-bit model ('test' sets are "
-                         "INSECURE, for fast runs only)")
+                         "INSECURE, for fast runs only; lvl1 and lvl4 run "
+                         "keygen, then stop the AES pipeline with NoiseError: "
+                         "their noise budgets, 1 and 4, are below what its "
+                         "XORs need, as in the JAX package)")
     ap.add_argument("--rounds", type=int, default=10,
                     help="AES rounds (<10 verifies against the partial-round "
                          "plain oracle)")
@@ -56,8 +65,9 @@ def main(argv=None, device: str = "cuda") -> int:
                     help="upload one block; the server derives the CTR "
                          "blocks homomorphically")
     args = ap.parse_args(argv)
+    lowering = Lowering.from_env()
     refusal = device_refusal(PARAM_CHOICES[args.params].polynomial_size,
-                             device)
+                             device, lowering)
     if refusal:
         ap.error(f"--params {args.params} on {device}: {refusal}")
 
@@ -81,8 +91,11 @@ def main(argv=None, device: str = "cuda") -> int:
     from tfhe_aes2_tpu_torch.models import shortint_woppbs_1bit as model
 
     print(f"generating keys ({args.params}) on {device}...")
+    t0 = time.time()
     client, ctx = model.generate_keys(PARAM_CHOICES[args.params],
-                                      seed=args.seed, device=device)
+                                      seed=args.seed, device=device,
+                                      lowering=lowering)
+    print(f"keys generated and prepared in: {time.time() - t0:.3f}s")
     print(f"lowering: br={ctx.lowering.br} vp={ctx.lowering.vp}")
     run_client_server_aes_scenario(client, ctx, key, iv,
                                    args.number_of_outputs, rounds=args.rounds,

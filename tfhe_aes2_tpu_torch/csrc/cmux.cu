@@ -34,6 +34,23 @@
 // shared load or register move between two of them costs about a fifth of
 // one. The glue is about 1 us of a 140 us step.
 //
+// At N = 1024 a block owns 8 lanes x 512 columns, as at N = 512:
+// 8 warps, 256 threads and the same registers, while a block of all 1024
+// columns (512 threads x ~156 registers) could not launch at all. The two
+// column halves of one (lane tile, o) are the grid's z (1 below N = 1024,
+// so that c0 = 512·z is 0 there: one build serves every N, and the
+// run-time offset left K1 and K5 at N = 512 within 1.2% of a build
+// without it, probes/mma_regress.py). Each contracts over
+// all N digit columns. K1's glue needs the whole new row: (X^t·acc)[m] reads
+// column (m - t) mod N, in either half. So K1's two halves launch as one
+// cluster of two blocks (cudaLaunchKernelEx, cluster dimension {1, 1, 2}):
+// each writes its [8][512] half of the new accumulator tile into its own
+// shared memory, the cluster synchronises, and each glues its own 512
+// columns, reading the rotated sources from either half through distributed
+// shared memory (cooperative_groups' map_shared_rank); a second cluster
+// barrier keeps each block's tile alive until its partner has read it. K5
+// at N = 1024 needs no cluster.
+//
 // K2 is bound by bytes: at B = 288 it reads 5.9 MB and writes 4.4 MB. It is
 // nc::glue_wide (nc_common.cuh): a thread for every 8 columns of a row, so
 // its grid grows with O·B·N (92,160 threads at B = 288) and not with
@@ -42,6 +59,8 @@
 // stores each of its L x ND limb planes as one 8-byte word. The gadget
 // (levels, base_log) and ND are template values, dispatched by
 // NC_GLUE_DISPATCH, which K10a (longk.cu) shares.
+#include <cooperative_groups.h>
+
 #include "nc_mma.cuh"
 
 namespace {
@@ -53,18 +72,22 @@ namespace {
 #endif
 
 // Shared memory of a block: the two stages of the contraction and, with the
-// glue, the [ROWS][N] tile of the new accumulator that takes their place
-// afterwards.
+// glue, the [ROWS][min(N, 512)] tile of the new accumulator that takes
+// their place afterwards.
 inline size_t step_smem(int nd, int nj, int n, bool glue) {
   const size_t stages = 2 * (size_t)(nc::tab_bytes(nj, n) +
                                      nc::raw_bytes(nj, n) +
                                      nc::dig_tile_bytes(nd, n));
-  const size_t tile = glue ? (size_t)nc::ROWS * n * 8 : 0;
+  const size_t tile =
+      glue ? (size_t)nc::ROWS * (n < nc::SPLIT_COLS ? n : nc::SPLIT_COLS) * 8
+           : 0;
   return stages > tile ? stages : tile;
 }
 
-// Grid (ceil(B/ROWS), O), block N/2 (one warp per 64 columns).
-// dig     int8  [R][ND][B][N]       this step's digit limb planes (R = O·L)
+// Grid (ceil(B/ROWS), O), block N/2 (one warp per 64 columns); at N = 1024
+// grid (ceil(B/ROWS), O, 2), block 256, the block of z = h owning columns
+// [512h, 512h + 512), K1's two halves one cluster.
+// dig     int8  [R][ND][B][N]       this step's digit limb planes
 // ext     int8  [O][R][8-JS][2N]    this step's BSK limb planes
 // acc     int64 [O][B][N]           updated in place
 // t_next  int32 [B]                 next step's mod-switched mask element
@@ -80,42 +103,70 @@ extprod_step2g_kernel(const int8_t* __restrict__ dig,
                       int8_t* __restrict__ dig_out, int B, int n, int R,
                       int levels, int base_log) {
   constexpr int NJ = 8 - JS;
+  constexpr int COLS = nc::SPLIT_COLS;    // a split block's columns
   extern __shared__ __align__(16) unsigned char smem[];
   const int o = blockIdx.y;
   const int b0 = blockIdx.x * nc::ROWS;
   const int rows = min(nc::ROWS, B - b0);
+  const int c0 = blockIdx.z * COLS;       // 0 below N = 1024
 
   int32_t part[nc::MT][NJ][4];
   const nc::Staged op{ext + (size_t)o * R * NJ * 2 * n, dig + (size_t)b0 * n,
                       (unsigned)(ND * B * n), (unsigned)(B * n), (unsigned)n,
                       nullptr};
-  nc::contract_mma<ND, JS, true>(part, smem, op, R, rows, n);
+  nc::contract_mma<ND, JS, true>(part, smem, op, R, rows, n, c0);
 
   uint64_t* acc_o = acc + ((size_t)o * B + b0) * n;
   if constexpr (!GLUE) {
     nc::for_each_output<JS>(part, [&](int lane, int m, uint64_t sum) {
       if (lane < rows) acc_o[(size_t)lane * n + m] += sum;
-    });
+    }, c0);
     return;
   }
   // the stages are idle past the contraction's last barrier: shared memory
-  // now holds the tile of the new accumulator, zero rows past the batch edge
-  uint64_t* tile = reinterpret_cast<uint64_t*>(smem);   // [ROWS][N]
+  // now holds the tile of the new accumulator (the block's columns), zero
+  // rows past the batch edge
+  uint64_t* tile = reinterpret_cast<uint64_t*>(smem);   // [ROWS][N or COLS]
+  const int width = min(n, COLS);
   nc::for_each_output<JS>(part, [&](int lane, int m, uint64_t sum) {
     uint64_t v = 0;
     if (lane < rows) {
       v = acc_o[(size_t)lane * n + m] + sum;
       acc_o[(size_t)lane * n + m] = v;
     }
-    tile[lane * n + m] = v;
-  });
-  __syncthreads();
-  for (int row = 0; row < rows; ++row) {
-    const int t = t_next[b0 + row];
-    for (int m = threadIdx.x; m < n; m += blockDim.x)
-      nc::glue<ND>(tile + row * n, t, m, n, levels, base_log,
-                   dig_out + (((size_t)o * levels * ND) * B + b0 + row) * n,
-                   (size_t)ND * B * n, (size_t)B * n);
+    tile[lane * width + m - c0] = v;
+  }, c0);
+  if (n <= COLS) {
+    __syncthreads();
+    for (int row = 0; row < rows; ++row) {
+      const int t = t_next[b0 + row];
+      for (int m = threadIdx.x; m < n; m += blockDim.x)
+        nc::glue<ND>(tile + row * n, t, m, n, levels, base_log,
+                     dig_out + (((size_t)o * levels * ND) * B + b0 + row) * n,
+                     (size_t)ND * B * n, (size_t)B * n);
+    }
+  } else {
+    // (X^t·acc)[m] = ±acc[x], x = (m - t) mod N, lies in the half of this
+    // block or of its partner in the cluster
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const uint64_t* other =
+        cluster.map_shared_rank(tile, (int)cluster.block_rank() ^ 1);
+    for (int row = 0; row < rows; ++row) {
+      const int t = t_next[b0 + row];
+      int8_t* out = dig_out + (((size_t)o * levels * ND) * B + b0 + row) * n;
+      for (int m = c0 + threadIdx.x; m < c0 + COLS; m += blockDim.x) {
+        const int src = (m - t) & (2 * n - 1);
+        const int x = src & (n - 1);
+        const uint64_t* half = (x ^ c0) < COLS ? tile : other;
+        const uint64_t v = half[row * COLS + (x & (COLS - 1))];
+        const uint64_t rot = src < n ? v : (uint64_t)0 - v;
+        nc::glue_digits<ND>(rot - tile[row * COLS + m - c0], m, levels,
+                            base_log, out, (size_t)ND * B * n, (size_t)B * n);
+      }
+    }
+    cluster.sync();   // the partner may still be reading this block's tile
   }
 }
 
@@ -149,10 +200,30 @@ int launch_step(const int8_t* dig, const int8_t* ext, int64_t* acc,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((B + nc::ROWS - 1) / nc::ROWS, O);
-  kern<<<grid, nc::mma_threads(n), smem, stream>>>(
-      dig, ext, reinterpret_cast<uint64_t*>(acc), t_next, dig_out, B, n, R,
-      levels, base_log);
+  const bool split = n > nc::SPLIT_COLS;
+  dim3 grid((B + nc::ROWS - 1) / nc::ROWS, O, split ? n / nc::SPLIT_COLS : 1);
+  uint64_t* acc_u = reinterpret_cast<uint64_t*>(acc);
+  if (GLUE && split) {
+    // K1's two column halves of a (lane tile, o): one cluster
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 2;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(nc::mma_threads(n));
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kern, dig, ext, acc_u, t_next, dig_out, B,
+                             n, R, levels, base_log);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    kern<<<grid, nc::mma_threads(n), smem, stream>>>(
+        dig, ext, acc_u, t_next, dig_out, B, n, R, levels, base_log);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -45,6 +45,10 @@
 //     (grid z); each block adds its recombined uint64 partial into the
 //     zeroed output with a 64-bit atomicAdd, exact in any order mod 2^64.
 //     The wrapper picks the split from the shape.
+// ND = 4 (lvl1's pfKS, gadget (1, 24): digits up to 2^23) is built for K4
+// alone. Its k-step walks the warp's two 16-row tiles one after the other
+// (mma_slice_by_rows): 16 A registers live instead of 32, each key fragment
+// loaded twice, so that the buckets stay in registers.
 // A bucket sums at most ND products of K terms of at most 2^7·2^7, the
 // int32 bound that tfhe_aes2_tpu/ops/torus.py guards (ND·K·2^14 < 2^31;
 // 2.0e8 for the pfKS) and that the Python wrapper checks. The emulation in
@@ -171,6 +175,46 @@ __device__ __forceinline__ void mma_slice(int32_t (&acc)[2][2][8 - JS][4],
   }
 }
 
+// mma_slice for ND = 4: the same products, one 16-row tile of the warp at a
+// time, so that only that tile's A fragments are live.
+template <int ND, int JS>
+__device__ __forceinline__ void mma_slice_by_rows(
+    int32_t (&acc)[2][2][8 - JS][4], const unsigned char* stage, int wm,
+    int wn) {
+  const unsigned char* bt = stage;
+  const unsigned char* a = stage + b_bytes(8 - JS);
+  const int lane = threadIdx.x & 31;
+  const int a_row = 32 * wm + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int a_hi = lane >> 4;
+  const int b_row = 16 * wn + (lane & 7) + 8 * (lane >> 4);
+  const int b_hi = (lane >> 3) & 1;
+#pragma unroll
+  for (int kt = 0; kt < KT / 32; ++kt) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      uint32_t af[ND][4];
+#pragma unroll
+      for (int i = 0; i < ND; ++i)
+        ldmatrix_x4(af[i],
+                    a + i * BM * KT + swz(a_row + 16 * mt, 2 * kt + a_hi));
+#pragma unroll
+      for (int j = JS; j < 8; ++j) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, bt + (j - JS) * BN * KT + swz(b_row, 2 * kt + b_hi));
+#pragma unroll
+        for (int i = 0; i < ND; ++i) {
+          if (i + j < 8) {
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+              nc::mma_s8(acc[mt][nt][i + j - JS], af[i][0], af[i][1],
+                         af[i][2], af[i][3], bf[2 * nt], bf[2 * nt + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
 // Grid (ceil(B/BM), ceil(N/BN), splits), block THREADS. Block z of `splits`
 // takes slices [z·T/splits, (z+1)·T/splits) of the T = ceil(K/KT).
 template <int ND, int JS>
@@ -219,7 +263,12 @@ fused_limb_matmul_kernel(const int8_t* __restrict__ d,
       copy_slice<ND, NJ>(smem + (next % STAGES) * SB, d, m, B, K, N, ldd,
                          ldm, b0, n0, KT * (t0 + next));
     nc::cp_async_commit();
-    if (busy) mma_slice<ND, JS>(acc, smem + (r % STAGES) * SB, wm, wn);
+    if (busy) {
+      if constexpr (ND <= 3)
+        mma_slice<ND, JS>(acc, smem + (r % STAGES) * SB, wm, wn);
+      else
+        mma_slice_by_rows<ND, JS>(acc, smem + (r % STAGES) * SB, wm, wn);
+    }
   }
   cp_async_wait_group<0>();
 
@@ -265,7 +314,8 @@ int launch(const int8_t* d, const int8_t* m, int64_t* out, int B, int K,
 
 }  // namespace
 
-// out must be zeroed when splits > 1 (the blocks add into it).
+// out must be zeroed when splits > 1 (the blocks add into it). nd runs to 4
+// here alone: the ND = 4 cases are K4's own, not NC_DISPATCH's.
 extern "C" int tfhe_fused_limb_matmul(const int8_t* d, const int8_t* m,
                                       int64_t* out, int B, int K, int N,
                                       int ldd, int ldm, int splits, int nd,
@@ -273,6 +323,15 @@ extern "C" int tfhe_fused_limb_matmul(const int8_t* d, const int8_t* m,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
 #define MM_CALL(ND, JS) \
   launch<ND, JS>(d, m, out, B, K, N, ldd, ldm, splits, s)
+  if (nd == 4) {
+    switch (js) {
+      case 0: return MM_CALL(4, 0); case 1: return MM_CALL(4, 1);
+      case 2: return MM_CALL(4, 2); case 3: return MM_CALL(4, 3);
+      case 4: return MM_CALL(4, 4); case 5: return MM_CALL(4, 5);
+      case 6: return MM_CALL(4, 6); case 7: return MM_CALL(4, 7);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   NC_DISPATCH(nd, js, MM_CALL)
 #undef MM_CALL
 }

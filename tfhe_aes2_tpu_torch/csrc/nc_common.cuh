@@ -19,7 +19,8 @@
 // one 32-bit word is four consecutive k of one column, which is what an
 // int8 mma fragment register holds (nc_mma.cuh).
 //
-// One block owns ROWS output rows x all N columns of one component. Each
+// One block owns ROWS output rows x all N columns of one component (N <=
+// 512; at N = 1024 two blocks share them, nc_mma.cuh). Each
 // (row, column) keeps one int32 bucket per weight 2^(8s), s = i + j in
 // [JS, 8); products with s >= 8 vanish mod 2^64 and are skipped. Bucket
 // bound: at most ND (i, j) pairs land in one bucket, each summing R·N
@@ -49,18 +50,17 @@ __device__ __forceinline__ uint64_t recombine(const int32_t (&bucket)[8 - JS]) {
   return sum;
 }
 
-// The glue of the blind rotation for one accumulator row held in shared
-// memory: the gadget digits of (X^t·acc - acc)[m], each split into ND balanced
-// int8 limbs; limb i of level l goes to out[l*level_stride + i*limb_stride + m]
-// (strides in bytes; `out` may be device or shared memory).
+// The gadget digits of one difference diff = (X^t·acc - acc)[m], each split
+// into ND balanced int8 limbs; limb i of level l goes to
+// out[l*level_stride + i*limb_stride + m] (strides in bytes; `out` may be
+// device or shared memory). The second half of nc::glue below; K1 at
+// N = 1024 forms the difference from two blocks' halves of the row itself
+// (cmux.cu).
 template <int ND>
-__device__ __forceinline__ void glue(const uint64_t* row, int t, int m, int n,
-                                     int levels, int base_log, int8_t* out,
-                                     size_t level_stride, size_t limb_stride) {
-  const int two_n = 2 * n;
-  const int src = (m - t) & (two_n - 1);   // (X^t·acc)[m] = ext[(m - t) mod 2N]
-  const uint64_t rot = src < n ? row[src] : (uint64_t)0 - row[src - n];
-  const uint64_t diff = rot - row[m];
+__device__ __forceinline__ void glue_digits(uint64_t diff, int m, int levels,
+                                            int base_log, int8_t* out,
+                                            size_t level_stride,
+                                            size_t limb_stride) {
   const int b = base_log;
   const int shift = 64 - b * levels;
   const uint64_t r = shift > 0 ? (diff + (1ull << (shift - 1))) >> shift : diff;
@@ -82,6 +82,19 @@ __device__ __forceinline__ void glue(const uint64_t* row, int t, int m, int n,
       out[(size_t)l * level_stride + (size_t)i * limb_stride + m] = (int8_t)p;
     }
   }
+}
+
+// The glue of the blind rotation for one accumulator row held in shared
+// memory: glue_digits of (X^t·acc - acc)[m].
+template <int ND>
+__device__ __forceinline__ void glue(const uint64_t* row, int t, int m, int n,
+                                     int levels, int base_log, int8_t* out,
+                                     size_t level_stride, size_t limb_stride) {
+  const int two_n = 2 * n;
+  const int src = (m - t) & (two_n - 1);   // (X^t·acc)[m] = ext[(m - t) mod 2N]
+  const uint64_t rot = src < n ? row[src] : (uint64_t)0 - row[src - n];
+  glue_digits<ND>(rot - row[m], m, levels, base_log, out, level_stride,
+                  limb_stride);
 }
 
 // The glue as one wide pass, bound by bytes: K2's and K10a's kernel body,

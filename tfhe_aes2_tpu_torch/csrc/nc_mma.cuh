@@ -26,12 +26,15 @@
 // eight different bank groups.
 //
 // Ten words feed four tiles. A warp owns MT = 4 neighbouring 16-column
-// tiles (64 columns; a block has N/64 warps). Write
-// W(e) = word (e + 4·tig - gid) and E = 32·kt - 64·warp: tile q's fragment
-// is (W(E-16q), W(E-16q-8), W(E-16q+16), W(E-16q+8)), so the four tiles
-// together read the window v[p] = W(E + 16 - 8p), p = 0..9, and tile q
-// takes (v[2q+2], v[2q+3], v[2q], v[2q+1]). One k-step later E grows by 32
-// and v[p] becomes v[p+4]: four new words a k-step and key plane, six
+// tiles (64 columns). A block owns COLS = min(N, 512) output columns from
+// c0 (c0 = 0 up to N = 512; 0 or 512 at N = 1024, where two blocks share a
+// row tile: cmux.cu and vp.cu) and has COLS/64 warps; it still
+// contracts over all N digit columns. Write W(e) = word (e + 4·tig - gid)
+// and E = 32·kt - 64·warp - c0: tile q's fragment is (W(E-16q),
+// W(E-16q-8), W(E-16q+16), W(E-16q+8)), so the four tiles together read
+// the window v[p] = W(E + 16 - 8p), p = 0..9, and tile q takes (v[2q+2],
+// v[2q+3], v[2q], v[2q+1]). One k-step later E grows by 32 and v[p]
+// becomes v[p+4]: four new words a k-step and key plane, six
 // carried in registers (the k-loop is unrolled by four, which turns most of
 // the carrying into renaming). The k-loop runs inside the loop over key
 // planes, so only one plane's window is live beside the 96 accumulators of
@@ -39,8 +42,10 @@
 //
 // No index is ever masked: the table is stored ROTATED by N words (word x
 // at (x + N) mod 2N) and every index a warp forms lies in [1-N, N-4] before
-// the rotation, so each load is base + immediate, the base stepping by 32
-// words a k-step. That range needs N >= 64.
+// the rotation (its columns c0 + 64·warp .. +63 lie in [0, N) whatever c0),
+// so each load is base + immediate, the base stepping by 32 words a k-step.
+// That range needs N >= 64. Every block stages the whole 2N-byte key row and
+// builds the whole 2N-word S-table of each plane, split or not.
 //
 // Staging: per contraction row a block needs the 8-JS raw key rows (2N
 // bytes each; contiguous in every layout but K7's and K8's, whose planes lie
@@ -71,8 +76,13 @@ constexpr int DIG_PAD = 16;   // bytes added to each digit-tile row
 #define NC_STR_(x) #x
 #define NC_STR(x) NC_STR_(x)
 
-// Threads of a block for polynomial size n >= 64: one warp per 64 columns.
-__host__ __device__ inline int mma_threads(int n) { return n / 2; }
+constexpr int SPLIT_COLS = 512;   // the most output columns a block owns
+
+// Threads of a block for polynomial size n >= 64: one warp per 64 of the
+// block's min(n, SPLIT_COLS) columns.
+__host__ __device__ inline int mma_threads(int n) {
+  return (n < SPLIT_COLS ? n : SPLIT_COLS) / 2;
+}
 
 // Bytes of one stage's S-tables, raw key rows and (K1) digit tile.
 __host__ __device__ inline int tab_bytes(int nj, int n) {
@@ -178,18 +188,20 @@ __device__ __forceinline__ void build_tables(uint32_t* tab,
 
 // One contraction row into the buckets: acc[q][s] is the D fragment of the
 // warp's tile q for weight 2^(8(s+JS)). `tab` holds the row's NJ rotated
-// S-tables, `dig_w` its padded digit tile as words.
+// S-tables, `dig_w` its padded digit tile as words; the block's columns
+// start at c0.
 template <int ND, int JS>
 __device__ __forceinline__ void mma_row(int32_t (&acc)[MT][8 - JS][4],
                                         const uint32_t* tab,
-                                        const uint32_t* dig_w, int n) {
+                                        const uint32_t* dig_w, int n,
+                                        int c0 = 0) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int stride = (n + DIG_PAD) >> 2;          // words a digit-tile row
   const int ksteps = n >> 5;
   // v[p] of k-step kt is tab_j[at + 32·kt - 8p]
-  const uint32_t* at0 = tab + n + 16 + 4 * tig - gid - 64 * warp;
+  const uint32_t* at0 = tab + n + 16 + 4 * tig - gid - 64 * warp - c0;
   const uint32_t* dig0 = dig_w + gid * stride + tig;
 #pragma unroll
   for (int j = JS; j < 8; ++j) {
@@ -246,11 +258,14 @@ struct Staged {
   unsigned ext_r = 0, ext_plane = 0;   // read with KEY_STRIDED only
 };
 
+// The block's output columns start at c0 (nonzero only where a row tile is
+// split between blocks, N = 1024).
 template <int ND, int JS, bool STAGE_DIG, bool KEY_STRIDED = false>
 __device__ __forceinline__ void contract_mma(int32_t (&acc)[MT][8 - JS][4],
                                              unsigned char* smem,
                                              const Staged& op, int R,
-                                             int rows_valid, int n) {
+                                             int rows_valid, int n,
+                                             int c0 = 0) {
   constexpr int NJ = 8 - JS;
   const int tab_b = tab_bytes(NJ, n), raw_b = raw_bytes(NJ, n),
             dig_b = dig_tile_bytes(ND, n);
@@ -300,17 +315,17 @@ __device__ __forceinline__ void contract_mma(int32_t (&acc)[MT][8 - JS][4],
     const unsigned char* d =
         STAGE_DIG ? dig + s * dig_b : op.dig_res + r * dig_b;
     mma_row<ND, JS>(acc, reinterpret_cast<const uint32_t*>(tab + s * tab_b),
-                    reinterpret_cast<const uint32_t*>(d), n);
+                    reinterpret_cast<const uint32_t*>(d), n, c0);
     cp_async_wait_all();
     __syncthreads();
   }
 }
 
 // The D fragment's map: register c of tile q of this thread is output
-// column 64·warp + 16·q + gid + 8·(c / 2) of batch lane 2·tig + c % 2.
+// column c0 + 64·warp + 16·q + gid + 8·(c / 2) of batch lane 2·tig + c % 2.
 // Calls f(q, c, lane, column) for each of the thread's MT·4 registers.
 template <typename F>
-__device__ __forceinline__ void for_each_fragment(F f) {
+__device__ __forceinline__ void for_each_fragment(F f, int c0 = 0) {
   const int lane_id = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int gid = lane_id >> 2, tig = lane_id & 3;
@@ -318,19 +333,20 @@ __device__ __forceinline__ void for_each_fragment(F f) {
   for (int q = 0; q < MT; ++q)
 #pragma unroll
     for (int c = 0; c < 4; ++c)
-      f(q, c, 2 * tig + (c & 1), 64 * warp + 16 * q + gid + 8 * (c >> 1));
+      f(q, c, 2 * tig + (c & 1),
+        c0 + 64 * warp + 16 * q + gid + 8 * (c >> 1));
 }
 
 // The epilogue: f(lane, column, sum) with the buckets recombined.
 template <int JS, typename F>
 __device__ __forceinline__ void for_each_output(
-    const int32_t (&acc)[MT][8 - JS][4], F f) {
+    const int32_t (&acc)[MT][8 - JS][4], F f, int c0 = 0) {
   for_each_fragment([&](int q, int c, int lane, int m) {
     int32_t bucket[8 - JS];
 #pragma unroll
     for (int s = 0; s < 8 - JS; ++s) bucket[s] = acc[q][s][c];
     f(lane, m, recombine<JS>(bucket));
-  });
+  }, c0);
 }
 
 }  // namespace nc

@@ -28,15 +28,25 @@
 // through the Staged strides — the digits batch-major as K6's, the key
 // planes B·R·O·2N bytes apart (KEY_STRIDED) — and stores the buckets as
 // they are. At js = 4 a thread keeps 64 int32 buckets, so two blocks share
-// an SM. A G-tile of fewer than 8 accumulators (G = 1 on the 128-lane
-// stage) leaves the instruction's other columns zero.
+// an SM. At N = 1024 (SPLIT) the columns are split as in K5 (cmux.cu): a
+// block owns 512 of them, 8 warps, and the grid's x runs over (G-tile,
+// column half); no glue, so no cluster. SPLIT is a template value here,
+// not read at run time as in cmux.cu: at js = 4 K3 sits at its 128-register
+// cap, and a run-time column offset cost it 2.3-2.7% at N = 512
+// (probes/mma_regress.py), where K8 and K1 lost nothing. The split
+// instantiations are built for ND = 2 only, the circuit bootstrap's digit
+// limbs in lvl1, lvl4 and lvl256; the wrappers refuse any other ND there. A G-tile of fewer than 8 accumulators
+// (G = 1 on the 128-lane stage) leaves the instruction's other columns
+// zero.
 #include <type_traits>
 
 #include "nc_mma.cuh"
 
 namespace {
 
-// Grid (ceil(G/ROWS), O, B), block N/2 (one warp per 64 columns).
+// Grid (ceil(G/ROWS), O, B), block N/2 (one warp per 64 columns); SPLIT
+// (N = 1024): grid (2·ceil(G/ROWS), O, B), block 256, x = 2·(G-tile) + h
+// owning columns [512h, 512h + 512).
 // K3:
 //   dig  int8  [B][R][ND·G][N]      lane b's digit limb planes, row r
 //   ext  int8  [B][O][R][8-JS][2N]  lane b's GGSW row limb planes
@@ -45,7 +55,7 @@ namespace {
 //   dig  int8  [ND][B][G][R][N]     lane b's digit limb planes
 //   ext  int8  [8-JS][B][R][O][2N]  lane b's GGSW row limb planes
 //   out  int32 [8][B][G][O][N]      rows s < JS written as zeros
-template <int ND, int JS, bool PARTIALS>
+template <int ND, int JS, bool PARTIALS, bool SPLIT>
 __global__ void __launch_bounds__(256, (8 - JS) <= 4 ? 2 : 1)
 extprod_grouped_fused_kernel(
     const int8_t* __restrict__ dig, const int8_t* __restrict__ ext,
@@ -56,7 +66,8 @@ extprod_grouped_fused_kernel(
   const int o = blockIdx.y;
   const int O = gridDim.y;
   const int b = blockIdx.z;
-  const int g0 = blockIdx.x * nc::ROWS;
+  const int g0 = (SPLIT ? blockIdx.x >> 1 : blockIdx.x) * nc::ROWS;
+  const int c0 = SPLIT ? (blockIdx.x & 1) * nc::SPLIT_COLS : 0;
   const int rows = min(nc::ROWS, G - g0);
 
   int32_t part[nc::MT][NJ][4];
@@ -67,12 +78,12 @@ extprod_grouped_fused_kernel(
                         dig + ((size_t)b * R * ND * G + g0) * n,
                         (unsigned)(ND * G * n), (unsigned)(G * n),
                         (unsigned)n, nullptr};
-    nc::contract_mma<ND, JS, true>(part, smem, op, R, rows, n);
+    nc::contract_mma<ND, JS, true>(part, smem, op, R, rows, n, c0);
 
     uint64_t* out_g = out + (((size_t)b * O + o) * G + g0) * n;
     nc::for_each_output<JS>(part, [&](int row, int m, uint64_t sum) {
       if (row < rows) out_g[(size_t)row * n + m] = sum;
-    });
+    }, c0);
   } else {
     // key plane j of row r at ext + j·B·R·O·2N + ((b·R + r)·O + o)·2N;
     // accumulator g0 + row's digit plane i at row r at
@@ -86,7 +97,7 @@ extprod_grouped_fused_kernel(
                         nullptr,
                         (unsigned)O * 2 * n,
                         (unsigned)B * R * O * 2 * n};
-    nc::contract_mma<ND, JS, true, true>(part, smem, op, R, rows, n);
+    nc::contract_mma<ND, JS, true, true>(part, smem, op, R, rows, n, c0);
 
     const size_t plane = (size_t)B * G * O * n;      // out[s] to out[s+1]
     int32_t* out_g = out + (((size_t)b * G + g0) * O + o) * n;
@@ -98,21 +109,21 @@ extprod_grouped_fused_kernel(
 #pragma unroll
         for (int s = 0; s < NJ; ++s) at[(s + JS) * plane] = part[q][s][c];
       }
-    });
+    }, c0);
   }
 }
 
-template <int ND, int JS, bool PARTIALS, typename Out>
+template <int ND, int JS, bool PARTIALS, bool SPLIT, typename Out>
 int launch(const int8_t* dig, const int8_t* ext, Out* out, int B, int G,
            int n, int O, int R, cudaStream_t stream) {
   constexpr int NJ = 8 - JS;
   const int smem = 2 * (nc::tab_bytes(NJ, n) + nc::raw_bytes(NJ, n) +
                         nc::dig_tile_bytes(ND, n));
-  auto kern = extprod_grouped_fused_kernel<ND, JS, PARTIALS>;
+  auto kern = extprod_grouped_fused_kernel<ND, JS, PARTIALS, SPLIT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((G + nc::ROWS - 1) / nc::ROWS, O, B);
+  dim3 grid((G + nc::ROWS - 1) / nc::ROWS * (SPLIT ? 2 : 1), O, B);
   using Word = std::conditional_t<PARTIALS, int32_t, uint64_t>;
   kern<<<grid, nc::mma_threads(n), smem, stream>>>(
       dig, ext, reinterpret_cast<Word*>(out), G, n, R);
@@ -121,14 +132,33 @@ int launch(const int8_t* dig, const int8_t* ext, Out* out, int B, int G,
 
 }  // namespace
 
+// At N = 1024 the split kernels, ND = 2 only (see above): CALL(JS) for JS
+// in 0..7, cudaErrorInvalidValue for any other (nd, js).
+#define VP_SPLIT_DISPATCH(ND_, JS_, CALL)                                  \
+  if ((ND_) != 2) return (int)cudaErrorInvalidValue;                       \
+  switch (JS_) {                                                           \
+    case 0: return CALL(2, 0); case 1: return CALL(2, 1);                  \
+    case 2: return CALL(2, 2); case 3: return CALL(2, 3);                  \
+    case 4: return CALL(2, 4); case 5: return CALL(2, 5);                  \
+    case 6: return CALL(2, 6); case 7: return CALL(2, 7);                  \
+    default: return (int)cudaErrorInvalidValue;                            \
+  }
+
 extern "C" int tfhe_extprod_grouped_fused(const int8_t* dig, const int8_t* ext,
                                           int64_t* out, int B, int G, int n,
                                           int O, int R, int nd, int js,
                                           void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define VP_CALL(ND, JS) launch<ND, JS, false>(dig, ext, out, B, G, n, O, R, s)
+#define VP_CALL(ND, JS) \
+  launch<ND, JS, false, false>(dig, ext, out, B, G, n, O, R, s)
+#define VP_SPLIT_CALL(ND, JS) \
+  launch<ND, JS, false, true>(dig, ext, out, B, G, n, O, R, s)
+  if (n > nc::SPLIT_COLS) {
+    VP_SPLIT_DISPATCH(nd, js, VP_SPLIT_CALL)
+  }
   NC_DISPATCH(nd, js, VP_CALL)
 #undef VP_CALL
+#undef VP_SPLIT_CALL
 }
 
 extern "C" int tfhe_extprod_partials_grouped(const int8_t* dig,
@@ -137,7 +167,13 @@ extern "C" int tfhe_extprod_partials_grouped(const int8_t* dig,
                                              int nd, int js, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
 #define PARTIALS_CALL(ND, JS) \
-  launch<ND, JS, true>(dig, ext, out, B, G, n, O, R, s)
+  launch<ND, JS, true, false>(dig, ext, out, B, G, n, O, R, s)
+#define PARTIALS_SPLIT_CALL(ND, JS) \
+  launch<ND, JS, true, true>(dig, ext, out, B, G, n, O, R, s)
+  if (n > nc::SPLIT_COLS) {
+    VP_SPLIT_DISPATCH(nd, js, PARTIALS_SPLIT_CALL)
+  }
   NC_DISPATCH(nd, js, PARTIALS_CALL)
 #undef PARTIALS_CALL
+#undef PARTIALS_SPLIT_CALL
 }

@@ -42,8 +42,10 @@ multiply-adds a step on ~15 MB of operands). Every kernel reads the
 negacirculant from shared-memory S-tables that index the 2N-byte ext row,
 so it (146 GB for the expanded BSK) never exists; the TPU's packed ladders,
 weight buckets in VMEM and sequential (n_bt, o, r) grid have no counterpart
-— a block owns ROWS lanes × all N columns of one component and loops over r
-itself. Every kernel with products (K1, K3, K5-K9, K10b, K11) puts them on
+— a block owns ROWS lanes × all N columns of one component (at N = 1024,
+K1, K3, K5 and K8: 512 of them, two blocks a row tile, K1's two a cluster
+for its glue) and loops over r itself. Which N each kernel takes on the
+card is N_MAX. Every kernel with products (K1, K3, K5-K9, K10b, K11) puts them on
 the tensor cores: `mma.sync.m16n8k32` int8 whose operand fragments are S-table
 and digit-tile words, the operands staged by `cp.async` one contraction row
 ahead (csrc/nc_mma.cuh); what is left above their bound is the instruction rate
@@ -74,6 +76,7 @@ import torch
 from tfhe_aes2_tpu_torch.ops import decomposition, polynomial, torus
 from tfhe_aes2_tpu_torch.ops.kernels import build
 from tfhe_aes2_tpu_torch.ops.kernels.matmul import SMS
+from tfhe_aes2_tpu_torch.ops.lowering import Lowering
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -110,31 +113,57 @@ def _require_cuda(name: str, spec) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
-N_MAX = 512     # the largest polynomial size N the CMux wrappers admit
+# The largest polynomial size N each kernel takes on a CUDA device: 1024
+# where a block owns at most 512 output columns and two blocks share a row
+# tile (K1, K3, K5, K8: csrc/nc_mma.cuh's column offset; K1's glue across a
+# cluster of the two) or a block owns a row (K2); 512 for the others, whose
+# blocks own all N columns (ROADMAP.md Queue 1).
+N_MAX = {"extprod_step2g": 1024, "rot_diff_digits": 1024,
+         "extprod_grouped_fused": 1024, "extprod_step2": 1024,
+         "extprod_partials_grouped": 1024, "extprod_step": 512,
+         "extprod_partials": 512, "cmux_step_merged": 512,
+         "rot_diff_digits_flat": 512, "extprod_step_longk": 512,
+         "extprod_step3": 512}
 
 
-def device_refusal(n: int, device) -> str | None:
-    """Why a parameter set of polynomial size n cannot run on `device`, or
-    None: on a CUDA device the kernels take N <= N_MAX; on the CPU the plain
-    versions take any N."""
-    if torch.device(device).type != "cuda" or n <= N_MAX:
+# K3 and K8 at N = 1024 are built for n_d = 2 only (csrc/vp.cu): the
+# circuit bootstrap's digit limbs in lvl1, lvl4 and lvl256. (The 8-bit
+# model's PARAMS_WOPPBS_8BIT, not ported, would need n_d = 1.)
+WIDE_ND = {"extprod_grouped_fused": 2, "extprod_partials_grouped": 2}
+
+
+def device_refusal(n: int, device, lowering: Lowering) -> str | None:
+    """Why a parameter set of polynomial size n cannot run on `device` under
+    `lowering`, or None: on a CUDA device every kernel the lowering runs must
+    take N = n (N_MAX); on the CPU the plain versions take any N."""
+    if torch.device(device).type != "cuda":
         return None
-    return (f"polynomial_size {n} is above {N_MAX}, the largest the CUDA "
-            f"kernels take; N=1024 kernels are ROADMAP.md Queue 1 item 3 "
-            f"(on device 'cpu' the plain versions run it)")
+    short = [name for name in lowering.kernels() if n > N_MAX[name]]
+    if not short:
+        return None
+    return (f"polynomial_size {n} is above what lowering (br="
+            f"{lowering.br}, vp={lowering.vp}) takes on the card: its "
+            f"kernels {', '.join(short)} take N <= "
+            f"{min(N_MAX[name] for name in short)}; N = {n} for them is "
+            f"ROADMAP.md Queue 1 (the default lowering (gridg, fused) takes "
+            f"N = 1024; on device 'cpu' the plain versions run it)")
 
 
 def _check_geometry(name: str, n: int, n_d: int, r: int, j_start: int,
                     n_min: int = 8):
-    """n_min: 8 for the glue (K2, K10a), whose threads each own 8
-    consecutive columns of a row; 64 for the tensor-core kernels (K1, K3,
-    K5-K9, K10b, K11), whose warps own 64 columns each and index their
-    S-tables unmasked."""
-    if n & (n - 1) or not n_min <= n <= N_MAX:
+    """N a power of two from n_min up to the kernel's N_MAX. n_min: 8 for
+    the glue (K2, K10a), whose threads each own 8 consecutive columns of a
+    row; 64 for the tensor-core kernels (K1, K3, K5-K9, K10b, K11), whose
+    warps own 64 columns each and index their S-tables unmasked."""
+    n_max = N_MAX[name]
+    if n & (n - 1) or not n_min <= n <= n_max:
         raise ValueError(f"{name}: N={n} must be a power of two in "
-                         f"[{n_min}, {N_MAX}]")
+                         f"[{n_min}, {n_max}]")
     if not 1 <= n_d <= 3 or not 0 <= j_start <= 7:
         raise ValueError(f"{name}: n_d={n_d}, j_start={j_start} unsupported")
+    if n > 512 and WIDE_ND.get(name, n_d) != n_d:
+        raise ValueError(f"{name}: at N={n} built for n_d={WIDE_ND[name]} "
+                         f"only, got n_d={n_d}")
     # int32 weight buckets: at most n_d (i, j) pairs of R·N products of
     # at most 2^7·2^7 each (csrc/nc_common.cuh)
     if n_d * r * n * (1 << 14) >= 1 << 31:
@@ -158,6 +187,15 @@ def _mma_stage_bytes(n: int, nj: int) -> int:
 def _mma_dig_tile_bytes(n: int, n_d: int) -> int:
     """One contraction row's digit tile, each row padded by 16 bytes."""
     return n_d * 8 * (n + 16)
+
+
+def _k1_smem(n: int, nj: int, n_d: int) -> int:
+    """K1's block (csrc/cmux.cu): the two stages of the contraction (the
+    whole 2N-word S-tables and 2N-byte digit rows at every N), or the
+    [8][min(N, 512)] int64 tile of the new accumulator its glue reads
+    after them, whichever is larger."""
+    return max(_mma_stage_bytes(n, nj) + 2 * _mma_dig_tile_bytes(n, n_d),
+               8 * min(n, 512) * 8)
 
 
 def _check_staged(name: str, *tensors) -> None:
@@ -191,9 +229,10 @@ GLUE_GADGETS = frozenset({(2, 12), (2, 15), (3, 12), (4, 9), (6, 7)})
 
 def _check_glue(name: str, acc, t, n: int, n_d: int, levels: int,
                 base_log: int) -> None:
-    """The glue kernels' (K2, K10a) checks before a launch: geometry, a
-    gadget they are built for, CUDA operands, acc 16-byte aligned (its
-    words are read 16 bytes at a time)."""
+    """The glue kernels' (K2, K10a) checks before a launch: geometry (a
+    block of K2 holds 1024/N whole rows, one at N = 1024), a gadget they are
+    built for, CUDA operands, acc 16-byte aligned (its words are read 16
+    bytes at a time)."""
     _check_geometry(name, n, n_d, 1, 0)
     if (levels, base_log) not in GLUE_GADGETS:
         raise ValueError(f"{name}: the kernel is not built for "
@@ -258,9 +297,7 @@ def extprod_step2g(dig: torch.Tensor, ext_or: torch.Tensor, acc: torch.Tensor,
         return extprod_step2g_plain(dig, ext_or, acc, t_next, base_log,
                                     levels, j_start)
     _check_geometry("extprod_step2g", n, n_d, r, j_start, n_min=64)
-    _check_smem("extprod_step2g",
-                max(_mma_stage_bytes(n, nj) + 2 * _mma_dig_tile_bytes(n, n_d),
-                    8 * n * 8))
+    _check_smem("extprod_step2g", _k1_smem(n, nj, n_d))
     _require_cuda("extprod_step2g",
                   [(dig, torch.int8), (ext_or, torch.int8),
                    (acc, torch.int64), (t_next, torch.int32)])
@@ -322,6 +359,7 @@ def extprod_grouped_fused(dig: torch.Tensor, ext: torch.Tensor, n_d: int,
 
 
 extprod_grouped_fused.launches = 0
+
 
 
 # ------------------------------------------- K5 the CMux step without glue

@@ -10,7 +10,8 @@ buckets folded into uint64 at the end) from K-major operands copied by a
 4-stage cp.async ring, and splits K across blocks when the output has too
 few tiles to fill the card; the TPU's MXU tile-eligibility rules and K
 tiling for Mosaic's compile time have no counterpart. The key planes are
-read K-major (`kmajor_key_planes`), the layout of the prepared keys.
+read K-major (`kmajor_key_planes`), the layout of the prepared keys. Digits
+take one to four int8 limbs (four: lvl1's pfKS gadget (1, 24)).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. `launches` counts kernel launches only.
@@ -97,7 +98,7 @@ def fused_limb_matmul(d_planes: torch.Tensor, m_planes: torch.Tensor,
                          f"x {tuple(m_planes.shape)}, j_start={j_start}")
     if d_planes.device.type == "cpu" and m_planes.device.type == "cpu":
         return fused_limb_matmul_plain(d_planes, m_planes, j_start)
-    if not 1 <= n_d <= 3 or not 0 <= j_start <= 7:
+    if not 1 <= n_d <= 4 or not 0 <= j_start <= 7:
         raise ValueError(f"fused_limb_matmul: n_d={n_d}, j_start={j_start} "
                          "unsupported")
     # int32 weight buckets: at most n_d products of K terms of 2^7·2^7

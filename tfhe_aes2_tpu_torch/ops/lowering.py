@@ -34,6 +34,21 @@ from dataclasses import dataclass
 BR_CHOICES = ("gridg", "grid", "merged", "longk", "bucket", "glue_out")
 VP_CHOICES = ("fused", "partials")
 
+# The kernel wrappers each schedule launches (ops/kernels/extprod.py); K4,
+# the keyswitches' contraction, runs under every lowering. Which N each
+# takes on the card is extprod.N_MAX, read by extprod.device_refusal: at
+# N = 1024 the lowerings (gridg | grid, fused | partials).
+# tests/test_torch_device_refusal.py holds these tables against the
+# wrappers that blind_rotate.py and circuit_bootstrap.py call.
+BR_KERNELS = {"gridg": ("rot_diff_digits", "extprod_step2g"),
+              "grid": ("rot_diff_digits", "extprod_step2"),
+              "merged": ("cmux_step_merged",),
+              "longk": ("rot_diff_digits_flat", "extprod_step_longk"),
+              "bucket": ("rot_diff_digits", "extprod_step3"),
+              "glue_out": ("extprod_step",)}
+VP_KERNELS = {"fused": ("extprod_grouped_fused",),
+              "partials": ("extprod_partials_grouped",)}
+
 
 @dataclass(frozen=True)
 class Lowering:
@@ -45,6 +60,11 @@ class Lowering:
             raise ValueError(f"Lowering.br {self.br!r} not in {BR_CHOICES}")
         if self.vp not in VP_CHOICES:
             raise ValueError(f"Lowering.vp {self.vp!r} not in {VP_CHOICES}")
+
+    def kernels(self) -> tuple[str, ...]:
+        """The names of the kernel wrappers this lowering's blind rotation
+        and vertical packing launch."""
+        return BR_KERNELS[self.br] + VP_KERNELS[self.vp]
 
     @classmethod
     def from_env(cls) -> "Lowering":

@@ -141,8 +141,9 @@ def serve(keys_path: str, address: str, one_shot: bool = False,
     the heavy startup happens while the first request waits in the accept
     backlog. A request that fails is answered with ok: false and the server
     goes on; a bundle whose parameters the kernels of `device` do not take
-    (N > 512 on CUDA) is refused with ValueError as it loads, before any
-    request is accepted."""
+    under the lowering (N = 1024 on CUDA under merged, longk, bucket or
+    glue_out) is refused with ValueError as it loads, before any request is
+    accepted."""
     from multiprocessing.connection import Listener
 
     with Listener(address, "AF_UNIX") as listener:
@@ -152,9 +153,12 @@ def serve(keys_path: str, address: str, one_shot: bool = False,
         from tfhe_aes2_tpu_torch.models import shortint_woppbs_1bit as model
         from tfhe_aes2_tpu_torch.ops import serialization
         from tfhe_aes2_tpu_torch.ops.kernels.extprod import device_refusal
+        from tfhe_aes2_tpu_torch.ops.lowering import Lowering
 
+        if lowering is None:
+            lowering = Lowering.from_env()
         raw, params = serialization.load_server_keys(keys_path)
-        refusal = device_refusal(params.polynomial_size, device)
+        refusal = device_refusal(params.polynomial_size, device, lowering)
         if refusal:
             raise ValueError(f"key bundle {keys_path} on {device}: {refusal}")
         ctx = model.context_from_keys(
