@@ -71,7 +71,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the lvl256 latency path launched. Phase 2 also holds K1, K5 and K2 at
      N = 1024 (both N = 1024 gadgets, B in {1, 9, 13, 288}, js in {0, 2},
      every byte -128 at R = 12) and K4 at lvl1's pfKS and lvl256's keyswitch
-     and pfKS against their plain versions, timed.
+     and pfKS against their plain versions, timed;
+  8. the other two models at full width: the tree-PBS model's SBOX bit at
+     PARAMS_TEST_S1 (255 bootstraps) and the 8-bit model's byte op
+     (bootstrap_from_bits + extract_bits_from_ciphertext) at
+     PARAMS_TEST_8BIT, each on the card and with the plain versions on the
+     CPU on the same keys, bit-equal; the tree model's SBOX on 2 bytes at
+     PARAMS_SHORTINT_1BIT (4,080 blind rotations, each tree level's
+     selection product one K3 launch) decrypted to SBOX[x]; the 8-bit model
+     through cli.main at PARAMS_WOPPBS_8BIT (N = 1024), 1 block, 2 rounds,
+     under the default lowering, verified, then its 2 rounds again on the
+     same keys and expanded key under (gridg, partials) (K8, no K3), bit-equal
+     to the verified run; then the CLI's refusal of the 8-bit model under
+     TFHE_BR_KERNEL=merged before keygen. Launch counters reset and read
+     around each run. Phase 2 also holds the two models' kernels against
+     their plain versions: K1, K5, K2 (the new (7, 6) build) and K10a at the
+     tree's step (R = 35, one limb) and at the 8-bit model's (N = 1024,
+     R = 18), timed, with K6, K9, K10b and K11 checked at the tree's step,
+     which the CLI lets it run under glue_out, merged, longk and bucket; K3
+     at the tree's selection product
+     (R = 2, G = 1, O = 5), K3 and K8 at N = 1024 with one limb (their new
+     split builds), and K4 at both models' keyswitches, the packing
+     keyswitch and the 8-bit pfKS.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or tfhe_aes2_tpu.
 
@@ -102,7 +123,9 @@ import torch
 from tfhe_aes2_tpu_torch import cli, serve
 from tfhe_aes2_tpu_torch.aes_128 import SBOX, aes_lib, ctr_fhe, fhe, gf_256_mul
 from tfhe_aes2_tpu_torch.aes_128 import plain, sbox_gal_mul_pbs, scenario
+from tfhe_aes2_tpu_torch.models import shortint_1bit as tm1b
 from tfhe_aes2_tpu_torch.models import shortint_woppbs_1bit as model
+from tfhe_aes2_tpu_torch.models import shortint_woppbs_8bit as tm8
 from tfhe_aes2_tpu_torch.ops import blind_rotate, compression, decomposition
 from tfhe_aes2_tpu_torch.ops import keys as keys_mod
 from tfhe_aes2_tpu_torch.ops import params as params_mod
@@ -176,6 +199,9 @@ KERNELS = {
 }
 ROOT = Path(__file__).resolve().parent
 STRATEGY = fhe.ShortintWoppbs1BitSboxGalMulPbsAesEncrypt
+# the kernels every model's default lowering launches
+MAIN_PATH = ("extprod_step2g", "rot_diff_digits", "extprod_grouped_fused",
+             "fused_limb_matmul")
 
 
 def log(msg: str) -> None:
@@ -309,7 +335,21 @@ def phase_device() -> str:
                 "grouped_fused_kernelILi2ELi3E",
                 "rot_diff_digits_kernelILi2ELi2ELi15E",
                 "rot_diff_digits_kernelILi2ELi4ELi9E",
-                "limb_matmul_kernelILi4ELi1E")):
+                "limb_matmul_kernelILi4ELi1E",
+                # the other two models: K1 and K5 with one limb (ND=1,
+                # JS=1), K2 and K10a at the tree's (7, 6), K2 at the 8-bit
+                # model's (6, 7), K3's selection product (ND=1, JS=0), K3
+                # and K8 split at N = 1024 with one limb (ND=1, JS=3), K4's
+                # packing keyswitch (ND=1, JS=0) and the 8-bit pfKS (ND=2,
+                # JS=1)
+                "step2g_kernelILi1ELi1ELb1E", "step2g_kernelILi1ELi1ELb0E",
+                "rot_diff_digits_kernelILi1ELi7ELi6E",
+                "rot_diff_digits_flat_kernelILi1ELi7ELi6E",
+                "rot_diff_digits_kernelILi1ELi6ELi7E",
+                "grouped_fused_kernelILi1ELi0E",
+                "grouped_fused_kernelILi1ELi3E",
+                "limb_matmul_kernelILi1ELi0E",
+                "limb_matmul_kernelILi2ELi1E")):
             log("ptxas: " + " | ".join(x.strip() for x in report[i:i + 3]))
     return smi
 
@@ -737,6 +777,10 @@ def phase_kernels() -> tuple[dict, float]:
     log("  N=1024 (lvl1, lvl4, lvl256):")
     check_wide_steps(rows, gen)
     check_wide_limb_matmul(rows, gen)
+    log("  the tree-PBS model (PARAMS_SHORTINT_1BIT) and the 8-bit model "
+        "(PARAMS_WOPPBS_8BIT):")
+    check_model_steps(rows, gen)
+    check_model_products(rows, gen)
     sync()
     return rows, floor
 
@@ -853,11 +897,13 @@ def check_limb_matmul(rows, gen) -> None:
 
 
 @contextlib.contextmanager
-def launch_shapes():
+def launch_shapes(labels=None):
     """Tally K3's and K4's calls by operand shape while the block runs: the
     module attributes the path calls through are wrapped. A wrapper counts
     its launches on the function its module's name resolves to, so the
-    recorders carry the counts while installed and hand them back."""
+    recorders carry the counts while installed and hand them back. labels:
+    {(K, N): name} for K4's contractions that are neither a keyswitch nor
+    a pfKS."""
     tally: dict = {}
     k3, k4 = kx.extprod_grouped_fused, kmm.fused_limb_matmul
 
@@ -868,7 +914,8 @@ def launch_shapes():
 
     def k4_seen(d_planes, m_planes, j_start=0):
         # the keyswitch's N is n + 1 (< 1000), the pfKS's (k+1)²·N
-        what = "pfKS" if m_planes.shape[2] > 1000 else "KS"
+        what = (labels or {}).get(tuple(m_planes.shape[1:])) or (
+            "pfKS" if m_planes.shape[2] > 1000 else "KS")
         key = f"K4 {what} n_d={d_planes.shape[0]} B={d_planes.shape[1]}"
         tally[key] = tally.get(key, 0) + 1
         return k4(d_planes, m_planes, j_start)
@@ -981,15 +1028,13 @@ def phase_full_width():
     log(f"keygen (seeded) + key preparation: {time.time() - t0:.1f} s")
     blocks = scenario.ctr_blocks(IV, 2)
     expect = aes_lib.encrypt_blocks(KEY, blocks)
-    main_path = ("extprod_step2g", "rot_diff_digits", "extprod_grouped_fused",
-                 "fused_limb_matmul")
 
     reset_counters()
     out2, t2 = scenario.run_client_server_aes_scenario(client, ctx, KEY, IV,
                                                        2, rounds=10)
     batch = read_counters()
     assert out2 == expect, "keystream mismatch on the batch path"
-    require_launches("2-block batch path", batch, main_path)
+    require_launches("2-block batch path", batch, MAIN_PATH)
 
     request = scenario.encrypt_request(client, ctx, STRATEGY, KEY, blocks[:1])
     reset_counters()
@@ -1000,7 +1045,7 @@ def phase_full_width():
         f"{key}: {count}" for key, count in sorted(shapes.items())))
     assert scenario.read_response(client, ctx, STRATEGY, out1) == expect[:1], \
         "keystream mismatch on the latency path"
-    require_launches("1-block latency path", latency, main_path)
+    require_launches("1-block latency path", latency, MAIN_PATH)
     log(f"key expansion: {t2['key_expansion_s']:.2f} s; 10 rounds x 2 "
         f"blocks: {t2['blocks_s']:.2f} s; latency path (1 block, expansion "
         f"included): {t1['fused_latency_s']:.2f} s")
@@ -1239,10 +1284,9 @@ P256 = params_mod.PARAMS_SQRD_LVL_256
 WIDE = "N=1024"       # the name prefix of the rows measured at N = 1024
 
 
-def wide_step_operands(gen, b, lv, js, nd=2, fill=None):
-    """A step's operands at N = 1024, k = 2: acc, t (the rotations 0, N-1,
-    N and 2N-1 among the lanes), digits and a BSK entry."""
-    n, k1 = 1024, 3
+def step_operands(gen, k1, n, lv, nd, b, js, fill=None):
+    """A CMux step's operands at (k+1, N, L, n_d, B, js), the rotations 0,
+    N-1, N and 2N-1 among the lanes; fill: every digit and key byte."""
     acc = torch.randint(-2**62, 2**62, (k1, b, n), generator=gen,
                         dtype=torch.int64).to(DEV)
     t = torch.randint(0, 2 * n, (b,), generator=gen, dtype=torch.int32)
@@ -1266,7 +1310,7 @@ def check_wide_steps(rows, gen) -> None:
                              for js in (0, 2)]
                             + ([(13, 2, -128), (288, 2, -128)] if lv == 4
                                else [])):
-            acc, t, dig, ext = wide_step_operands(gen, b, lv, js, fill=fill)
+            acc, t, dig, ext = step_operands(gen, 3, 1024, lv, 2, b, js, fill)
             got = kx.extprod_step2g(dig, ext, acc.clone(), t, bl, lv, js)
             ref = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, bl, lv,
                                           js)
@@ -1287,7 +1331,7 @@ def check_wide_steps(rows, gen) -> None:
         "at R=12, B in {13, 288}")
     cases = 0
     for b in (9, 288):
-        acc, t, _, _ = wide_step_operands(gen, b, 1, 7)
+        acc, t, _, _ = step_operands(gen, 3, 1024, 1, 2, b, 7)
         for lv, bl in sorted(kx.GLUE_GADGETS):
             nd = torus.limbs_for_bound(decomposition.digit_bound(bl))
             if not torch.equal(kx.rot_diff_digits(acc, t, bl, lv, nd),
@@ -1302,7 +1346,7 @@ def check_wide_steps(rows, gen) -> None:
         nd = torus.limbs_for_bound(decomposition.digit_bound(bl))
         js = truncation.bsk_j_start(p)
         for b in (160, 288):
-            acc, t, dig, ext = wide_step_operands(gen, b, lv, js, nd)
+            acc, t, dig, ext = step_operands(gen, 3, 1024, lv, nd, b, js)
             k1, _, n = acc.shape
             r = k1 * lv
             macs = b * k1 * r * n * n * pairs(nd, js)
@@ -1468,14 +1512,12 @@ def phase_wide(rows, gen):
     CLI's two runs, the pairing's, the (grid, partials) run's and lvl1's."""
     log("== phase 7: the N = 1024 sets at full width, default lowering "
         "(gridg, fused)")
-    main_path = ("extprod_step2g", "rot_diff_digits", "extprod_grouped_fused",
-                 "fused_limb_matmul")
     argv = ["--key", KEY.hex(), "--iv", IV.hex(), "--params", "lvl256"]
     lat, lat_shapes, lat_s = run_cli(argv + ["--number-of-outputs", "1"],
                                      "lvl256, 1 block (latency path)",
-                                     main_path)
+                                     MAIN_PATH)
     batch, _, batch_s = run_cli(argv + ["--number-of-outputs", "2"],
-                                "lvl256, 2 blocks (staged)", main_path)
+                                "lvl256, 2 blocks (staged)", MAIN_PATH)
     log(f"lvl256 through cli.main: 1 block {lat_s:.2f} s and 2 blocks "
         f"{batch_s:.2f} s of wall time, keygen included; both verified "
         "against the AES authority")
@@ -1492,7 +1534,7 @@ def phase_wide(rows, gen):
     pairing = read_counters()
     assert out == aes_lib.encrypt_blocks(KEY, scenario.ctr_blocks(IV, 1))
     require_launches("lvl256 under ShortintWoppbs1BitSboxPbsAesEncrypt",
-                     pairing, main_path)
+                     pairing, MAIN_PATH)
     log(f"lvl256 under ShortintWoppbs1BitSboxPbsAesEncrypt, 1 block: key "
         f"expansion (eager) {t['key_expansion_s']:.2f} s, 10 rounds "
         f"{t['blocks_s']:.2f} s ({pairing['rot_diff_digits']} bootstraps in "
@@ -1549,7 +1591,7 @@ def phase_wide(rows, gen):
             raise AssertionError(f"lvl1 SBOX x {mul} decrypts wrong")
     log("lvl1: K3 and K4 launches by shape: " + ", ".join(
         f"{key}: {count}" for key, count in sorted(shapes1.items())))
-    require_launches("lvl1 SBOX+GalMul circuit bootstrap", lvl1, main_path)
+    require_launches("lvl1 SBOX+GalMul circuit bootstrap", lvl1, MAIN_PATH)
     if not any(k.startswith("K4 pfKS n_d=4") for k in shapes1):
         raise AssertionError("lvl1's pfKS did not launch K4 at n_d=4")
     log(f"lvl1 SBOX+GalMul circuit bootstrap of 16 bytes (128 lanes): "
@@ -1557,6 +1599,471 @@ def phase_wide(rows, gen):
     del ctx1, raw1
     check_wide_vp(rows, gen, lat_shapes)
     return [lat, batch, pairing, grid_counts, lvl1]
+
+
+# ------------------- the other two models: tree PBS and 8-bit WoP-PBS
+
+P_TREE = tm1b.PARAMS_SHORTINT_1BIT
+P8 = params_mod.PARAMS_WOPPBS_8BIT
+TREE = "tree"         # the name prefix of the rows measured at P_TREE
+
+
+def check_model_steps(rows, gen) -> None:
+    """K1, K5 and K2 at the two models' blind rotations — the tree's
+    PARAMS_SHORTINT_1BIT (N = 512, R = 35, gadget (7, 6), the new K2 and
+    K10a build) and the 8-bit model's PARAMS_WOPPBS_8BIT (N = 1024, R = 18,
+    gadget (6, 7)), both one limb a digit — over B in {1, 9, 13, 288} and
+    js in {0, 1}, with every byte -128 at js = 1: each against its plain
+    version, K2 then K5 equal to K1; at the tree's N = 512 also K10a equal
+    to K2 permuted, and K6, K9, K10b and K11 (the glue_out, merged, longk
+    and bucket steps, which the CLI admits for the tree set) equal to their
+    plain versions and to K5.
+    Then K1, K5 and K2 timed at the widest B each model's path gives: the
+    2-byte tree SBOX's first level (2,048 lanes) and a 16-byte circuit
+    bootstrap of the 8-bit model (128 lanes), with its 4-byte one (32)."""
+    done = 0
+    for name, p in ((TREE, P_TREE), ("8-bit", P8)):
+        k1, n = p.glwe_dimension + 1, p.polynomial_size
+        lv, bl = p.pbs_level, p.pbs_base_log
+        nd = torus.limbs_for_bound(decomposition.digit_bound(bl))
+        for b, js, fill in [(b, js, None) for b in (1, 9, 13, 288)
+                            for js in (0, 1)] + [(13, 1, -128),
+                                                 (288, 1, -128)]:
+            acc, t, dig, ext = step_operands(gen, k1, n, lv, nd, b, js, fill)
+            got = kx.extprod_step2g(dig, ext, acc.clone(), t, bl, lv, js)
+            ref = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, bl, lv,
+                                          js)
+            a5 = kx.extprod_step2(dig, ext, acc.clone(), js)
+            d2 = kx.rot_diff_digits(acc, t, bl, lv, nd)
+            ok = (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+                  and torch.equal(a5, kx.extprod_step2_plain(
+                      dig, ext, acc.clone(), js))
+                  and torch.equal(a5, got[0])
+                  and torch.equal(kx.rot_diff_digits(a5, t, bl, lv, nd),
+                                  got[1])
+                  and torch.equal(d2, kx.rot_diff_digits_plain(acc, t, bl,
+                                                               lv, nd)))
+            if n <= 512:
+                # the N <= 512 lowerings at the tree's step: K10a; K6, K10b
+                # and K11 on the same digits as K5 and K9 on K2's, each
+                # equal to its plain version and to K5
+                flat = dig.permute(2, 3, 0, 1, 4).reshape(nd, b, k1 * lv * n)
+                dig_bm = dig.reshape(k1 * lv, nd, b, n).permute(
+                    1, 2, 0, 3).contiguous()
+                acc_bm = acc.permute(1, 0, 2).contiguous()
+                k6 = kx.extprod_step(dig_bm, ext, acc_bm, js)
+                k9 = kx.cmux_step_merged(t, ext, acc.clone(), bl, lv, js)
+                k10 = kx.extprod_step_longk(flat, ext, acc.clone(), js)
+                k11 = kx.extprod_step3(dig, ext, acc.clone(), js)
+                ok = (ok and torch.equal(
+                    kx.rot_diff_digits_flat(acc, t, bl, lv, nd),
+                    d2.permute(2, 3, 0, 1, 4).reshape(nd, b, k1 * lv * n))
+                    and torch.equal(k6, kx.extprod_step_plain(
+                        dig_bm, ext, acc_bm, js))
+                    and torch.equal(k6.permute(1, 0, 2), a5)
+                    and torch.equal(k9, kx.cmux_step_merged_plain(
+                        t, ext, acc.clone(), bl, lv, js))
+                    and torch.equal(k9, kx.extprod_step2(d2, ext,
+                                                         acc.clone(), js))
+                    and torch.equal(k10, kx.extprod_step_longk_plain(
+                        flat, ext, acc.clone(), js))
+                    and torch.equal(k10, a5)
+                    and torch.equal(k11, kx.extprod_step3_plain(
+                        dig, ext, acc.clone(), js))
+                    and torch.equal(k11, a5))
+            sync()
+            if not ok:
+                raise AssertionError(f"K1, K5, K2, K6, K9, K10a, K10b or K11 "
+                                     f"differs at {name} B={b} js={js} "
+                                     f"fill={fill}")
+            done += 1
+    log(f"  the two models' steps: K1 and K5 bit-equal to plain, K2 then K5 "
+        f"== K1, K2 at gadgets (7, 6) and (6, 7), and at the tree's N = 512 "
+        f"K10a, K6, K9, K10b and K11 bit-equal to plain and to K5, in "
+        f"{done} cases (B in {{1, 9, 13, 288}} x js in {{0, 1}}, and every "
+        f"byte -128 at B in {{13, 288}})")
+    for name, p, bs in ((TREE, P_TREE, (2048,)), (f"{WIDE} 8-bit", P8,
+                                                  (128, 32))):
+        k1, n = p.glwe_dimension + 1, p.polynomial_size
+        lv, bl = p.pbs_level, p.pbs_base_log
+        nd = torus.limbs_for_bound(decomposition.digit_bound(bl))
+        js = truncation.bsk_j_start(p)
+        r = k1 * lv
+        for b in bs:
+            acc, t, dig, ext = step_operands(gen, k1, n, lv, nd, b, js)
+            macs = b * k1 * r * n * n * pairs(nd, js)
+            scratch = acc.clone()
+            got = kx.extprod_step2g(dig, ext, acc.clone(), t, bl, lv, js)
+            ref = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, bl, lv,
+                                          js)
+            sync()
+            record(f"extprod_step2g {name} B={b} R={r}",
+                   rows["extprod_step2g"], macs,
+                   dig.numel() * 2 + ext.numel() + acc.numel() * 16 + b * 4,
+                   time_ms(lambda: kx.extprod_step2g(dig, ext, scratch, t,
+                                                     bl, lv, js)),
+                   time_ms(lambda: kx.extprod_step2g_plain(
+                       dig, ext, scratch, t, bl, lv, js), reps=2),
+                   max(max_abs_err(got[0], ref[0]),
+                       max_abs_err(got[1], ref[1])))
+            record(f"extprod_step2 {name} B={b} R={r}",
+                   rows["extprod_step2"], macs,
+                   dig.numel() + ext.numel() + acc.numel() * 16,
+                   time_ms(lambda: kx.extprod_step2(dig, ext, scratch, js)),
+                   time_ms(lambda: kx.extprod_step2_plain(dig, ext, scratch,
+                                                          js), reps=2),
+                   max_abs_err(kx.extprod_step2(dig, ext, acc.clone(), js),
+                               kx.extprod_step2_plain(dig, ext, acc.clone(),
+                                                      js)))
+            out = kx.rot_diff_digits(acc, t, bl, lv, nd)
+            record(f"rot_diff_digits {name} B={b} ({lv}, {bl})",
+                   rows["rot_diff_digits"], 0,
+                   acc.numel() * 8 + out.numel() + b * 4,
+                   time_ms(lambda: kx.rot_diff_digits(acc, t, bl, lv, nd)),
+                   time_ms(lambda: kx.rot_diff_digits_plain(acc, t, bl, lv,
+                                                            nd), reps=2),
+                   max_abs_err(out, kx.rot_diff_digits_plain(acc, t, bl, lv,
+                                                             nd)))
+
+
+def check_model_products(rows, gen) -> None:
+    """K3 at the tree's selection product (R = 2, G = 1, O = 5, n_d = 1,
+    js = 0, N = 512; the 2-byte SBOX's first level, 1,024 pairs), through
+    polynomial.polymul_shared_digits and on its own operands, against its
+    plain version; K3 and K8 split at N = 1024 with one limb (the 8-bit model's
+    vertical packing: R = 12, O = 3, G = 1, js = 3) at 16 and 4 lanes, K8
+    recombined equal to K3, and with every byte -128; K4 at the tree's
+    packing keyswitch and keyswitch and at the 8-bit model's keyswitch and
+    pfKS. Each against its plain version, timed."""
+    k1, n = P_TREE.glwe_dimension + 1, P_TREE.polynomial_size
+    lanes = 1024
+    polys = torch.randint(-2**63, 2**63 - 1, (lanes, 2, k1, n),
+                          generator=gen, dtype=torch.int64).to(DEV)
+    masks = tm1b.selection_masks(n, DEV)
+    # K3's own operands, as polymul_shared_digits lays them out
+    ext = kx.split_polys_ext(polys).permute(1, 3, 2, 0, 4).contiguous()
+    dig = masks[None, :, None, :].expand(lanes, 2, 1, n).contiguous()
+    got = kx.extprod_grouped_fused(dig, ext, 1, 0)
+    ref = kx.extprod_grouped_fused_plain(dig, ext, 1, 0)
+    sync()
+    if not torch.equal(polynomial.polymul_shared_digits(masks, polys),
+                       got[:, :, 0]):
+        raise AssertionError("polymul_shared_digits differs from K3")
+    record(f"extprod_grouped_fused {TREE} selection pairs={lanes} R=2 G=1",
+           rows["extprod_grouped_fused"], lanes * k1 * 2 * n * n * 8,
+           dig.numel() + ext.numel() + got.numel() * 8,
+           time_ms(lambda: kx.extprod_grouped_fused(dig, ext, 1, 0)),
+           time_ms(lambda: kx.extprod_grouped_fused_plain(dig, ext, 1, 0),
+                   reps=2), max_abs_err(got, ref))
+    sel_ms = time_ms(lambda: polynomial.polymul_shared_digits(masks, polys))
+    log(f"    the whole selection product (limb split, permute, K3) on the "
+        f"card: {sel_ms:.4f} ms")
+    del polys, ext, dig, got, ref
+
+    k1, n = P8.glwe_dimension + 1, P8.polynomial_size
+    r = k1 * P8.cbs_level
+    nd = torus.limbs_for_bound(decomposition.digit_bound(P8.cbs_base_log))
+    js = truncation.vp_ggsw_j_start(P8)
+    for lanes, g, fill in ((16, 1, None), (4, 1, None), (16, 1, -128)):
+        lo, hi = (-128, 128) if fill is None else (fill, fill + 1)
+        dig = rand_i8(gen, (lanes, r, nd * g, n), lo, hi)
+        ext = rand_i8(gen, (lanes, k1, r, 8 - js, 2 * n), lo, hi)
+        fused = kx.extprod_grouped_fused(dig, ext, nd, js)
+        ref = kx.extprod_grouped_fused_plain(dig, ext, nd, js)
+        dig_8 = dig.reshape(lanes, r, nd, g, n).permute(2, 0, 3, 1,
+                                                       4).contiguous()
+        ext_8 = ext.permute(3, 0, 2, 1, 4).contiguous()
+        parts = kx.extprod_partials_grouped(dig_8, ext_8, js)
+        ref8 = kx.extprod_partials_grouped_plain(dig_8, ext_8, js)
+        sync()
+        if not torch.equal(polynomial.recombine_partials(parts, js),
+                           fused.permute(0, 2, 1, 3)):
+            raise AssertionError(f"K8 recombined differs from K3 at the "
+                                 f"8-bit model's {lanes} lanes, fill={fill}")
+        if fill is not None:
+            if not (torch.equal(fused, ref) and torch.equal(parts, ref8)):
+                raise AssertionError("K3 or K8 differs at the 8-bit model's "
+                                     "shape at the value -128")
+            log(f"  {WIDE} 8-bit: K3 and K8 (n_d = 1 split builds) bit-equal "
+                f"to plain with every byte -128 at {lanes} lanes")
+            continue
+        macs = lanes * g * k1 * r * n * n * pairs(nd, js)
+        record(f"extprod_grouped_fused {WIDE} 8-bit lanes={lanes} G={g} "
+               f"n_d={nd}", rows["extprod_grouped_fused"], macs,
+               dig.numel() + ext.numel() + fused.numel() * 8,
+               time_ms(lambda: kx.extprod_grouped_fused(dig, ext, nd, js)),
+               time_ms(lambda: kx.extprod_grouped_fused_plain(dig, ext, nd,
+                                                              js), reps=2),
+               max_abs_err(fused, ref))
+        record(f"extprod_partials_grouped {WIDE} 8-bit lanes={lanes} G={g} "
+               f"n_d={nd}", rows["extprod_partials_grouped"], macs,
+               dig.numel() + ext.numel() + parts.numel() * 4,
+               time_ms(lambda: kx.extprod_partials_grouped(dig_8, ext_8, js)),
+               time_ms(lambda: kx.extprod_partials_grouped_plain(
+                   dig_8, ext_8, js), reps=2), max_abs_err(parts, ref8))
+
+    def nd_of(base_log):
+        return torus.limbs_for_bound(decomposition.digit_bound(base_log))
+    # (name, what, n_d, K, N, js, B): B as the 2-byte tree SBOX's first
+    # level and a 16-byte bootstrap of the 8-bit model give them
+    shapes = [
+        (TREE, "packing KS", nd_of(P_TREE.ks_base_log),
+         P_TREE.lwe_dimension * P_TREE.ks_level,
+         (P_TREE.glwe_dimension + 1) * P_TREE.polynomial_size, 0, 1024),
+        (TREE, "keyswitch") + k4_shapes(P_TREE)[0][1:] + (2048,),
+        (f"{WIDE} 8-bit", "keyswitch") + k4_shapes(P8)[0][1:] + (16,),
+        (f"{WIDE} 8-bit", "pfKS") + k4_shapes(P8)[1][1:] + (128,)]
+    for name, what, nd_m, kk, nn, js_m, b in shapes:
+        m = kmm.kmajor_key_planes(rand_i8(gen, (8 - js_m, kk, nn)))
+        d = rand_i8(gen, (nd_m, b, kk))
+        got = kmm.fused_limb_matmul(d, m, js_m)
+        ref = kmm.fused_limb_matmul_plain(d, m, js_m)
+        sync()
+        record(f"fused_limb_matmul {name} {what} n_d={nd_m} B={b} (split "
+               f"{kmm._splits(b, kk, nn)})", rows["fused_limb_matmul"],
+               b * kk * nn * pairs(nd_m, js_m),
+               d.numel() + m.numel() + got.numel() * 8,
+               time_ms(lambda: kmm.fused_limb_matmul(d, m, js_m)),
+               time_ms(lambda: kmm.fused_limb_matmul_plain(d, m, js_m),
+                       reps=2), max_abs_err(got, ref))
+        del m
+
+
+def cards_against_the_cpu() -> None:
+    """On keys made once from a seed on the CPU and carried onto both
+    devices: one tree SBOX output bit at PARAMS_TEST_S1 (255 bootstraps),
+    and one byte's bootstrap_from_bits through the SBOX LUT followed by
+    extract_bits_from_ciphertext at PARAMS_TEST_8BIT, on the card and with
+    the plain versions on the CPU: bit-equal, and decrypting right."""
+    byte = 0x3A
+    bits = np.unpackbits(np.array([byte], np.uint8)[:, None], axis=-1)[0]
+    sbox_msb = lambda v: (int(SBOX[v]) >> 7) & 1            # noqa: E731
+    for pset, mod in ((tm1b.PARAMS_TEST_S1, tm1b),
+                      (params_mod.PARAMS_TEST_8BIT, tm8)):
+        client, raw = keys_mod.generate_keys(pset, seed=11, device="cpu")
+        raw_card = keys_mod.ServerKeySet(*(x.to(DEV) for x in raw))
+        if mod is tm1b:
+            ct = client.encrypt_encodings_small(
+                bits.astype(np.uint64) << np.uint64(62))
+        else:
+            ct = client.encrypt_bits_small(bits)
+        outs = {}
+        for dev, sks in (("cpu", raw), (DEV, raw_card)):
+            ctx = mod.context_from_keys(pset, sks, lowering=Lowering())
+            arr = torus.to_tensor(ct, dev)
+            t0 = time.time()
+            if mod is tm1b:
+                out = tm1b.calculate_multivariate_function(
+                    ctx, tm1b.Bit1Ct(arr, ctx),
+                    tm1b.generate_multivariate_test_vector(ctx, 8,
+                                                           sbox_msb)).array
+                what = "tree SBOX output bit (255 bootstraps)"
+            else:
+                fw = ctx.bootstrap_from_bits(
+                    tm8.fresh_linear_bitct(arr, ctx),
+                    ctx.generate_lookup_table(lambda v: int(SBOX[v])))
+                out = torch.cat([fw.array.reshape(-1), ctx
+                                 .extract_bits_from_ciphertext(fw).array
+                                 .reshape(-1)])
+                what = ("bootstrap_from_bits + extract_bits_from_ciphertext "
+                        "of one byte")
+            if dev == DEV:
+                sync()
+            outs[dev] = out.cpu()
+            name = "PARAMS_TEST_S1" if mod is tm1b else "PARAMS_TEST_8BIT"
+            log(f"  {what} at {name} on {dev}: {time.time() - t0:.2f} s")
+        if not torch.equal(outs["cpu"], outs[DEV]):
+            raise AssertionError(f"{mod.__name__}: the card differs from the "
+                                 "CPU's plain versions")
+        arr = torus.to_numpy(outs[DEV])
+        if mod is tm1b:
+            got = int(fhe.Shortint1BitSboxPbsAesEncrypt.decrypt_bits(client,
+                                                                     arr))
+            want = sbox_msb(byte)
+        else:
+            small = arr[-8 * (pset.lwe_dimension + 1):].reshape(1, 8, -1)
+            got = fhe.ShortintWoppbs8BitSboxPbsAesEncrypt.decrypt_client(
+                client, small)[0][0]
+            want = int(SBOX[byte])
+        if got != want:
+            raise AssertionError(f"{mod.__name__}: decrypts to {got}, not "
+                                 f"{want}")
+    log("card == CPU (plain versions), bit for bit, on the same keys: the "
+        "tree SBOX bit at PARAMS_TEST_S1 and the 8-bit byte op at "
+        "PARAMS_TEST_8BIT; both decrypt right")
+
+
+@contextlib.contextmanager
+def environment(**values):
+    """os.environ with `values` set (None: removed) inside the block."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_models():
+    """The other two models at full width: the card against the CPU on the
+    same keys at the test sets; the tree model's SBOX on 2 bytes at
+    PARAMS_SHORTINT_1BIT; the 8-bit model through cli.main at
+    PARAMS_WOPPBS_8BIT, 2 rounds, under the default lowering, and its rounds
+    again under (gridg, partials), bit-equal; and the CLI's refusal of the
+    8-bit model under merged, before keygen. Returns the launch counts of
+    the tree run, the CLI run and the partials rounds."""
+    log("== phase 8: the other two models at full width")
+    t0 = time.time()
+    cards_against_the_cpu()
+    log(f"step 1 (card against the CPU): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    tree = tree_sbox()
+    log(f"step 2 (tree SBOX, keygen included): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    runs = woppbs_8bit_cli()
+    log(f"step 3 (8-bit model, the CLI run and its rounds under partials): "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    refuse_8bit_under_merged()
+    log(f"step 4 (the CLI's refusal): {time.time() - t0:.2f} s")
+    return [tree] + runs
+
+
+def tree_sbox() -> dict:
+    """The tree model's SBOX on 2 bytes at PARAMS_SHORTINT_1BIT (8 output
+    bits x 255 bootstraps a byte, each tree level one batch), decrypted
+    against SBOX[x]; returns its launch counts."""
+    t0 = time.time()
+    client, ctx = tm1b.generate_keys(P_TREE, seed=0, device=DEV,
+                                     lowering=Lowering())
+    ops = tm1b.Shortint1BitByteOps(ctx)
+    ops._sbox_tvs()
+    sync()
+    log(f"PARAMS_SHORTINT_1BIT keygen (seeded) + key preparation + the SBOX "
+        f"leaf tables: {time.time() - t0:.1f} s")
+    byts = np.array([0x53, 0xC5], np.uint8)
+    bits = np.unpackbits(byts[:, None], axis=-1)
+    state = tm1b.fresh_lane_bit1ct(torus.to_tensor(
+        client.encrypt_encodings_small(bits.astype(np.uint64)
+                                       << np.uint64(62)), DEV), ctx)
+    pk = P_TREE.lwe_dimension * P_TREE.ks_level
+    labels = {(pk, (P_TREE.glwe_dimension + 1) * P_TREE.polynomial_size):
+              "packing KS"}
+    reset_counters()
+    t0 = time.time()
+    with launch_shapes(labels) as shapes:
+        out = ops.sub_bytes(state)
+    sync()
+    tree_s = time.time() - t0
+    tree = read_counters()
+    dec = b"".join(fhe.Shortint1BitSboxPbsAesEncrypt.decrypt_client(
+        client, torus.to_numpy(out.array)))
+    if dec != bytes(int(SBOX[x]) for x in byts):
+        raise AssertionError(f"tree SBOX decrypts to {dec.hex()}")
+    log("tree SBOX, 2 bytes: K3 and K4 launches by shape: " + ", ".join(
+        f"{key}: {count}" for key, count in sorted(shapes.items())))
+    require_launches("tree SBOX at PARAMS_SHORTINT_1BIT, 2 bytes", tree,
+                     MAIN_PATH)
+    log(f"tree SBOX at PARAMS_SHORTINT_1BIT, 2 bytes x 8 output bits "
+        f"(4,080 blind rotations of {P_TREE.lwe_dimension} steps): "
+        f"{tree_s:.2f} s; both bytes decrypt to SBOX[x]")
+    return tree
+
+
+def woppbs_8bit_cli() -> list:
+    """The 8-bit model through cli.main on the card at PARAMS_WOPPBS_8BIT,
+    1 block, 2 rounds, under the default lowering, verified by the CLI
+    against the plain 2-round oracle; then the same 2 rounds again on the
+    same prepared keys, expanded key and encrypted block under (gridg,
+    partials) — the lowering TFHE_VP_FUSED=0 selects — which must launch K8
+    and no K3 and give the fused run's output ciphertexts bit for bit.
+    Returns both runs' launch counts."""
+    argv = ["--implementation", "shortint-woppbs-8bit", "--key", KEY.hex(),
+            "--iv", IV.hex(), "--number-of-outputs", "1", "--rounds", "2"]
+    seen = {}
+    real_serve, real_schedule = scenario.serve_request, fhe.key_schedule_staged
+
+    def serve(ctx, strategy, key_ct, block_cts, rounds=10, **kwargs):
+        out, timings = real_serve(ctx, strategy, key_ct, block_cts, rounds,
+                                  **kwargs)
+        seen.update(ctx=ctx, strategy=strategy, blocks=block_cts,
+                    rounds=rounds, out=out.array)
+        return out, timings
+
+    def schedule(*args, **kwargs):
+        seen["eks"] = real_schedule(*args, **kwargs)
+        return seen["eks"]
+    scenario.serve_request, fhe.key_schedule_staged = serve, schedule
+    try:
+        with environment(TFHE_BR_KERNEL=None, TFHE_BR_GLUE=None,
+                         TFHE_VP_FUSED=None):
+            fused, _, secs = run_cli(argv, "8-bit model, default lowering",
+                                     MAIN_PATH)
+    finally:
+        scenario.serve_request, fhe.key_schedule_staged = (real_serve,
+                                                           real_schedule)
+    log(f"8-bit model through cli.main, 1 block, 2 rounds, (gridg, fused): "
+        f"{secs:.2f} s of wall time, keygen included; verified against the "
+        f"plain 2-round oracle")
+    ctx = dataclasses.replace(seen["ctx"], lowering=Lowering("gridg",
+                                                             "partials"))
+    eks = dataclasses.replace(seen["eks"], context=ctx)
+    reset_counters()
+    t0 = time.time()
+    out = fhe.encrypt_blocks_staged(seen["strategy"], ctx, eks,
+                                    seen["blocks"], seen["rounds"]).array
+    sync()
+    secs = time.time() - t0
+    partials = read_counters()
+    require_launches("8-bit model, (gridg, partials)", partials,
+                     ("extprod_step2g", "rot_diff_digits",
+                      "extprod_partials_grouped", "fused_limb_matmul"))
+    if partials["extprod_grouped_fused"] != 0:
+        raise AssertionError("the (gridg, partials) rounds launched K3")
+    if not torch.equal(out, seen["out"]):
+        raise AssertionError("8-bit model: the partials rounds' ciphertext "
+                             "differs from the fused run's")
+    log(f"8-bit model, the same 2 rounds under (gridg, partials) on the same "
+        f"keys and expanded key: {secs:.2f} s; output ciphertexts bit-equal "
+        f"to the fused run's (K8 {partials['extprod_partials_grouped']} "
+        f"launches, no K3)")
+    return [fused, partials]
+
+
+def refuse_8bit_under_merged() -> None:
+    """cli.main with the 8-bit model (N = 1024) and --params lvl64 (N = 512)
+    under TFHE_BR_KERNEL=merged on the card: refused (argparse's exit 2)
+    before any keygen, as the refusal reads the set the model runs."""
+    keygens = []
+    real_keys = tm8.generate_keys
+    tm8.generate_keys = lambda *a, **k: keygens.append(1) or real_keys(*a,
+                                                                         **k)
+    try:
+        with environment(TFHE_BR_KERNEL="merged", TFHE_BR_GLUE=None,
+                         TFHE_VP_FUSED=None), \
+                contextlib.redirect_stderr(io.StringIO()) as err:
+            cli.main(["--implementation", "shortint-woppbs-8bit", "--params",
+                      "lvl64", "--key", KEY.hex(), "--iv", IV.hex(),
+                      "--number-of-outputs", "1"], device=DEV)
+        raise AssertionError("the CLI took the 8-bit model under merged")
+    except SystemExit as e:
+        code = e.code
+    finally:
+        tm8.generate_keys = real_keys
+    if code != 2 or keygens or "polynomial_size 1024" not in err.getvalue():
+        raise AssertionError(f"the 8-bit model under merged: exit {code}, "
+                             f"{len(keygens)} keygens, {err.getvalue()!r}")
+    log(f"the CLI refused the 8-bit model under TFHE_BR_KERNEL=merged on "
+        f"{DEV} before keygen (exit 2): "
+        f"{err.getvalue().strip().splitlines()[-1][:160]}")
 
 
 def main() -> int:
@@ -1581,19 +2088,21 @@ def main() -> int:
     third = phase_server(client, raw, ctx, request, out1)
     del client, raw, ctx
     wide = phase_wide(rows, torch.Generator().manual_seed(4321))
+    models = phase_models()
     # each kernel's launches on the main paths: the default lowering's two
     # runs (phase 4), the (grid, partials) run and the glue_out rotation
     # (phase 5), the two served requests and the three derivations (phase
-    # 6), the N = 1024 runs (phase 7)
+    # 6), the N = 1024 runs (phase 7), the other two models' runs (phase 8)
     launches = {name: sum(c[name] for c in [batch, latency, grid, glue]
-                          + third + wide) for name in KERNELS}
+                          + third + wide + models) for name in KERNELS}
     missing = [name for name, count in launches.items() if count <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")
     kernels = []
     for name, spec in KERNELS.items():
         # the main path's row: the last at PARAMS_SQRD_LVL_64's shapes
-        last = [x for x in rows[name] if WIDE not in x["name"]][-1]
+        last = [x for x in rows[name] if WIDE not in x["name"]
+                and TREE not in x["name"]][-1]
         kernels.append(dict(
             name=name, route="cuda", source=spec["source"],
             replaces=spec["replaces"], launches=launches[name],

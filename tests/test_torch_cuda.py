@@ -454,8 +454,9 @@ def test_cuda_partials_extreme_values():
 WIDE_GADGETS = ((2, 15), (4, 9))
 
 
-def _wide_step_operands(gen, b, levels, js, fill=None):
-    k1, n, n_d = 3, 1024, 2
+def _step_operands(gen, k1, n, levels, n_d, b, js, fill=None):
+    """A CMux step's operands at (k+1, N, L, n_d, B, js), the rotations 0,
+    N-1, N and 2N-1 among the lanes; fill: every digit and key byte."""
     acc = torch.randint(-2 ** 62, 2 ** 62, (k1, b, n), generator=gen,
                         dtype=torch.int64).cuda()
     t = torch.randint(0, 2 * n, (b,), generator=gen, dtype=torch.int32)
@@ -466,6 +467,11 @@ def _wide_step_operands(gen, b, levels, js, fill=None):
     ext = torch.randint(lo, hi, (k1, k1 * levels, 8 - js, 2 * n),
                         generator=gen, dtype=torch.int8).cuda()
     return dig, ext, acc, t.cuda()
+
+
+def _wide_step_operands(gen, b, levels, js, fill=None):
+    """A step's operands at N = 1024, k = 2, two limbs."""
+    return _step_operands(gen, 3, 1024, levels, 2, b, js, fill)
 
 
 def _assert_wide_step(dig, ext, acc, t, base_log, levels, js):
@@ -618,4 +624,182 @@ def test_cuda_limb_matmul_four_limbs_extreme_values():
     assert kmm._splits(96, kk, 64 * 132) == 1
     assert torch.equal(kmm.fused_limb_matmul(d, m, 1),
                        kmm.fused_limb_matmul_plain(d, m, 1))
+    torch.cuda.synchronize()
+
+
+# ------------------- the other two models: tree PBS and 8-bit WoP-PBS
+
+# (k+1, N, levels, base_log) of the two models' blind rotations: the tree
+# model's PARAMS_SHORTINT_1BIT (R = 35) and the 8-bit model's
+# PARAMS_WOPPBS_8BIT (N = 1024, R = 18); both give one limb a digit
+MODEL_STEPS = {"shortint_1bit": (5, 512, 7, 6), "woppbs_8bit": (3, 1024, 6, 7)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 9, 13, 288])
+@pytest.mark.parametrize("model", sorted(MODEL_STEPS))
+def test_cuda_model_steps_match_plain(model, b):
+    """On the card at the two models' blind-rotation shapes, n_d = 1, js in
+    {0, 1} (1: both sets' truncation of the BSK): K1 and K5 bit-equal to
+    their plain versions, K2 (at the tree's new gadget (7, 6) and the 8-bit
+    model's (6, 7) at N = 1024) then K5 equal to K1; at N = 512 also K10a
+    equal to K2 permuted; and every digit and key byte -128 at js = 1."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(7500 + b + (model == "woppbs_8bit"))
+    k1, n, levels, base_log = MODEL_STEPS[model]
+    for js, fill in ((0, None), (1, None), (1, -128)):
+        dig, ext, acc, t = _step_operands(gen, k1, n, levels, 1, b, js, fill)
+        _assert_wide_step(dig, ext, acc, t, base_log, levels, js)
+        d2 = kx.rot_diff_digits(acc, t, base_log, levels, 1)
+        assert torch.equal(d2, kx.rot_diff_digits_plain(acc, t, base_log,
+                                                        levels, 1))
+        if n <= 512:
+            flat = kx.rot_diff_digits_flat(acc, t, base_log, levels, 1)
+            assert torch.equal(flat, d2.permute(2, 3, 0, 1, 4).reshape(
+                1, b, k1 * levels * n))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 9, 13, 288])
+def test_cuda_tree_step_schedules_match_plain(b):
+    """On the card at the tree model's step (k+1 = 5, N = 512, L = 7,
+    n_d = 1), js in {0, 1}, every byte -128 at js = 1: K6, K10b and K11 on
+    the same digits as K5, and K9 (its own glue), bit-equal to their plain
+    versions and to K5 — the glue_out, longk, bucket and merged steps the
+    CLI admits for PARAMS_SHORTINT_1BIT."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(7550 + b)
+    k1, n, levels, base_log = MODEL_STEPS["shortint_1bit"]
+    for js, fill in ((0, None), (1, None), (1, -128)):
+        dig, ext, acc, t = _step_operands(gen, k1, n, levels, 1, b, js, fill)
+        want = kx.extprod_step2(dig, ext, acc.clone(), js)
+        dig_bm = dig.reshape(k1 * levels, 1, b, n).permute(1, 2, 0,
+                                                           3).contiguous()
+        acc_bm = acc.permute(1, 0, 2).contiguous()
+        k6 = kx.extprod_step(dig_bm, ext, acc_bm, js)
+        assert torch.equal(k6, kx.extprod_step_plain(dig_bm, ext, acc_bm,
+                                                     js))
+        assert torch.equal(k6.permute(1, 0, 2), want)
+        flat = dig.permute(2, 3, 0, 1, 4).reshape(1, b, k1 * levels * n)
+        k10 = kx.extprod_step_longk(flat, ext, acc.clone(), js)
+        assert torch.equal(k10, kx.extprod_step_longk_plain(
+            flat, ext, acc.clone(), js))
+        assert torch.equal(k10, want)
+        k11 = kx.extprod_step3(dig, ext, acc.clone(), js)
+        assert torch.equal(k11, kx.extprod_step3_plain(dig, ext, acc.clone(),
+                                                       js))
+        assert torch.equal(k11, want)
+        k9 = kx.cmux_step_merged(t, ext, acc.clone(), base_log, levels, js)
+        assert torch.equal(k9, kx.cmux_step_merged_plain(
+            t, ext, acc.clone(), base_log, levels, js))
+        d2 = kx.rot_diff_digits(acc, t, base_log, levels, 1)
+        assert torch.equal(k9, kx.extprod_step2(d2, ext, acc.clone(), js))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 13, 300])
+def test_cuda_selection_product_matches_plain(lanes):
+    """On the card: the tree's selection product mask0·p0 + mask1·p1
+    (polynomial.polymul_shared_digits: K3 at R = 2, G = 1, O = 5, n_d = 1,
+    js = 0, N = 512) bit-equal to K3's plain version on the card and, up to
+    13 lanes, to the same function on the CPU, and in launches of 5 lanes, for the tree's masks and for
+    any int8 digits, with extreme polynomials among the random ones."""
+    from tfhe_aes2_tpu_torch.models import shortint_1bit as tm1b
+
+    require_cuda()
+    gen = torch.Generator().manual_seed(7600 + lanes)
+    n = 512
+    polys = torch.randint(-2 ** 63, 2 ** 63 - 1, (lanes, 2, 5, n),
+                          generator=gen, dtype=torch.int64)
+    polys[0, 0, 0] = -2 ** 63
+    polys[-1, 1, 4] = 2 ** 63 - 1
+    for digits in (tm1b.selection_masks(n, "cpu"),
+                   torch.randint(-128, 128, (2, n), generator=gen,
+                                 dtype=torch.int8)):
+        got = polynomial.polymul_shared_digits(digits.cuda(), polys.cuda())
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(polynomial, "_K3_LANES", 5)
+            assert torch.equal(got, polynomial.polymul_shared_digits(
+                digits.cuda(), polys.cuda()))
+        ext = kx.split_polys_ext(polys.cuda()).permute(1, 3, 2, 0,
+                                                       4).contiguous()
+        dig = digits.cuda()[None, :, None, :].expand(lanes, 2, 1,
+                                                     n).contiguous()
+        assert torch.equal(got, kx.extprod_grouped_fused_plain(
+            dig, ext, 1, 0)[:, :, 0])
+        if lanes <= 13:
+            assert torch.equal(got.cpu(), polynomial.polymul_shared_digits(
+                digits, polys))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("js", [0, 3])
+@pytest.mark.parametrize("lanes,g", [(1, 1), (13, 1), (3, 11), (2, 24)])
+def test_cuda_wide_grouped_one_limb_match_plain(js, lanes, g):
+    """On the card at N = 1024, k = 2, the 8-bit model's cbs gadget (4, 6)
+    (R = 12, one limb a digit): K3 and K8 (their N = 1024 split builds at
+    n_d = 1) bit-equal to their plain versions at js = 3
+    (PARAMS_WOPPBS_8BIT's vertical packing) and 0, G = 1 as the model runs
+    them and ragged G-tiles; K8 recombined equal to K3; every byte -128 at
+    (13, 1)."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(7700 + 100 * js + 10 * lanes + g)
+    n, k1, r, n_d = 1024, 3, 12, 1
+    for fill in ((None, -128) if (lanes, g) == (13, 1) else (None,)):
+        lo, hi = (-128, 128) if fill is None else (fill, fill + 1)
+        dig = torch.randint(lo, hi, (lanes, r, n_d * g, n), generator=gen,
+                            dtype=torch.int8).cuda()
+        ext = torch.randint(lo, hi, (lanes, k1, r, 8 - js, 2 * n),
+                            generator=gen, dtype=torch.int8).cuda()
+        fused = kx.extprod_grouped_fused(dig, ext, n_d, js)
+        assert torch.equal(fused,
+                           kx.extprod_grouped_fused_plain(dig, ext, n_d, js))
+        dig_8 = dig.reshape(lanes, r, n_d, g, n).permute(2, 0, 3, 1,
+                                                        4).contiguous()
+        ext_8 = ext.permute(3, 0, 2, 1, 4).contiguous()
+        parts = kx.extprod_partials_grouped(dig_8, ext_8, js)
+        assert torch.equal(parts, kx.extprod_partials_grouped_plain(
+            dig_8, ext_8, js))
+        assert torch.equal(polynomial.recombine_partials(parts, js),
+                           fused.permute(0, 2, 1, 3))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 16, 288])
+def test_cuda_limb_matmul_model_shapes_match_plain(b):
+    """On the card: K4 at the two models' contractions, each at its set's
+    truncation — the tree's packing keyswitch (pksk, all 8 planes: K = 1280,
+    N = 2560) and keyswitch, the 8-bit model's keyswitch (gadget (8, 2):
+    K = 16384, one limb) and pfKS — bit-equal to its plain version."""
+    from tfhe_aes2_tpu_torch.models import shortint_1bit as tm1b
+    from tfhe_aes2_tpu_torch.ops import params as params_mod
+    from tfhe_aes2_tpu_torch.ops import truncation
+
+    require_cuda()
+    gen = torch.Generator().manual_seed(7800 + b)
+    tree, p8 = tm1b.PARAMS_SHORTINT_1BIT, params_mod.PARAMS_WOPPBS_8BIT
+
+    def nd(base_log):
+        return torus.limbs_for_bound(decomposition.digit_bound(base_log))
+    shapes = [
+        (nd(tree.ks_base_log), tree.lwe_dimension * tree.ks_level,
+         (tree.glwe_dimension + 1) * tree.polynomial_size, 0),
+        (nd(tree.ks_base_log), tree.big_lwe_dimension * tree.ks_level,
+         tree.lwe_dimension + 1, truncation.ksk_j_start(tree)),
+        (nd(p8.ks_base_log), p8.big_lwe_dimension * p8.ks_level,
+         p8.lwe_dimension + 1, truncation.ksk_j_start(p8)),
+        (nd(p8.pfks_base_log), (p8.big_lwe_dimension + 1) * p8.pfks_level,
+         (p8.glwe_dimension + 1) ** 2 * p8.polynomial_size,
+         truncation.pfpksk_j_start(p8))]
+    for n_d, k, n, js in shapes:
+        d = torch.randint(-128, 128, (n_d, b, k), generator=gen,
+                          dtype=torch.int8).cuda()
+        m = kmm.kmajor_key_planes(torch.randint(
+            -128, 128, (8 - js, k, n), generator=gen, dtype=torch.int8).cuda())
+        assert torch.equal(kmm.fused_limb_matmul(d, m, js),
+                           kmm.fused_limb_matmul_plain(d, m, js))
     torch.cuda.synchronize()

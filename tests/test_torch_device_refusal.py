@@ -1,9 +1,10 @@
 """On a CUDA device the CLI and the server take the parameter sets with
-N = 1024 (lvl1, lvl4, lvl256) under the lowerings whose kernels take
-N = 1024 — (gridg | grid) x (fused | partials), the default among them —
-and refuse them under merged, longk, bucket and glue_out, whose kernels
-take N <= 512, before any keygen or request; on the CPU they take them
-under every lowering. CPU only: the refusal comes before anything touches a
+N = 1024 (lvl1, lvl4, lvl256, and the 8-bit model's PARAMS_WOPPBS_8BIT)
+under the lowerings whose kernels take N = 1024 — (gridg | grid) x
+(fused | partials), the default among them — and refuse them under merged,
+longk, bucket and glue_out, whose kernels take N <= 512, before any keygen
+or request; the CLI reads the set the chosen model runs. On the CPU they
+take them under every lowering. CPU only: the refusal comes before anything touches a
 card, and the accepting runs are stopped where keygen or key loading would
 begin."""
 
@@ -14,7 +15,11 @@ import pytest
 import torch
 
 from tfhe_aes2_tpu_torch import cli, serve
+from tfhe_aes2_tpu_torch.aes_128 import fhe as fhe_mod
+from tfhe_aes2_tpu_torch.aes_128 import scenario
+from tfhe_aes2_tpu_torch.models import shortint_1bit as model_1b
 from tfhe_aes2_tpu_torch.models import shortint_woppbs_1bit as model
+from tfhe_aes2_tpu_torch.models import shortint_woppbs_8bit as model_8
 from tfhe_aes2_tpu_torch.ops import blind_rotate as br_mod
 from tfhe_aes2_tpu_torch.ops import circuit_bootstrap as cbs_mod
 from tfhe_aes2_tpu_torch.ops import params as params_mod
@@ -109,7 +114,7 @@ def test_cli_refuses_n1024_on_cuda_before_keygen(name, br, monkeypatch,
         cli.main(ARGV + ["--params", name], device="cuda")
     assert exc.value.code == 2                   # argparse's error exit
     err = capsys.readouterr().err
-    assert ("ROADMAP.md Queue 1" in err and "1024" in err and name in err
+    assert ("ROADMAP.md Queue 2" in err and "1024" in err and name in err
             and f"br={br}" in err)
 
 
@@ -136,6 +141,84 @@ def test_cli_on_cuda_takes_lvl64_to_keygen(monkeypatch):
         cli.main(ARGV + ["--params", "lvl64"], device="cuda")
 
 
+@pytest.mark.parametrize("br", NARROW_BR)
+def test_cli_refuses_the_8bit_model_on_cuda_before_keygen(br, monkeypatch,
+                                                         capsys):
+    """The 8-bit model always runs PARAMS_WOPPBS_8BIT (N = 1024), so the
+    refusal reads that set, not --params: with lvl64 (N = 512) named, it is
+    still refused before keygen."""
+    _set_lowering(monkeypatch, br)
+    monkeypatch.setattr(model_8, "generate_keys", _stop)
+    monkeypatch.setattr(model, "generate_keys", _stop)
+    with pytest.raises(SystemExit) as exc:
+        cli.main(ARGV + ["--implementation", "shortint-woppbs-8bit",
+                         "--params", "lvl64"], device="cuda")
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert ("woppbs 8bit" in err and "polynomial_size 1024" in err
+            and f"br={br}" in err and "ROADMAP.md Queue 2" in err)
+
+
+@pytest.mark.parametrize("vp", VP_CHOICES)
+@pytest.mark.parametrize("br", WIDE_BR)
+def test_cli_on_cuda_takes_the_8bit_model_to_keygen(br, vp, monkeypatch):
+    """Under (gridg | grid) x (fused | partials) the 8-bit model goes on to
+    keygen, at PARAMS_WOPPBS_8BIT whatever --params says."""
+    _set_lowering(monkeypatch, br, vp)
+    seen = []
+
+    def keygen(params, **kwargs):
+        seen.append((params, kwargs["device"], kwargs["lowering"]))
+        raise Reached
+    monkeypatch.setattr(model_8, "generate_keys", keygen)
+    with pytest.raises(Reached):
+        cli.main(ARGV + ["--implementation", "shortint-woppbs-8bit",
+                         "--params", "lvl64"], device="cuda")
+    assert seen == [(params_mod.PARAMS_WOPPBS_8BIT, "cuda", Lowering(br, vp))]
+
+
+@pytest.mark.parametrize("params,want", [
+    ("test", "PARAMS_TEST_S1"), ("test-n256", "PARAMS_TEST_S1"),
+    ("lvl64", "PARAMS_SHORTINT_1BIT"), ("lvl256", "PARAMS_SHORTINT_1BIT")])
+def test_cli_runs_the_tree_model_at_its_own_sets(params, want, monkeypatch):
+    """--implementation shortint-1bit runs PARAMS_TEST_S1 when --params
+    starts with "test" and PARAMS_SHORTINT_1BIT (N = 512) otherwise, through
+    Shortint1BitSboxPbsAesEncrypt; under merged on cuda neither is refused,
+    whatever --params names. Keygen and the scenario runner are replaced, so
+    nothing is computed."""
+    _set_lowering(monkeypatch, "merged")
+    keygen, runs = [], []
+
+    def fake_keys(pset, **kwargs):
+        keygen.append((pset, kwargs["device"]))
+        return "client", SimpleNamespace(lowering=kwargs["lowering"])
+
+    def fake_run(client, ctx, key, iv, count, **kwargs):
+        runs.append((client, kwargs["strategy"], kwargs["rounds"]))
+        return [], {}
+    monkeypatch.setattr(model_1b, "generate_keys", fake_keys)
+    monkeypatch.setattr(scenario, "run_client_server_aes_scenario", fake_run)
+    assert cli.main(ARGV + ["--implementation", "shortint-1bit", "--params",
+                            params, "--rounds", "2"], device="cuda") == 0
+    assert keygen == [(getattr(model_1b, want), "cuda")]
+    assert runs == [("client", fhe_mod.Shortint1BitSboxPbsAesEncrypt, 2)]
+
+
+@pytest.mark.parametrize("flag", [["--compress-output", "16"],
+                                  ["--fhe-counter"]])
+@pytest.mark.parametrize("impl", ["shortint-woppbs-8bit", "shortint-1bit"])
+def test_cli_keeps_the_1bit_options_to_the_1bit_model(impl, flag,
+                                                      monkeypatch):
+    """--compress-output and --fhe-counter need the shortint-woppbs-1bit
+    model's big-key bits and circuit bootstrap, as in the JAX CLI: with the
+    other two models they are refused before keygen."""
+    monkeypatch.setattr(model_8, "generate_keys", _stop)
+    monkeypatch.setattr(model_1b, "generate_keys", _stop)
+    with pytest.raises(SystemExit) as exc:
+        cli.main(ARGV + ["--implementation", impl] + flag, device="cpu")
+    assert exc.value.code == 2
+
+
 def _bundle(path, params):
     """A bundle of lvl1's parameters with stand-in key arrays: no key is
     generated."""
@@ -150,7 +233,7 @@ def test_server_refuses_an_n1024_bundle_on_cuda(br, tmp_path, monkeypatch):
     monkeypatch.setattr(serialization, "server_keys_on", _stop)
     monkeypatch.setattr(model, "context_from_keys", _stop)
     keys = _bundle(str(tmp_path / "keys.npz"), params_mod.PARAMS_SQRD_LVL_1)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1"):
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
         serve.serve(keys, str(tmp_path / "s.sock"), max_requests=1,
                     device="cuda", lowering=Lowering(br))
 

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from tfhe_aes2_tpu_torch.models import shortint_1bit
 from tfhe_aes2_tpu_torch.ops import decomposition, params, torus
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
 from tests.test_torch_mma_layout import byte_perm
@@ -178,11 +179,35 @@ def test_glue_gadgets_match_the_kernel_and_the_parameter_sets():
     for name in ("cmux.cu", "longk.cu"):
         assert "NC_GLUE_DISPATCH(nd, levels, base_log," in (
             csrc / name).read_text(), name
-    sets = [v for v in vars(params).values()
+    sets = [v for module in (params, shortint_1bit)
+            for v in vars(module).values()
             if isinstance(v, params.WopbsParams)]
-    assert len(sets) >= 8
+    assert len(sets) >= 10
+    assert shortint_1bit.PARAMS_SHORTINT_1BIT in sets
+    assert params.PARAMS_WOPPBS_8BIT in sets
     for p in sets:
         assert (p.pbs_level, p.pbs_base_log) in kx.GLUE_GADGETS
+
+
+def test_wide_nd_matches_the_split_builds_and_the_parameter_sets():
+    """extprod.WIDE_ND names the n_d values whose N = 1024 builds
+    VP_SPLIT_DISPATCH (csrc/vp.cu) instantiates — its cases (ND, JS) cover
+    exactly WIDE_ND x 0..7, for K3 and K8 both — and those are the circuit
+    bootstrap's digit limbs of every set with N = 1024."""
+    src = (Path(kx.__file__).resolve().parents[2] / "csrc"
+           / "vp.cu").read_text()
+    macro = re.search(r"#define VP_SPLIT_DISPATCH\(ND_, JS_, CALL\)(.*?)\n\n",
+                      src, re.S).group(1)
+    cases = {(int(nd), int(js))
+             for nd, js in re.findall(r"CALL\((\d+), (\d+)\)", macro)}
+    assert cases == {(nd, js) for nd in kx.WIDE_ND for js in range(8)}
+    assert src.count("VP_SPLIT_DISPATCH(nd, js,") == 2
+    assert set(kx.WIDE_ND_KERNELS) == {"extprod_grouped_fused",
+                                       "extprod_partials_grouped"}
+    wide = {torus.limbs_for_bound(decomposition.digit_bound(p.cbs_base_log))
+            for p in vars(params).values()
+            if isinstance(p, params.WopbsParams) and p.polynomial_size > 512}
+    assert wide == set(kx.WIDE_ND) == {1, 2}
 
 
 def test_k2_refuses_an_unbuilt_gadget_off_the_cpu():

@@ -20,12 +20,14 @@ step.cu or nc_mma.cuh -> change it here first. Needs nothing of the JAX
 package.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from tfhe_aes2_tpu_torch import cli
-from tfhe_aes2_tpu_torch.ops import decomposition, polynomial, torus
+from tfhe_aes2_tpu_torch.ops import decomposition, params, polynomial, torus
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
 from tests.test_torch_mma_layout import ROWS, block_output, contract_buckets
 from tests.test_torch_step_mma_layout import staged_block
@@ -126,26 +128,114 @@ def test_k8_needs_n_64_off_the_cpu():
 
 @pytest.mark.parametrize("n_d", [1, 3])
 def test_k3_k8_take_two_limbs_at_n1024_off_the_cpu(n_d):
-    """At N = 1024 K3 and K8 are built for n_d = 2 only (csrc/vp.cu): off
-    the CPU any other n_d is refused before a launch, and n_d = 2 is what
-    the circuit bootstrap of every parameter set with N = 1024 that the
-    1-bit model runs (lvl1, lvl4, lvl256) gives."""
+    """At N = 1024 K3 and K8 are built for the n_d of extprod.WIDE_ND only,
+    1 and 2 (csrc/vp.cu): off the CPU n_d = 3 is refused before a launch,
+    and n_d = 1 passes the geometry check to the device check (here: no
+    CUDA tensors). 2 is what the circuit bootstrap of lvl1, lvl4 and lvl256
+    gives, 1 what PARAMS_WOPPBS_8BIT's gives."""
     n, js = 1024, 3
     dig3 = torch.zeros((1, 3, n_d, n), dtype=torch.int8, device="meta")
     ext3 = torch.zeros((1, 3, 3, 8 - js, 2 * n), dtype=torch.int8,
                        device="meta")
-    with pytest.raises(ValueError, match="n_d=2 only"):
-        kx.extprod_grouped_fused(dig3, ext3, n_d, js)
     dig8 = torch.zeros((n_d, 1, 1, 3, n), dtype=torch.int8, device="meta")
     ext8 = torch.zeros((8 - js, 1, 3, 3, 2 * n), dtype=torch.int8,
                        device="meta")
-    with pytest.raises(ValueError, match="n_d=2 only"):
+    match = ("n_d in [1, 2] only" if n_d not in kx.WIDE_ND
+             else "must all lie on one CUDA device")
+    with pytest.raises(ValueError, match=re.escape(match)):
+        kx.extprod_grouped_fused(dig3, ext3, n_d, js)
+    with pytest.raises(ValueError, match=re.escape(match)):
         kx.extprod_partials_grouped(dig8, ext8, js)
     wide = [p for p in cli.PARAM_CHOICES.values()
-            if p.polynomial_size == 1024]
-    assert len(wide) == 3
+            if p.polynomial_size == 1024] + [params.PARAMS_WOPPBS_8BIT]
+    assert len(wide) == 4
     assert {torus.limbs_for_bound(decomposition.digit_bound(p.cbs_base_log))
-            for p in wide} == set(kx.WIDE_ND.values()) == {2}
+            for p in wide} == set(kx.WIDE_ND) == {1, 2}
+
+
+def split_emulated(dig, ext, g, partials):
+    """K3 (dig int8 [B, R, n_d·G, N], ext int8 [B, O, R, 8-js, 2N] -> int64
+    [B, O, G, N]) or K8 (its own layouts, as k8_emulated; -> int32
+    [8, B, G, O, N]) at N = 1024, as the split build runs it: grid (2·ceil(G/8), O, B), block x = 2·(G-tile)
+    + h owning columns [512h, 512h + 512), c0 = 512h; each word of the
+    output written once."""
+    if partials:
+        n_d, b, _, r_cnt, n = dig.shape
+        nj, _, _, o_cnt, two_n = ext.shape
+    else:
+        b, r_cnt, ndg, n = dig.shape
+        _, o_cnt, _, nj, two_n = ext.shape
+        n_d = ndg // g
+    js = 8 - nj
+    assert n == 1024
+    dig_f, ext_f = dig.reshape(-1), ext.reshape(-1)
+    out = np.full((8 if partials else 1, b, o_cnt, g, n), POISON,
+                  dtype=np.int64)
+    for lane in range(b):
+        for o in range(o_cnt):
+            for x in range(2 * -(-g // ROWS)):
+                g0, c0 = (x >> 1) * ROWS, (x & 1) * 512
+                rows = min(ROWS, g - g0)
+                if partials:
+                    rec = ((lane * r_cnt * o_cnt + o) * two_n,
+                           (lane * g + g0) * r_cnt * n,
+                           n, b * g * r_cnt * n, r_cnt * n)
+                    strides = (o_cnt * two_n, b * r_cnt * o_cnt * two_n)
+                else:
+                    rec = ((lane * o_cnt + o) * r_cnt * nj * two_n,
+                           (lane * r_cnt * n_d * g + g0) * n,
+                           n_d * g * n, g * n, n)
+                    strides = None
+                tile, key = staged_block(dig_f, ext_f, rec, r_cnt, rows,
+                                         n_d, nj, n, key_strides=strides)
+                buckets = contract_buckets(tile, key, js, c0)
+                if partials:
+                    blocks = [np.zeros((ROWS, n), dtype=np.int64) if s < js
+                              else block_output(buckets[s - js], n, c0)
+                              for s in range(8)]
+                else:
+                    total = np.zeros(buckets.shape[1:], dtype=np.uint64)
+                    for s in range(nj):
+                        total += (buckets[s].view(np.uint64)
+                                  << np.uint64(8 * (s + js)))
+                    blocks = [block_output(total.view(np.int64), n, c0)]
+                for s, block in enumerate(blocks):
+                    part = out[s, lane, o, g0:g0 + rows, c0:c0 + 512]
+                    assert (part == POISON).all()
+                    part[...] = block[:rows, c0:c0 + 512]
+    assert (out != POISON).all()               # every word written once
+    if partials:
+        return out.astype(np.int32).transpose(0, 1, 3, 2, 4)
+    return out[0]
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K8"])
+@pytest.mark.parametrize("n_d", sorted(kx.WIDE_ND))
+def test_k3_k8_split_builds_at_n1024(kernel, n_d):
+    """The N = 1024 split instantiations of K3 and K8 (VP_SPLIT_DISPATCH,
+    csrc/vp.cu) for every n_d they are built for, 1 (PARAMS_WOPPBS_8BIT)
+    and 2: two blocks a G-tile, each contracting all 1024 digit columns for
+    its own 512 output columns, G = 9 (a full tile and a ragged one),
+    js = 3 (both sets' vertical packing at js = 3); stitched together they
+    equal the plain version bit for bit."""
+    rng = np.random.default_rng(1024 + 10 * n_d + (kernel == "K8"))
+    b, o_cnt, r_cnt, n, js, g = 1, 2, 2, 1024, 3, 9
+    nj = 8 - js
+    if kernel == "K8":
+        dig = rng.integers(-128, 128, (n_d, b, g, r_cnt, n), dtype=np.int8)
+        ext = rng.integers(-128, 128, (nj, b, r_cnt, o_cnt, 2 * n),
+                           dtype=np.int8)
+        want = kx.extprod_partials_grouped_plain(
+            torch.from_numpy(dig), torch.from_numpy(ext), js).numpy()
+    else:
+        dig = rng.integers(-128, 128, (b, r_cnt, n_d * g, n), dtype=np.int8)
+        ext = rng.integers(-128, 128, (b, o_cnt, r_cnt, nj, 2 * n),
+                           dtype=np.int8)
+        want = kx.extprod_grouped_fused_plain(
+            torch.from_numpy(dig), torch.from_numpy(ext), n_d, js).numpy()
+    got = split_emulated(dig, ext, g, kernel == "K8")
+    assert got.shape == want.shape
+    assert np.array_equal(got, want)
 
 
 def k7_emulated(dig, ext):

@@ -77,11 +77,26 @@ def test_truncated_paths_decrypt_to_oracles(keys_test):
 
 @pytest.mark.parametrize("flag", [["--implementation", "shortint-woppbs-8bit"],
                                   ["--implementation", "shortint-1bit"]])
-def test_cli_refuses_unported_options(flag):
+def test_cli_refuses_unported_options(flag, monkeypatch):
+    """The other two models are dispatched, each to its own model's keygen
+    (no NotImplementedError is left); what they refuse, as in the JAX CLI,
+    is the 1-bit WoP-PBS model's --compress-output, before keygen."""
+    from tfhe_aes2_tpu_torch.models import shortint_1bit, shortint_woppbs_8bit
+
+    class Reached(Exception):
+        pass
+
+    def stop(*args, **kwargs):
+        raise Reached
+    model = (shortint_woppbs_8bit if flag[1] == "shortint-woppbs-8bit"
+             else shortint_1bit)
+    monkeypatch.setattr(model, "generate_keys", stop)
     argv = ["--key", KEY.hex(), "--iv", "00" * 8, "--number-of-outputs", "2",
             "--params", "test"] + flag
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(Reached):
         cli.main(argv, device="cpu")
+    with pytest.raises(SystemExit):
+        cli.main(argv + ["--compress-output", "16"], device="cpu")
 
 
 def test_package_imports_neither_jax_nor_the_jax_package():

@@ -23,12 +23,16 @@ torch.set_num_threads(1)
 
 
 def port_params(jax_params):
-    """The port's copy of a JAX parameter set (same field values)."""
-    for name in dir(tparams):
-        cand = getattr(tparams, name)
-        if isinstance(cand, tparams.WopbsParams) and \
-                cand.__dict__ == jax_params.__dict__:
-            return cand
+    """The port's copy of a JAX parameter set (same field values), from
+    ops/params.py or the tree-PBS model's module."""
+    from tfhe_aes2_tpu_torch.models import shortint_1bit as tm1b
+
+    for module in (tparams, tm1b):
+        for name in dir(module):
+            cand = getattr(module, name)
+            if isinstance(cand, tparams.WopbsParams) and \
+                    cand.__dict__ == jax_params.__dict__:
+                return cand
     raise KeyError(jax_params)
 
 

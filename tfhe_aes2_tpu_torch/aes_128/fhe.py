@@ -3,7 +3,11 @@
 The production strategy binds the 1-bit WoP-PBS model to the
 SBOX+GalMul round pipeline (the reference's submitted solution); the second
 binds it to the depth-11 SBOX-only pipeline (aes_128/sbox_pbs.py), the
-reference's pairing for the sqrd_lvl_256 set. The entry
+reference's pairing for the sqrd_lvl_256 set; the other two bind the
+8-bit WoP-PBS model and the tree-PBS model (shortint_1bit) to that same
+pipeline, each with its own byte operations and small-key codecs. A
+strategy's `fresh` wraps fresh ciphertext arrays as its model's bit type.
+The entry
 points keep the JAX package's names and schedules: the fused key schedule
 (11 circuit-bootstrap calls), the round loop, and the single-block latency
 path (11 fused circuit bootstraps for key expansion AND all rounds). PyTorch
@@ -45,6 +49,8 @@ class ShortintWoppbs1BitSboxGalMulPbsAesEncrypt:
     def make_ops(ctx):
         return None          # the pipeline runs its own bootstraps
 
+    fresh = staticmethod(fresh_bitct)
+
 
 class ShortintWoppbs1BitSboxPbsAesEncrypt(
         ShortintWoppbs1BitSboxGalMulPbsAesEncrypt):
@@ -60,6 +66,99 @@ class ShortintWoppbs1BitSboxPbsAesEncrypt(
         return sbox_pbs.Woppbs1BitByteOps(ctx)
 
 
+def _small_key_bits(data) -> np.ndarray:
+    """Bytes (or a list of them) -> bits [..., 8] uint8, MSB first."""
+    if isinstance(data, (list, tuple)):
+        arr = np.stack([np.frombuffer(bytes(b), np.uint8) for b in data])
+    else:
+        arr = np.frombuffer(bytes(data), np.uint8)
+    return np.unpackbits(arr[..., None], axis=-1)
+
+
+class ShortintWoppbs8BitSboxPbsAesEncrypt:
+    """Model shortint_woppbs_8bit + pipeline fhe_sbox_pbs: the SBOX on one
+    8-bit ciphertext a byte, the XORs on its extracted 1-bit duals under the
+    small key (fhe_impls/shortint_woppbs_8bit.rs:44-94)."""
+
+    pipeline = sbox_pbs
+
+    @staticmethod
+    def encrypt_client(client, data_bytes_list) -> np.ndarray:
+        return client.encrypt_bits_small(_small_key_bits(data_bytes_list))
+
+    @staticmethod
+    def encrypt_key_client(client, key) -> np.ndarray:
+        return client.encrypt_bits_small(_small_key_bits(key))
+
+    @staticmethod
+    def decrypt_client(client, arrays) -> list[bytes]:
+        bits = client.decrypt_bits_small(np.asarray(arrays)).astype(np.uint8)
+        return [row.tobytes() for row in np.packbits(bits, axis=-1)[..., 0]]
+
+    @staticmethod
+    def make_ops(ctx):
+        from tfhe_aes2_tpu_torch.models.shortint_woppbs_8bit import (
+            Woppbs8BitByteOps)
+        return Woppbs8BitByteOps(ctx)
+
+    @staticmethod
+    def fresh(arrays, ctx, lane_ndim=None):
+        from tfhe_aes2_tpu_torch.models.shortint_woppbs_8bit import (
+            fresh_linear_bitct)
+        return fresh_linear_bitct(arrays, ctx, lane_ndim)
+
+
+class Shortint1BitSboxPbsAesEncrypt:
+    """Model shortint_1bit + pipeline fhe_sbox_pbs: the SBOX as 8
+    per-output-bit tree bootstraps (255 blind rotations each, batched
+    across bytes and bits).
+
+    Ships for parity with the reference, which dispatches it from its
+    binary (fhe_impls/shortint_1bit.rs:52, main.rs:60-92) while #[ignore]-ing
+    its AES tests ("too big noise accumulation",
+    fhe_impls/shortint_1bit.rs:81-83)."""
+
+    pipeline = sbox_pbs
+
+    @staticmethod
+    def _encode(bits) -> np.ndarray:
+        """Bits at 2^62 under the small key (shortint_1bit.rs:352-356)."""
+        return np.asarray(bits, np.uint64) << np.uint64(62)
+
+    @classmethod
+    def encrypt_client(cls, client, data_bytes_list) -> np.ndarray:
+        return client.encrypt_encodings_small(
+            cls._encode(_small_key_bits(data_bytes_list)))
+
+    @classmethod
+    def encrypt_key_client(cls, client, key) -> np.ndarray:
+        return client.encrypt_encodings_small(
+            cls._encode(_small_key_bits(key)))
+
+    @staticmethod
+    def decrypt_bits(client, arrays) -> np.ndarray:
+        """Small-key ciphertexts [..., n+1] -> their bits uint8 [...]."""
+        phase = client.decrypt_phase_small(np.asarray(arrays))
+        return (((phase + np.uint64(1 << 61)) >> np.uint64(62))
+                & np.uint64(1)).astype(np.uint8)
+
+    @classmethod
+    def decrypt_client(cls, client, arrays) -> list[bytes]:
+        bits = cls.decrypt_bits(client, arrays)
+        return [row.tobytes() for row in np.packbits(bits, axis=-1)[..., 0]]
+
+    @staticmethod
+    def make_ops(ctx):
+        from tfhe_aes2_tpu_torch.models.shortint_1bit import (
+            Shortint1BitByteOps)
+        return Shortint1BitByteOps(ctx)
+
+    @staticmethod
+    def fresh(arrays, ctx, lane_ndim=None):
+        from tfhe_aes2_tpu_torch.models.shortint_1bit import fresh_lane_bit1ct
+        return fresh_lane_bit1ct(arrays, ctx, lane_ndim)
+
+
 def _pipeline_kwargs(strategy, ctx) -> dict:
     ops = strategy.make_ops(ctx)
     return {} if ops is None else {"ops": ops}
@@ -68,17 +167,17 @@ def _pipeline_kwargs(strategy, ctx) -> dict:
 def key_schedule_eager(strategy, ctx: FheContext,
                        key_arr: torch.Tensor) -> BitCt:
     """FHE key expansion word by word, the pipeline's own key_schedule:
-    key_arr [16, 8, kN+1] -> BitCt lanes [44, 4, 8]."""
-    key = fresh_bitct(key_arr, ctx, lane_ndim=2)
+    key_arr [16, 8, dim+1] -> the strategy's bit type, lanes [44, 4, 8]."""
+    key = strategy.fresh(key_arr, ctx, lane_ndim=2)
     return strategy.pipeline.key_schedule(ctx, key,
                                           **_pipeline_kwargs(strategy, ctx))
 
 
 def encrypt_blocks_eager(strategy, ctx: FheContext, eks: BitCt,
                          blocks_arr: torch.Tensor, rounds: int) -> BitCt:
-    """AES rounds on blocks [B, 16, 8, kN+1] under `eks` (from
+    """AES rounds on blocks [B, 16, 8, dim+1] under `eks` (from
     key_schedule_eager, or a clear schedule wrapped fresh)."""
-    blocks = fresh_bitct(blocks_arr, ctx, lane_ndim=2)
+    blocks = strategy.fresh(blocks_arr, ctx, lane_ndim=2)
     return strategy.pipeline.encrypt_block_for_rounds(
         ctx, eks, blocks, rounds, **_pipeline_kwargs(strategy, ctx))
 
@@ -122,7 +221,7 @@ def encrypt_blocks_staged(strategy, ctx: FheContext, eks: BitCt,
     input blocks that are not fresh encryptions (the homomorphically derived
     CTR batch, aes_128/ctr_fhe.derive_ctr_batch)."""
     if blocks_meta is None:
-        blocks = fresh_bitct(blocks_arr, ctx, lane_ndim=2)
+        blocks = strategy.fresh(blocks_arr, ctx, lane_ndim=2)
     else:
         blocks = BitCt(blocks_arr, blocks_meta[0], blocks_meta[1], ctx)
     return strategy.pipeline.encrypt_block_for_rounds(

@@ -43,7 +43,7 @@ def _shl1(ctx: FheContext, byte_lanes: BitCt):
     rest = byte_lanes.slice_lanes(slice(1, 8), axis=-1)
     zero = ctx.trivial_bits(np.zeros(byte_lanes.lane_shape[:-1] + (1,),
                                      np.uint8))
-    return BitCt.concat_lanes([rest, zero], axis=-1), out_bit
+    return type(byte_lanes).concat_lanes([rest, zero], axis=-1), out_bit
 
 
 def gf_256_mul(ctx: FheContext, state: BitCt, b: int) -> BitCt:
@@ -65,7 +65,7 @@ def gf_256_mul(ctx: FheContext, state: BitCt, b: int) -> BitCt:
             parts.append(lane_j)
             if j < 7:
                 parts.append(a.slice_lanes(slice(j + 1, 8), axis=-1))
-            a = BitCt.concat_lanes(parts, axis=-1)
+            a = type(a).concat_lanes(parts, axis=-1)
         b >>= 1
     if res is None:
         res = ctx.trivial_bits(np.zeros(state.lane_shape, np.uint8))
@@ -115,13 +115,13 @@ def key_schedule(ctx: FheContext, key: BitCt, ops=None) -> BitCt:
             w = words[i - 4] ^ ops.sub_bytes(rot)
             rc = dm.trivial_byte(ctx, int(RC[i // 4]))
             w0 = w.slice_lanes(slice(0, 1), axis=0) ^ rc.reshape_lanes(1, 8)
-            w = BitCt.concat_lanes([w0, w.slice_lanes(slice(1, 4), axis=0)],
-                                   axis=0)
+            w = type(w).concat_lanes(
+                [w0, w.slice_lanes(slice(1, 4), axis=0)], axis=0)
         else:
             w = words[i - 4] ^ words[i - 1]
         words.append(w)
         if i % 4 == 3:
             for j in range(i - 3, i + 1):
                 words[j] = ops.boot(words[j])
-    return BitCt.concat_lanes([w.reshape_lanes(1, 4, 8) for w in words],
-                              axis=0)
+    return type(words[0]).concat_lanes(
+        [w.reshape_lanes(1, 4, 8) for w in words], axis=0)

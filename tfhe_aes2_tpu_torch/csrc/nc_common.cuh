@@ -223,11 +223,13 @@ __device__ __forceinline__ void glue_wide(uint64_t* tile,
 
 // The (levels, base_log) gadgets the glue kernels K2 (cmux.cu) and K10a
 // (longk.cu) are built for: the blind rotation's of every parameter set in
-// ops/params.py, and (2, 12) of the card's tests. The wrappers refuse any
-// other before the launch (extprod.GLUE_GADGETS, held equal to this list by
-// a CPU test). G(L, BL, CALL) is applied to each.
+// ops/params.py and models/shortint_1bit.py ((7, 6): the tree-PBS model's),
+// and (2, 12) of the card's tests. The wrappers refuse any other before the
+// launch (extprod.GLUE_GADGETS, held equal to this list by a CPU test).
+// G(L, BL, CALL) is applied to each.
 #define NC_GLUE_GADGETS(G, CALL)                                           \
-  G(2, 12, CALL) G(2, 15, CALL) G(3, 12, CALL) G(4, 9, CALL) G(6, 7, CALL)
+  G(2, 12, CALL) G(2, 15, CALL) G(3, 12, CALL) G(4, 9, CALL) G(6, 7, CALL) \
+  G(7, 6, CALL)
 
 #define NC_GLUE_CASE(L, BL, CALL)                                          \
   case ((L) * 64 + (BL)) * 4 + 1: return CALL(1, L, BL);                   \

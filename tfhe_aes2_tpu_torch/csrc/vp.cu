@@ -34,10 +34,12 @@
 // not read at run time as in cmux.cu: at js = 4 K3 sits at its 128-register
 // cap, and a run-time column offset cost it 2.3-2.7% at N = 512
 // (probes/mma_regress.py), where K8 and K1 lost nothing. The split
-// instantiations are built for ND = 2 only, the circuit bootstrap's digit
-// limbs in lvl1, lvl4 and lvl256; the wrappers refuse any other ND there. A G-tile of fewer than 8 accumulators
-// (G = 1 on the 128-lane stage) leaves the instruction's other columns
-// zero.
+// instantiations are built for ND = 1 and 2 only, the circuit bootstrap's
+// digit limbs in PARAMS_WOPPBS_8BIT (1) and in lvl1, lvl4 and lvl256 (2);
+// the wrappers refuse any other ND there (extprod.WIDE_ND). A G-tile of
+// fewer than 8 accumulators (G = 1 on the 128-lane stage, and in the
+// tree-PBS model's selection product) leaves the instruction's other
+// columns zero.
 #include <type_traits>
 
 #include "nc_mma.cuh"
@@ -132,15 +134,18 @@ int launch(const int8_t* dig, const int8_t* ext, Out* out, int B, int G,
 
 }  // namespace
 
-// At N = 1024 the split kernels, ND = 2 only (see above): CALL(JS) for JS
-// in 0..7, cudaErrorInvalidValue for any other (nd, js).
+// At N = 1024 the split kernels, ND = 1 and 2 only (see above): CALL(ND, JS)
+// for JS in 0..7, cudaErrorInvalidValue for any other (nd, js).
 #define VP_SPLIT_DISPATCH(ND_, JS_, CALL)                                  \
-  if ((ND_) != 2) return (int)cudaErrorInvalidValue;                       \
-  switch (JS_) {                                                           \
-    case 0: return CALL(2, 0); case 1: return CALL(2, 1);                  \
-    case 2: return CALL(2, 2); case 3: return CALL(2, 3);                  \
-    case 4: return CALL(2, 4); case 5: return CALL(2, 5);                  \
-    case 6: return CALL(2, 6); case 7: return CALL(2, 7);                  \
+  switch ((ND_) * 8 + (JS_)) {                                             \
+    case 8: return CALL(1, 0); case 9: return CALL(1, 1);                  \
+    case 10: return CALL(1, 2); case 11: return CALL(1, 3);                \
+    case 12: return CALL(1, 4); case 13: return CALL(1, 5);                \
+    case 14: return CALL(1, 6); case 15: return CALL(1, 7);                \
+    case 16: return CALL(2, 0); case 17: return CALL(2, 1);                \
+    case 18: return CALL(2, 2); case 19: return CALL(2, 3);                \
+    case 20: return CALL(2, 4); case 21: return CALL(2, 5);                \
+    case 22: return CALL(2, 6); case 23: return CALL(2, 7);                \
     default: return (int)cudaErrorInvalidValue;                            \
   }
 

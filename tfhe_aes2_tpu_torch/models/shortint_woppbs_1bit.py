@@ -175,18 +175,18 @@ class BitCt:
         arr = torch.index_select(
             self.array, self._arr_axis(axis),
             torch.as_tensor(idx, dtype=torch.int64, device=self.array.device))
-        return BitCt(arr, np.take(self.noise_sq, idx, axis=axis),
-                     np.take(self.comps, idx, axis=axis), self.context,
-                     np.take(self.degree, idx, axis=axis))
+        return type(self)(arr, np.take(self.noise_sq, idx, axis=axis),
+                          np.take(self.comps, idx, axis=axis), self.context,
+                          np.take(self.degree, idx, axis=axis))
 
     def reshape_lanes(self, *lane_shape) -> "BitCt":
         batch = tuple(self.array.shape[: self.array.ndim - 1
                                        - len(self.lane_shape)])
         arr = self.array.reshape(batch + tuple(lane_shape)
                                  + self.array.shape[-1:])
-        return BitCt(arr, self.noise_sq.reshape(lane_shape),
-                     self.comps.reshape(lane_shape), self.context,
-                     self.degree.reshape(lane_shape))
+        return type(self)(arr, self.noise_sq.reshape(lane_shape),
+                          self.comps.reshape(lane_shape), self.context,
+                          self.degree.reshape(lane_shape))
 
     def slice_lanes(self, sl: slice, axis: int = 0) -> "BitCt":
         """Slice one lane axis with python slice `sl`."""
@@ -196,8 +196,9 @@ class BitCt:
         meta_idx = [slice(None)] * len(self.lane_shape)
         meta_idx[axis] = sl
         meta_idx = tuple(meta_idx)
-        return BitCt(arr, self.noise_sq[meta_idx], self.comps[meta_idx],
-                     self.context, self.degree[meta_idx])
+        return type(self)(arr, self.noise_sq[meta_idx],
+                          self.comps[meta_idx], self.context,
+                          self.degree[meta_idx])
 
     @classmethod
     def concat_lanes(cls, parts: list["BitCt"], axis: int = 0) -> "BitCt":
@@ -240,8 +241,8 @@ def generate_keys(params: WopbsParams = PARAMS_SQRD_LVL_64, seed: int = 0,
                   lowering: Lowering | None = None):
     """(ClientKey, FheContext) with prepared keys on `device`; `lowering`
     None means Lowering.from_env()."""
-    client, sks = keys_mod.generate_keys(params, seed=seed, device=device)
-    return client, context_from_keys(params, sks, truncate, lowering)
+    return keys_mod.generate_context(FheContext, params, seed, device,
+                                     truncate, lowering)
 
 
 def context_from_keys(params: WopbsParams, sks: keys_mod.ServerKeySet,
@@ -249,7 +250,5 @@ def context_from_keys(params: WopbsParams, sks: keys_mod.ServerKeySet,
                       lowering: Lowering | None = None) -> FheContext:
     """FheContext over raw keys (keys.generate_keys / keys_from_numpy);
     `lowering` None means Lowering.from_env()."""
-    return FheContext(params=params,
-                      sks=keys_mod.prepare_server_keys(sks, params, truncate),
-                      lowering=(Lowering.from_env() if lowering is None
-                                else lowering))
+    return keys_mod.context_from_keys(FheContext, params, sks, truncate,
+                                      lowering)

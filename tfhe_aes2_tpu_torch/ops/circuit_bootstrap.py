@@ -31,10 +31,20 @@ def circuit_bootstrap_bits(bits_big: torch.Tensor, sks: PreparedServerKeys,
                            params: WopbsParams,
                            lowering: Lowering = Lowering()) -> torch.Tensor:
     """LWE bits [..., kN+1] (bit at 2^63, big key) -> GGSW
-    [..., L, k+1, k+1, N]: big->small keyswitch, then per cbs level a
-    scaling PBS and the k+1 pfKS that assemble the GGSW rows."""
+    [..., L, k+1, k+1, N]: big->small keyswitch, then
+    circuit_bootstrap_bits_small."""
+    dual = ks.keyswitch(bits_big, sks.ksk, params)
+    return circuit_bootstrap_bits_small(dual, sks, params, lowering)
+
+
+def circuit_bootstrap_bits_small(dual: torch.Tensor, sks: PreparedServerKeys,
+                                 params: WopbsParams,
+                                 lowering: Lowering = Lowering()
+                                 ) -> torch.Tensor:
+    """LWE bits [..., n+1] already under the small key (bit at 2^63; the
+    8-bit model's extracted bits) -> GGSW [..., L, k+1, k+1, N]: per cbs
+    level a scaling PBS and the k+1 pfKS that assemble the GGSW rows."""
     p = params
-    dual = ks.keyswitch(bits_big, sks.ksk, p)
     rows = []
     for j in range(p.cbs_level):
         lwe_j = br.pbs_bit_to_level(dual, sks.bsk, p.cbs_base_log * (j + 1), p,

@@ -117,7 +117,7 @@ def _require_cuda(name: str, spec) -> None:
 # where a block owns at most 512 output columns and two blocks share a row
 # tile (K1, K3, K5, K8: csrc/nc_mma.cuh's column offset; K1's glue across a
 # cluster of the two) or a block owns a row (K2); 512 for the others, whose
-# blocks own all N columns (ROADMAP.md Queue 1).
+# blocks own all N columns (ROADMAP.md Queue 2).
 N_MAX = {"extprod_step2g": 1024, "rot_diff_digits": 1024,
          "extprod_grouped_fused": 1024, "extprod_step2": 1024,
          "extprod_partials_grouped": 1024, "extprod_step": 512,
@@ -126,10 +126,12 @@ N_MAX = {"extprod_step2g": 1024, "rot_diff_digits": 1024,
          "extprod_step3": 512}
 
 
-# K3 and K8 at N = 1024 are built for n_d = 2 only (csrc/vp.cu): the
-# circuit bootstrap's digit limbs in lvl1, lvl4 and lvl256. (The 8-bit
-# model's PARAMS_WOPPBS_8BIT, not ported, would need n_d = 1.)
-WIDE_ND = {"extprod_grouped_fused": 2, "extprod_partials_grouped": 2}
+# The n_d values K3 and K8 are built for at N = 1024 (VP_SPLIT_DISPATCH,
+# csrc/vp.cu): the circuit bootstrap's digit limbs in PARAMS_WOPPBS_8BIT
+# (1) and in lvl1, lvl4 and lvl256 (2). The split builds are what
+# WIDE_ND_KERNELS launch there; any other n_d is refused.
+WIDE_ND = frozenset({1, 2})
+WIDE_ND_KERNELS = ("extprod_grouped_fused", "extprod_partials_grouped")
 
 
 def device_refusal(n: int, device, lowering: Lowering) -> str | None:
@@ -145,7 +147,7 @@ def device_refusal(n: int, device, lowering: Lowering) -> str | None:
             f"{lowering.br}, vp={lowering.vp}) takes on the card: its "
             f"kernels {', '.join(short)} take N <= "
             f"{min(N_MAX[name] for name in short)}; N = {n} for them is "
-            f"ROADMAP.md Queue 1 (the default lowering (gridg, fused) takes "
+            f"ROADMAP.md Queue 2 (the default lowering (gridg, fused) takes "
             f"N = 1024; on device 'cpu' the plain versions run it)")
 
 
@@ -161,9 +163,9 @@ def _check_geometry(name: str, n: int, n_d: int, r: int, j_start: int,
                          f"[{n_min}, {n_max}]")
     if not 1 <= n_d <= 3 or not 0 <= j_start <= 7:
         raise ValueError(f"{name}: n_d={n_d}, j_start={j_start} unsupported")
-    if n > 512 and WIDE_ND.get(name, n_d) != n_d:
-        raise ValueError(f"{name}: at N={n} built for n_d={WIDE_ND[name]} "
-                         f"only, got n_d={n_d}")
+    if n > 512 and name in WIDE_ND_KERNELS and n_d not in WIDE_ND:
+        raise ValueError(f"{name}: at N={n} built for n_d in "
+                         f"{sorted(WIDE_ND)} only, got n_d={n_d}")
     # int32 weight buckets: at most n_d (i, j) pairs of R·N products of
     # at most 2^7·2^7 each (csrc/nc_common.cuh)
     if n_d * r * n * (1 << 14) >= 1 << 31:
@@ -223,8 +225,9 @@ def rot_diff_digits_plain(acc: torch.Tensor, t: torch.Tensor, base_log: int,
 
 # The (levels, base_log) gadgets the glue kernels K2 and K10a are built for
 # (NC_GLUE_GADGETS, csrc/nc_common.cuh): the blind rotation's of every set
-# in ops/params.py, and (2, 12).
-GLUE_GADGETS = frozenset({(2, 12), (2, 15), (3, 12), (4, 9), (6, 7)})
+# in ops/params.py and models/shortint_1bit.py, and (2, 12).
+GLUE_GADGETS = frozenset({(2, 12), (2, 15), (3, 12), (4, 9), (6, 7),
+                          (7, 6)})
 
 
 def _check_glue(name: str, acc, t, n: int, n_d: int, levels: int,

@@ -6,8 +6,8 @@
   - KSK     big->small LWE keyswitch key, gadget (ks_level, ks_base_log)
   - PFPKSK  private functional packing keyswitch keys for the circuit
             bootstrap functions f_u(x) = -x·S_u (u < k) and f_k(x) = x
-  - PKSK    LWE->GLWE packing keyswitch key (kept for key-set parity; this
-            slice's model does not use it)
+  - PKSK    LWE->GLWE packing keyswitch key (the tree-PBS model's,
+            ops/packing_keyswitch.py)
 
 Randomness is numpy's: the secret keys and client encryption draw from
 np.random.default_rng(seed), the evaluation keys from
@@ -30,6 +30,7 @@ import torch
 
 from tfhe_aes2_tpu_torch.ops import truncation
 from tfhe_aes2_tpu_torch.ops.kernels.matmul import kmajor_key_planes
+from tfhe_aes2_tpu_torch.ops.lowering import Lowering
 from tfhe_aes2_tpu_torch.ops.params import WopbsParams
 from tfhe_aes2_tpu_torch.ops.torus import split_u64_signed, to_tensor
 
@@ -59,15 +60,19 @@ class PreparedServerKeys(NamedTuple):
     ksk:    [8-js, kN·L, n+1]                                 K4's m planes
     pfpksk: [8-js, (kN+1)·L, (k+1)·(k+1)·N]                   K4's m planes
     vp_js:  planes the vertical packing drops from its runtime GGSWs (K3)
+    pksk:   [8, n·L, (k+1)·N] (L = ks_level)                  K4's m planes
 
-    ksk and pfpksk are views of K-major storage, the layout K4 reads
-    (kernels.matmul.kmajor_key_planes).
+    ksk, pfpksk and pksk are views of K-major storage, the layout K4 reads
+    (kernels.matmul.kmajor_key_planes). pksk keeps all 8 planes (j_start
+    0), as the JAX package keeps it u64 (tfhe_aes2_tpu/ops/keys.py,
+    prepare_server_keys).
     """
 
     bsk: torch.Tensor
     ksk: torch.Tensor
     pfpksk: torch.Tensor
     vp_js: int
+    pksk: torch.Tensor
 
 
 @dataclass
@@ -101,6 +106,36 @@ class ClientKey:
         """LWE cts [..., kN+1] -> bits [...] via threshold decode."""
         phase = self.decrypt_phase(cts)
         return ((phase + np.uint64(1 << 62)) >> np.uint64(63)) & np.uint64(1)
+
+    # -- small-key codecs: the 8-bit model encrypts its bits under the small
+    #    LWE key at 2^63, the tree-PBS model at 2^62 (encodings) --
+
+    def encrypt_bits_small(self, bits) -> np.ndarray:
+        """bits [...] -> LWE cts [..., n+1] uint64 under the small key, bit
+        at 2^63, lwe noise."""
+        bits = np.asarray(bits, dtype=np.uint64)
+        return self.encrypt_encodings_small(bits << np.uint64(63))
+
+    def decrypt_bits_small(self, cts) -> np.ndarray:
+        """Small-key LWE cts [..., n+1] -> bits [...] (bit at 2^63)."""
+        phase = self.decrypt_phase_small(cts)
+        return ((phase + np.uint64(1 << 62)) >> np.uint64(63)) & np.uint64(1)
+
+    def encrypt_encodings_small(self, encodings) -> np.ndarray:
+        """Raw torus encodings [...] -> LWE cts [..., n+1] uint64 under the
+        small key, lwe noise."""
+        encodings = np.asarray(encodings, dtype=np.uint64)
+        n = self.params.lwe_dimension
+        a = _uniform_u64(self.rng, encodings.shape + (n,))
+        e = _gaussian_u64(self.rng, self.params.lwe_noise_std,
+                          encodings.shape)
+        b = _wrap_dot(a, self.lwe_sk) + encodings + e
+        return np.concatenate([a, b[..., None]], axis=-1)
+
+    def decrypt_phase_small(self, cts) -> np.ndarray:
+        """Raw phase of small-key LWE cts [..., n+1]."""
+        cts = np.asarray(cts, dtype=np.uint64)
+        return cts[..., -1] - _wrap_dot(cts[..., :-1], self.lwe_sk)
 
 
 # ---------------------------------------------------------------- helpers
@@ -282,10 +317,33 @@ def prepare_server_keys(sks: ServerKeySet, params: WopbsParams,
     js_pf = truncation.pfpksk_j_start(p) if truncate else 0
     kn, lk, n1 = sks.ksk.shape
     kn1, lp, u_cnt, k1, big_n = sks.pfpksk.shape
+    n_in = sks.pksk.shape[0]
     ksk = kmajor_key_planes(
         split_u64_signed(sks.ksk.reshape(kn * lk, n1))[js_ksk:])
     pfpksk = kmajor_key_planes(split_u64_signed(
         sks.pfpksk.reshape(kn1 * lp, u_cnt * k1 * big_n))[js_pf:])
+    pksk = kmajor_key_planes(split_u64_signed(
+        sks.pksk.reshape(n_in * lk, k1 * big_n)))
     return PreparedServerKeys(
         bsk=prepare_bsk(sks.bsk, js_bsk), ksk=ksk, pfpksk=pfpksk,
-        vp_js=truncation.vp_ggsw_j_start(p) if truncate else 0)
+        vp_js=truncation.vp_ggsw_j_start(p) if truncate else 0, pksk=pksk)
+
+
+def context_from_keys(ctx_cls, params: WopbsParams, sks: ServerKeySet,
+                      truncate: bool = True, lowering: Lowering | None = None):
+    """A model's FheContext class `ctx_cls` over raw keys (generate_keys /
+    keys_from_numpy), prepared for the kernels; `lowering` None means
+    Lowering.from_env()."""
+    return ctx_cls(params=params,
+                   sks=prepare_server_keys(sks, params, truncate),
+                   lowering=(Lowering.from_env() if lowering is None
+                             else lowering))
+
+
+def generate_context(ctx_cls, params: WopbsParams, seed: int = 0,
+                     device="cuda", truncate: bool = True,
+                     lowering: Lowering | None = None):
+    """(ClientKey, ctx_cls over prepared keys on `device`)."""
+    client, sks = generate_keys(params, seed=seed, device=device)
+    return client, context_from_keys(ctx_cls, params, sks, truncate,
+                                     lowering)

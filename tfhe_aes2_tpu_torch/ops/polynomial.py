@@ -11,6 +11,11 @@ function in float64 matrix products, used by the kernels' plain versions;
 
 Monomial multiplications (the rotations of blind rotation and vertical
 packing) are index gathers on ext.
+
+`polymul_shared_digits` is the tree-PBS model's selection product (the JAX
+package's `polymul_digits_grouped` there, which materialises each lane's
+negacirculant): small digit polynomials shared by every lane against each
+lane's own u64 polynomials, through kernel K3.
 """
 
 from __future__ import annotations
@@ -136,3 +141,42 @@ def nc_limb_product(dig_planes: torch.Tensor, ext_planes: torch.Tensor,
             prod = torch.bmm(digits, nc).to(torch.int64)     # [S, G, N]
             out[:, :, o] += prod << (8 * (j_start + jj))
     return out
+
+
+# K3's limits (csrc/vp.cu): its int8 operands are read through 32-bit byte
+# strides, and its lanes lie on the grid's z axis
+_K3_OPERAND_BYTES = 1 << 31
+_K3_LANES = 65535
+
+
+def polymul_shared_digits(digits: torch.Tensor,
+                          polys: torch.Tensor) -> torch.Tensor:
+    """Σ_r digits[r] ⊛ polys[b, r, o] mod 2^64 for every lane b.
+
+    digits: int8 [R, N], shared by the lanes (one limb a digit);
+    polys:  int64 [B, R, O, N], each lane's own polynomials;
+    returns int64 [B, O, N].
+
+    Kernel K3 (extprod_grouped_fused, its plain version on the CPU) with
+    G = 1 and n_d = 1, the polys as its per-lane GGSW rows over all 8 limb
+    planes: exact, and no negacirculant is formed. One launch for as many
+    lanes as K3's limits take (at O·R·8·2N operand bytes a lane).
+    """
+    from tfhe_aes2_tpu_torch.ops.kernels import extprod
+
+    b, r, o, n = polys.shape
+    if digits.shape != (r, n):
+        raise ValueError(f"digits {tuple(digits.shape)} do not match polys "
+                         f"{tuple(polys.shape)}")
+    if digits.dtype != torch.int8:
+        raise ValueError(f"digits must be int8, got {digits.dtype}")
+    step = min(_K3_LANES, (_K3_OPERAND_BYTES - 1) // (o * r * 8 * 2 * n))
+    outs = []
+    for s in range(0, max(b, 1), step):
+        part = polys[s:s + step]
+        ext = extprod.split_polys_ext(part)               # [8, b, R, O, 2N]
+        ext = ext.permute(1, 3, 2, 0, 4).contiguous()     # [b, O, R, 8, 2N]
+        dig = digits[None, :, None, :].expand(part.shape[0], r, 1, n)
+        outs.append(extprod.extprod_grouped_fused(dig.contiguous(), ext, 1,
+                                                  0)[:, :, 0])
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
