@@ -25,7 +25,15 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      288}, js in {0, 2}, n_d in {1, 2, 3}; K11 split and unsplit) and at the
      extreme value -128 in every operand byte (K10b split at B=13, unsplit
      at B=201); and, as a yardstick printed beside them, the int8 rate one
-     `torch._int_mm` reaches at K1's size (the port never calls it);
+     `torch._int_mm` reaches at K1's size (the port never calls it); at
+     N = 1024 the longk, bucket and glue_out steps' kernels K6, K7, K10a,
+     K10b and K11 (each row tile's columns two blocks of 512) at the steps
+     of lvl1, lvl256 and the 8-bit model, B in {1, 9, 13, 160, 288}, the
+     set's js and js in {0, 2}, K10b and K11 split and unsplit, every byte
+     -128 at R = 12, K7's buckets recombined equal to K6's update; and one
+     step of each schedule against K2 then K5 at lvl256's and the 8-bit model's
+     step, B in {9, 32, 128, 288}, timed at lvl256's B = 9 and 288 and the
+     8-bit model's B = 32, with the splits chosen;
   3. fast end-to-end runs at PARAMS_TEST (2 rounds), decrypt-verified: the
      default lowering, then ("glue_out", "partials") with a compressed
      response, then the keystream server as a second OS process on the card
@@ -60,18 +68,24 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      counters reset and read around each request and each derivation;
   7. the N = 1024 sets (lvl256, lvl1) at full width under the default
      lowering, decrypt-checked against the AES authority: lvl256 through
-     cli.main with 1 block (the fused latency path) and with 2 (staged), then
-     under ShortintWoppbs1BitSboxPbsAesEncrypt (the depth-11 pipeline, its
-     key expanded by the eager schedule), the lvl256 latency path under the
-     default lowering and under ("grid", "partials"), bit-equal, then lvl1's
-     SBOX+GalMul circuit bootstrap of one block's 16 bytes (its pfKS the K4
-     launch with four digit limbs; lvl1's noise budget stops the AES
-     pipeline itself); launch counters reset and read around each; then K3
-     and K8 at the (lanes, G)
-     the lvl256 latency path launched. Phase 2 also holds K1, K5 and K2 at
-     N = 1024 (both N = 1024 gadgets, B in {1, 9, 13, 288}, js in {0, 2},
-     every byte -128 at R = 12) and K4 at lvl1's pfKS and lvl256's keyswitch
-     and pfKS against their plain versions, timed;
+     cli.main with 1 block (the fused latency path) and with 2 (staged),
+     then under ShortintWoppbs1BitSboxPbsAesEncrypt (the depth-11 pipeline,
+     its key expanded by the eager schedule), the lvl256 latency path under
+     the default lowering and under ("grid", "partials"), ("longk",
+     "fused"), ("bucket", "fused") and ("glue_out", "partials"), each
+     bit-equal to the default's and decrypted to the AES keystream, then
+     lvl1's SBOX+GalMul circuit bootstrap of one block's 16 bytes (its pfKS
+     the K4 launch with four digit limbs; lvl1's noise budget stops the AES
+     pipeline itself) and lvl4's under "longk"; launch counters reset and
+     read around each, K3's and K4's launches and the blind rotations
+     tallied by shape; then K6, K10a, K10b and K11 at each (B, js) of the
+     rotations of the lvl256 latency path's three lowerings and of lvl4's
+     circuit bootstrap, and K3 and K8 at the (lanes, G) the lvl256 latency
+     path launched, each against its plain version, a row of the kernels
+     JSON. Phase 2 also holds K1, K5 and K2 at N = 1024 (both N = 1024
+     gadgets, B in {1, 9, 13, 288}, js in {0, 2}, every byte -128 at R = 12)
+     and K4 at lvl1's pfKS and lvl256's keyswitch and pfKS against their
+     plain versions, timed;
   8. the other two models at full width: the tree-PBS model's SBOX bit at
      PARAMS_TEST_S1 (255 bootstraps) and the 8-bit model's byte op
      (bootstrap_from_bits + extract_bits_from_ciphertext) at
@@ -81,20 +95,24 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      selection product one K3 launch) decrypted to SBOX[x]; the 8-bit model
      through cli.main at PARAMS_WOPPBS_8BIT (N = 1024), 1 block, 2 rounds,
      under the default lowering, verified, then its 2 rounds again on the
-     same keys and expanded key under (gridg, partials) (K8, no K3), bit-equal
-     to the verified run; then the CLI's refusal of the 8-bit model under
-     TFHE_BR_KERNEL=merged before keygen. Launch counters reset and read
-     around each run. Phase 2 also holds the two models' kernels against
-     their plain versions: K1, K5, K2 (the new (7, 6) build) and K10a at the
-     tree's step (R = 35, one limb) and at the 8-bit model's (N = 1024,
-     R = 18), timed, with K6, K9, K10b and K11 checked at the tree's step,
-     which the CLI lets it run under glue_out, merged, longk and bucket; K3
-     at the tree's selection product
-     (R = 2, G = 1, O = 5), K3 and K8 at N = 1024 with one limb (their new
-     split builds), and K4 at both models' keyswitches, the packing
-     keyswitch and the 8-bit pfKS.
-The line before the last is the kernels JSON; the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX or tfhe_aes2_tpu.
+     same keys and expanded key under (gridg, partials) (K8, no K3) and
+     under (longk, fused) (K10a + K10b, no K1), each bit-equal to the
+     verified run, and K6, K10a, K10b and K11 against their plain versions
+     at each (B, js) those longk rounds launched; then the CLI's refusal of
+     the 8-bit model under TFHE_BR_KERNEL=merged before keygen. Launch
+     counters reset and read around each run. Phase 2 also holds the two
+     models' kernels against their plain versions: K1, K5, K2 (the new (7,
+     6) build) and K10a at the tree's step (R = 35, one limb) and at the
+     8-bit model's (N = 1024, R = 18), timed, with K6, K9, K10b and K11
+     checked at the tree's step, which the CLI lets it run under glue_out,
+     merged, longk and bucket, and with K10a timed there too at B = 2,048;
+     K3 at the tree's selection product (R = 2, G = 1, O = 5), K3 and K8 at
+     N = 1024 with one limb (their new split builds), and K4 at both models'
+     keyswitches, the packing keyswitch and the 8-bit pfKS.
+The line before the last is the kernels JSON, each kernel's `shapes`
+every shape it was held against its plain version at, with its
+max_abs_err (ms and plain_ms null where the shape was not timed); the last
+line is {"ok": true, "device": {...}}. Imports nothing of JAX or tfhe_aes2_tpu.
 
     python3 chip_smoke.py --kernels-only
 
@@ -285,14 +303,18 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return max(abs(int(x)) for x in (diff.min(), diff.max())) or 1
 
 
-def record(name: str, rows: list, macs: int, nbytes: int, ms: float,
-           plain_ms: float, err: int) -> None:
+def record(name: str, rows: list, macs: int, nbytes: int, ms, plain_ms,
+           err: int) -> None:
+    """A row of a kernel's comparison with its plain version at one shape:
+    its max_abs_err and bound, and its times (ms, plain_ms) where the shape
+    was timed, else None; fails on any difference. Only timed rows print."""
     b_ms, b_by = bound(macs, nbytes)
     rows.append(dict(name=name, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                      bound_by=b_by, max_abs_err=err, macs=macs,
                      nbytes=nbytes))
-    log(f"  {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-        f"{b_ms:.4f} ms by {b_by}), max_abs_err {err}")
+    if ms is not None:
+        log(f"  {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by}), max_abs_err {err}")
     if err != 0:
         raise AssertionError(f"{name} disagrees with its plain version")
 
@@ -349,80 +371,123 @@ def phase_device() -> str:
                 "grouped_fused_kernelILi1ELi0E",
                 "grouped_fused_kernelILi1ELi3E",
                 "limb_matmul_kernelILi1ELi0E",
-                "limb_matmul_kernelILi2ELi1E")):
+                "limb_matmul_kernelILi2ELi1E",
+                # longk, bucket and glue_out at N = 1024 (the column split
+                # chosen at run time, no new builds): K10a at lvl256's
+                # (4, 9), lvl1's (2, 15) and the 8-bit model's (6, 7); K6,
+                # K10b and K11 with one limb (ND=1, JS=1)
+                "rot_diff_digits_flat_kernelILi2ELi4ELi9E",
+                "rot_diff_digits_flat_kernelILi2ELi2ELi15E",
+                "rot_diff_digits_flat_kernelILi1ELi6ELi7E",
+                "step_kernelILi1ELi1ELb0E", "longk_kernelILi1ELi1E",
+                "step3_kernelILi1E")):
             log("ptxas: " + " | ".join(x.strip() for x in report[i:i + 3]))
     return smi
 
 
 def k11_split_of(b: int, n: int, nd: int, o: int, r: int, nj: int) -> int:
     """The split the K11 wrapper takes at this shape on this card."""
-    return kx._bucket_splits(b, o, r, nj, kx._bucket_residency(n, nd))
+    return kx._bucket_splits(b, o, r, nj, kx._bucket_residency(n, nd), n)
 
 
-def check_step_schedules(rows: dict, b: int, acc, t, ext, js: int, nd: int):
+def check_step_schedules(rows: dict, b: int, acc, t, ext, js: int, nd: int,
+                         p=P, timed: bool = True, label: str = "",
+                         dig=None):
     """K6, K9, K10a, K10b and K11 at batch b against their plain versions,
     K6's update and one step of `merged`, `longk` and `bucket` against K2
-    then K5 on the same accumulator, mask element and BSK entry; then each
-    step timed as its schedule runs it."""
-    lv, bl = P.pbs_level, P.pbs_base_log
+    then K5 on the same accumulator, mask element and BSK entry; then, if
+    `timed`, each step timed as its schedule runs it. Each kernel's
+    comparison is a row of rows[name] with its max_abs_err (K10b's at the
+    wrapper's split and unsplit, K11's also with a row a block), timed if
+    `timed`, else with ms and plain_ms None. p: the set whose gadget the
+    glue takes (PARAMS_SQRD_LVL_64 by default); at N = 1024 K9, which takes
+    N <= 512, is left out. label: the rows' name prefix. dig: the digits
+    K5, K6, K10b and K11 take, [k+1, L, n_d, B, N] (default K2's glue of
+    acc; random or constant digits reach what the glue never gives); K9,
+    which makes its own, runs only on the glue's."""
+    lv, bl = p.pbs_level, p.pbs_base_log
     k1, _, n = acc.shape
     r = k1 * lv
+    glue = kx.rot_diff_digits(acc, t, bl, lv, nd)
+    merged = dig is None and n <= kx.N_MAX["cmux_step_merged"]
+    dig = glue if dig is None else dig
     macs = b * k1 * r * n * n * pairs(nd, js)
-    dig = kx.rot_diff_digits(acc, t, bl, lv, nd)
     want = kx.extprod_step2(dig, ext, acc.clone(), js)
+    if not torch.equal(want, kx.extprod_step2_plain(dig, ext, acc.clone(),
+                                                    js)):
+        raise AssertionError(f"K5 differs from plain at {label}B={b}")
     scratch = acc.clone()
+
+    def check_and_time(name, what, pairs_, fn, plain, nbytes, macs=macs,
+                       as_k5=()):
+        """Each (got, ref) of pairs_ bit-equal and each of as_k5 (results
+        in K5's layout) equal to K2 then K5; a row of rows[name] with the
+        largest error, fn and plain timed into it if `timed`."""
+        sync()
+        err = max(max_abs_err(got, ref) for got, ref in pairs_)
+        if not all(torch.equal(x, want) for x in as_k5):
+            raise AssertionError(f"{name}{what} differs from K2 then K5 at "
+                                 f"{label}B={b}")
+        record(f"{name} {label}B={b}{what}", rows[name], macs, nbytes,
+               time_ms(fn) if timed else None,
+               time_ms(plain, reps=2) if timed else None, err)
+        return rows[name][-1]
     # K6: the same update on the batch-major layouts, into a new tensor
     dig_bm = dig.reshape(r, nd, b, n).permute(1, 2, 0, 3).contiguous()
     acc_bm = acc.permute(1, 0, 2).contiguous()
-    acc_6 = kx.extprod_step(dig_bm, ext, acc_bm, js)
-    ref = kx.extprod_step_plain(dig_bm, ext, acc_bm, js)
-    sync()
-    err = max_abs_err(acc_6, ref)
-    if not torch.equal(acc_6.permute(1, 0, 2), want):
-        raise AssertionError(f"K6 differs from K2 then K5 at B={b}")
-    ms = time_ms(lambda: kx.extprod_step(dig_bm, ext, acc_bm, js))
-    pms = time_ms(lambda: kx.extprod_step_plain(dig_bm, ext, acc_bm, js),
-                  reps=2)
-    record(f"extprod_step B={b}", rows["extprod_step"], macs,
-           dig.numel() + ext.numel() + acc.numel() * 16, ms, pms, err)
-    # K9: the digits never leave the chip, so its bytes lose them
-    got = kx.cmux_step_merged(t, ext, acc, bl, lv, js)
-    ref = kx.cmux_step_merged_plain(t, ext, acc, bl, lv, js)
-    sync()
-    err = max_abs_err(got, ref)
-    if not torch.equal(got, want):
-        raise AssertionError(f"K9 differs from K2 then K5 at B={b}")
-    merged_ms = time_ms(lambda: kx.cmux_step_merged(t, ext, scratch, bl, lv,
-                                                    js))
-    pms = time_ms(lambda: kx.cmux_step_merged_plain(t, ext, scratch, bl, lv,
-                                                    js), reps=2)
-    record(f"cmux_step_merged B={b}", rows["cmux_step_merged"], macs,
-           ext.numel() + acc.numel() * 16 + b * 4, merged_ms, pms, err)
-    # K10a, then K10b on its output
-    flat = kx.rot_diff_digits_flat(acc, t, bl, lv, nd)
-    ref = kx.rot_diff_digits_flat_plain(acc, t, bl, lv, nd)
-    sync()
-    err = max_abs_err(flat, ref)
-    ms = time_ms(lambda: kx.rot_diff_digits_flat(acc, t, bl, lv, nd))
-    pms = time_ms(lambda: kx.rot_diff_digits_flat_plain(acc, t, bl, lv, nd),
-                  reps=2)
-    record(f"rot_diff_digits_flat B={b}", rows["rot_diff_digits_flat"], 0,
-           acc.numel() * 8 + flat.numel() + b * 4, ms, pms, err)
-    got = kx.extprod_step_longk(flat, ext, acc.clone(), js)
+    k6 = kx.extprod_step(dig_bm, ext, acc_bm, js)
+    check_and_time("extprod_step", "",
+                   [(k6, kx.extprod_step_plain(dig_bm, ext, acc_bm, js))],
+                   lambda: kx.extprod_step(dig_bm, ext, acc_bm, js),
+                   lambda: kx.extprod_step_plain(dig_bm, ext, acc_bm, js),
+                   dig.numel() + ext.numel() + acc.numel() * 16,
+                   as_k5=[k6.permute(1, 0, 2)])
+    merged_ms = None
+    if merged:
+        # K9: the digits never leave the chip, so its bytes lose them
+        k9 = kx.cmux_step_merged(t, ext, acc, bl, lv, js)
+        merged_ms = check_and_time(
+            "cmux_step_merged", "",
+            [(k9, kx.cmux_step_merged_plain(t, ext, acc, bl, lv, js))],
+            lambda: kx.cmux_step_merged(t, ext, scratch, bl, lv, js),
+            lambda: kx.cmux_step_merged_plain(t, ext, scratch, bl, lv, js),
+            ext.numel() + acc.numel() * 16 + b * 4, as_k5=[k9])["ms"]
+    # K10a on the accumulator, equal to K2's glue permuted; K10b on the
+    # digits in its flat layout, at the wrapper's split and unsplit
+    k10a = kx.rot_diff_digits_flat(acc, t, bl, lv, nd)
+    check_and_time("rot_diff_digits_flat", "",
+                   [(k10a, kx.rot_diff_digits_flat_plain(acc, t, bl, lv, nd)),
+                    (k10a, glue.permute(2, 3, 0, 1, 4).reshape(nd, b,
+                                                               r * n))],
+                   lambda: kx.rot_diff_digits_flat(acc, t, bl, lv, nd),
+                   lambda: kx.rot_diff_digits_flat_plain(acc, t, bl, lv, nd),
+                   acc.numel() * 8 + k10a.numel() + b * 4, macs=0)
+    flat = dig.permute(2, 3, 0, 1, 4).reshape(nd, b, r * n)
+    split = kx._longk_splits(b, k1, r, n)
     ref = kx.extprod_step_longk_plain(flat, ext, acc.clone(), js)
-    sync()
-    err = max_abs_err(got, ref)
-    if not torch.equal(got, want):
-        raise AssertionError(f"K10b after K10a differs from K2 then K5 at "
-                             f"B={b}")
-    ms = time_ms(lambda: kx.extprod_step_longk(flat, ext, scratch, js))
-    pms = time_ms(lambda: kx.extprod_step_longk_plain(flat, ext, scratch, js),
-                  reps=2)
-    split = kx._longk_splits(b, k1, r)
-    record(f"extprod_step_longk B={b} (split {split})",
-           rows["extprod_step_longk"], macs,
-           flat.numel() + ext.numel() + acc.numel() * 16, ms, pms, err)
-    rows["extprod_step_longk"][-1]["split"] = split
+    got = [kx.extprod_step_longk(flat, ext, acc.clone(), js),
+           kx._launch_longk(flat, ext, acc.clone(), js, 1)]
+    check_and_time("extprod_step_longk", f" (split {split}; unsplit)",
+                   [(x, ref) for x in got],
+                   lambda: kx.extprod_step_longk(flat, ext, scratch, js),
+                   lambda: kx.extprod_step_longk_plain(flat, ext, scratch,
+                                                       js),
+                   flat.numel() + ext.numel() + acc.numel() * 16,
+                   as_k5=got)["split"] = split
+    # K11 on the digits, at the wrapper's split, unsplit and a row a block
+    bsplit = k11_split_of(b, n, nd, k1, r, 8 - js)
+    ref = kx.extprod_step3_plain(dig, ext, acc.clone(), js)
+    got = [kx.extprod_step3(dig, ext, acc.clone(), js)] + [
+        kx._launch_step3(dig, ext, acc.clone(), js, s) for s in (1, r)]
+    check_and_time("extprod_step3",
+                   f" (split {bsplit}; unsplit; a row a block)",
+                   [(x, ref) for x in got],
+                   lambda: kx.extprod_step3(dig, ext, scratch, js),
+                   lambda: kx.extprod_step3_plain(dig, ext, scratch, js),
+                   dig.numel() + ext.numel() + acc.numel() * 16,
+                   as_k5=got)["split"] = bsplit
+    if not timed:
+        return
 
     def longk_step():
         kx.extprod_step_longk(kx.rot_diff_digits_flat(scratch, t, bl, lv, nd),
@@ -433,36 +498,28 @@ def check_step_schedules(rows: dict, b: int, acc, t, ext, js: int, nd: int):
                          scratch, js)
     longk_ms = time_ms(longk_step)
     longk_us, grid_us = enqueue_us(longk_step), enqueue_us(grid_step)
-    # K11 on K2's output, at the wrapper's split and unsplit
-    got = kx.extprod_step3(dig, ext, acc.clone(), js)
-    ref = kx.extprod_step3_plain(dig, ext, acc.clone(), js)
-    one = kx._launch_step3(dig, ext, acc.clone(), js, 1)
-    sync()
-    err = max(max_abs_err(got, ref), max_abs_err(one, ref))
-    if not torch.equal(got, want):
-        raise AssertionError(f"K11 after K2 differs from K2 then K5 at B={b}")
-    ms = time_ms(lambda: kx.extprod_step3(dig, ext, scratch, js))
-    pms = time_ms(lambda: kx.extprod_step3_plain(dig, ext, scratch, js),
-                  reps=2)
-    bsplit = k11_split_of(b, n, nd, k1, r, 8 - js)
-    record(f"extprod_step3 B={b} (split {bsplit})", rows["extprod_step3"],
-           macs, dig.numel() + ext.numel() + acc.numel() * 16, ms, pms, err)
-    rows["extprod_step3"][-1]["split"] = bsplit
     bucket_ms = time_ms(lambda: kx.extprod_step3(
         kx.rot_diff_digits(scratch, t, bl, lv, nd), ext, scratch, js))
+    glue_out_ms = time_ms(lambda: kx.extprod_step(
+        torus.split_int32_signed(blind_rotate.decompose_glwe(
+            polynomial.monomial_mul(acc_bm, t[:, None]) - acc_bm, bl, lv),
+            nd), ext, acc_bm, js))
     grid_ms = time_ms(grid_step)
     k1_ms = time_ms(lambda: kx.extprod_step2g(dig, ext, scratch, t, bl, lv,
                                               js))
-    log(f"    one CMux step at B={b}: gridg (K1) {k1_ms:.4f} ms, grid (K2 "
-        f"then K5) {grid_ms:.4f} ms, merged (K9) {merged_ms:.4f} ms, longk "
-        f"(K10a then K10b, K10b split {split}) {longk_ms:.4f} ms, bucket (K2 "
-        f"then K11, K11 split {bsplit}) {bucket_ms:.4f} ms; all equal K2 "
+    log(f"    one CMux step at {label}B={b}: gridg (K1) {k1_ms:.4f} ms, grid "
+        f"(K2 then K5) {grid_ms:.4f} ms, "
+        + (f"merged (K9) {merged_ms:.4f} ms, " if merged else "")
+        + f"longk (K10a then K10b, K10b split {split}) {longk_ms:.4f} ms, "
+        f"bucket (K2 then K11, K11 split {bsplit}) {bucket_ms:.4f} ms, "
+        f"glue_out (torch glue then K6) {glue_out_ms:.4f} ms; all equal K2 "
         "then K5")
-    log(f"    host enqueue of one step at B={b}: longk {longk_us:.1f} us, "
-        f"grid {grid_us:.1f} us")
-    rows["cmux_step_merged"][-1]["step_ms"] = dict(
+    log(f"    host enqueue of one step at {label}B={b}: longk {longk_us:.1f} "
+        f"us, grid {grid_us:.1f} us")
+    rows["extprod_step_longk"][-1]["step_ms"] = dict(
         gridg=k1_ms, grid=grid_ms, merged=merged_ms, longk=longk_ms,
-        bucket=bucket_ms, longk_enqueue_us=longk_us, grid_enqueue_us=grid_us)
+        bucket=bucket_ms, glue_out=glue_out_ms, longk_enqueue_us=longk_us,
+        grid_enqueue_us=grid_us)
 
 
 def check_tensor_core_steps(gen) -> int:
@@ -516,7 +573,7 @@ def check_tensor_core_steps(gen) -> int:
             for js in (0, 2):
                 for nd, bl in ((1, 6), (2, 12), (3, 20)):   # limbs, base_log
                     done += compare(2, 2, nd, bl, b, n, js)
-    assert [kx._longk_splits(b, 5, 15) for b in (13, 201)] == [8, 1]
+    assert [kx._longk_splits(b, 5, 15, 512) for b in (13, 201)] == [8, 1]
     return (done + compare(5, 3, 2, 12, 13, 512, 2, fill=-128)
             + compare(5, 3, 2, 12, 201, 512, 2, fill=-128))
 
@@ -776,6 +833,7 @@ def phase_kernels() -> tuple[dict, float]:
     check_limb_matmul(rows, gen)
     log("  N=1024 (lvl1, lvl4, lvl256):")
     check_wide_steps(rows, gen)
+    check_wide_schedules(rows, gen)
     check_wide_limb_matmul(rows, gen)
     log("  the tree-PBS model (PARAMS_SHORTINT_1BIT) and the 8-bit model "
         "(PARAMS_WOPPBS_8BIT):")
@@ -898,14 +956,17 @@ def check_limb_matmul(rows, gen) -> None:
 
 @contextlib.contextmanager
 def launch_shapes(labels=None):
-    """Tally K3's and K4's calls by operand shape while the block runs: the
-    module attributes the path calls through are wrapped. A wrapper counts
-    its launches on the function its module's name resolves to, so the
+    """Tally K3's and K4's calls by operand shape, and the blind rotations
+    (each a chain of CMux steps, every step's kernels at the rotation's
+    batch) by lowering, N, batch and js, while the block runs: the module
+    attributes the path calls through are wrapped. A wrapper counts its
+    launches on the function its module's name resolves to, so the
     recorders carry the counts while installed and hand them back. labels:
     {(K, N): name} for K4's contractions that are neither a keyswitch nor
     a pfKS."""
     tally: dict = {}
     k3, k4 = kx.extprod_grouped_fused, kmm.fused_limb_matmul
+    rotate = blind_rotate.blind_rotate_glwe
 
     def k3_seen(dig, ext, n_d, j_start):
         key = f"K3 lanes={dig.shape[0]} G={dig.shape[2] // n_d}"
@@ -919,13 +980,35 @@ def launch_shapes(labels=None):
         key = f"K4 {what} n_d={d_planes.shape[0]} B={d_planes.shape[1]}"
         tally[key] = tally.get(key, 0) + 1
         return k4(d_planes, m_planes, j_start)
+
+    def rotate_seen(lwe, bsk, acc_glwe, params, lowering=Lowering()):
+        key = (f"rotation br={lowering.br} N={params.polynomial_size} "
+               f"B={lwe[..., 0].numel()} js={8 - bsk.shape[3]} gadget="
+               f"({params.pbs_level},{params.pbs_base_log})")
+        tally[key] = tally.get(key, 0) + 1
+        return rotate(lwe, bsk, acc_glwe, params, lowering)
     k3_seen.launches, k4_seen.launches = k3.launches, k4.launches
     kx.extprod_grouped_fused, kmm.fused_limb_matmul = k3_seen, k4_seen
+    blind_rotate.blind_rotate_glwe = rotate_seen
     try:
         yield tally
     finally:
         kx.extprod_grouped_fused, kmm.fused_limb_matmul = k3, k4
+        blind_rotate.blind_rotate_glwe = rotate
         k3.launches, k4.launches = k3_seen.launches, k4_seen.launches
+
+
+def step_batches(shapes, br: str) -> set:
+    """The (N, B, js, gadget) of the blind rotations a launch_shapes tally
+    saw under the schedule br: every CMux step of such a rotation launches
+    br's kernels at that batch."""
+    found = set()
+    for key in shapes:
+        kid, *fields = key.split()
+        f = dict(x.split("=", 1) for x in fields if "=" in x)
+        if kid == "rotation" and f["br"] == br:
+            found.add((int(f["N"]), int(f["B"]), int(f["js"]), f["gadget"]))
+    return found
 
 
 def reset_counters() -> None:
@@ -1280,8 +1363,24 @@ def phase_server(client, raw, ctx, request, out_default):
 # ------------------------------------------- N = 1024: lvl1, lvl4, lvl256
 
 P1 = params_mod.PARAMS_SQRD_LVL_1
+P4 = params_mod.PARAMS_SQRD_LVL_4
 P256 = params_mod.PARAMS_SQRD_LVL_256
 WIDE = "N=1024"       # the name prefix of the rows measured at N = 1024
+# the lowerings phase 7 runs the lvl256 latency path under, the default
+# first, each with the kernels it must launch: a CMux step's and a vertical
+# packing stage's (K4, the keyswitches', under every one)
+LATENCY_LOWERINGS = (
+    (Lowering(), MAIN_PATH),
+    (Lowering("grid", "partials"), ("rot_diff_digits", "extprod_step2",
+                                    "extprod_partials_grouped",
+                                    "fused_limb_matmul")),
+    (Lowering("longk"), ("rot_diff_digits_flat", "extprod_step_longk",
+                         "extprod_grouped_fused", "fused_limb_matmul")),
+    (Lowering("bucket"), ("rot_diff_digits", "extprod_step3",
+                          "extprod_grouped_fused", "fused_limb_matmul")),
+    (Lowering("glue_out", "partials"), ("extprod_step",
+                                        "extprod_partials_grouped",
+                                        "fused_limb_matmul")))
 
 
 def step_operands(gen, k1, n, lv, nd, b, js, fill=None):
@@ -1382,6 +1481,112 @@ def check_wide_steps(rows, gen) -> None:
                    time_ms(lambda: kx.rot_diff_digits_plain(acc, t, bl, lv,
                                                             nd), reps=2),
                    err)
+
+
+def check_wide_schedules(rows, gen) -> None:
+    """The longk, bucket and glue_out steps at N = 1024, where K6, K7, K10b
+    and K11 split each row tile's columns between two blocks: K6, K10a,
+    K10b (the wrapper's split and unsplit) and K11 (the wrapper's split,
+    unsplit and a row a block) at the steps of lvl1 (R = 6, (2, 15)),
+    lvl256 (R = 12, (4, 9)) and the 8-bit model (R = 18, (6, 7), one limb),
+    B in {1, 9, 13, 160, 288}, the set's js and js in {0, 2}, on random
+    digits, each bit-equal to its plain version and to K5's update, K10a
+    to K2 permuted; again with every digit and key byte -128 at R = 12
+    (check_step_schedules, untimed). K7 at N = 1024 (all 8 key planes)
+    against its plain version, its buckets recombined equal to K6's
+    update, also at -128, timed. Then one step of each schedule against K2
+    then K5 at lvl256's and the 8-bit model's shapes, B in {9, 32, 128,
+    288}, timed at lvl256's B = 9 and 288 and the 8-bit model's B = 32.
+    The lvl256 latency path's, lvl4's circuit bootstrap's and the 8-bit
+    rounds' own batches are checked where those run (check_path_steps)."""
+    done = 0
+    for name, p in (("lvl1", P1), ("lvl256", P256), ("8-bit", P8)):
+        k1, n, lv = p.glwe_dimension + 1, p.polynomial_size, p.pbs_level
+        nd = torus.limbs_for_bound(decomposition.digit_bound(p.pbs_base_log))
+        js_set = truncation.bsk_j_start(p)
+        cases = [(b, js, None) for b in (1, 9, 13, 160, 288)
+                 for js in sorted({js_set, 0, 2})]
+        if name == "lvl256":
+            cases += [(13, 2, -128), (288, 2, -128)]
+        for b, js, fill in cases:
+            acc, t, dig, ext = step_operands(gen, k1, n, lv, nd, b, js, fill)
+            check_step_schedules(
+                rows, b, acc, t, ext, js, nd, p=p, timed=False,
+                label=f"{WIDE} {name} js={js} "
+                      + ("random digits " if fill is None else
+                         f"every byte {fill} "), dig=dig)
+            done += 1
+    log(f"  N=1024: K6, K10a, K10b (split and unsplit) and K11 (split, "
+        f"unsplit, a row a block) bit-equal to plain and to K5, K10a to K2 "
+        f"permuted, in {done} cases: lvl1 R=6, lvl256 R=12, 8-bit R=18 x B "
+        "in {1, 9, 13, 160, 288} x js in {set's, 0, 2}, and every byte -128 "
+        "at R=12, B in {13, 288}")
+    # K7: all 8 key planes at lvl256's step; with the planes the BSK drops
+    # zeroed, its buckets recombined are K6's update; again at -128; timed
+    # on the random operands
+    k1, n, r, nd, js, b = 3, 1024, 12, 2, 2, 288
+    for fill in (None, -128):
+        lo, hi = (-128, 128) if fill is None else (fill, fill + 1)
+        dig_bm = rand_i8(gen, (nd, b, r, n), lo, hi)
+        ext8 = rand_i8(gen, (8, r, k1, 2 * n), lo, hi)
+        parts = kx.extprod_partials(dig_bm, ext8)
+        low = ext8.clone()
+        low[:js] = 0
+        acc_bm = torch.randint(-2**62, 2**62, (b, k1, n), generator=gen,
+                               dtype=torch.int64).to(DEV)
+        if not torch.equal(
+                acc_bm + polynomial.recombine_partials(
+                    kx.extprod_partials(dig_bm, low)),
+                kx.extprod_step(dig_bm, low[js:].permute(2, 1, 0,
+                                                         3).contiguous(),
+                                acc_bm, js)):
+            raise AssertionError(f"K7 recombined differs from K6 at N=1024, "
+                                 f"fill={fill}")
+        record(f"extprod_partials {WIDE} lvl256 B={b}"
+               + ("" if fill is None else f" every byte {fill}"),
+               rows["extprod_partials"], b * k1 * r * n * n * pairs(nd, 0),
+               dig_bm.numel() + ext8.numel() + parts.numel() * 4,
+               None if fill else time_ms(lambda: kx.extprod_partials(dig_bm,
+                                                                     ext8)),
+               None if fill else time_ms(lambda: kx.extprod_partials_plain(
+                   dig_bm, ext8), reps=2),
+               max_abs_err(parts, kx.extprod_partials_plain(dig_bm, ext8)))
+    log("  N=1024: K7 bit-equal to plain and recombined == K6's update at "
+        "lvl256's step, B=288, also with every byte -128")
+    for name, p, timed in (("lvl256", P256, (9, 288)), ("8-bit", P8, (32,))):
+        k1, n, lv = p.glwe_dimension + 1, p.polynomial_size, p.pbs_level
+        nd = torus.limbs_for_bound(decomposition.digit_bound(p.pbs_base_log))
+        js = truncation.bsk_j_start(p)
+        for b in (9, 32, 128, 288):
+            acc, t, _, ext = step_operands(gen, k1, n, lv, nd, b, js)
+            check_step_schedules(rows, b, acc, t, ext, js, nd, p=p,
+                                 timed=b in timed, label=f"{WIDE} {name} ")
+    log("  N=1024: one step of longk, bucket and glue_out == K2 then K5 at "
+        "lvl256's and the 8-bit model's step, B in {9, 32, 128, 288}")
+
+
+def check_path_steps(rows, gen, name: str, p, shapes, brs) -> None:
+    """K6, K10a, K10b (split and unsplit) and K11 (split, unsplit, a row a
+    block) at each (B, js) of the blind rotations a run at the set p made
+    under the schedules brs (its launch_shapes tally), against their plain
+    versions and K2 then K5 (check_step_schedules, untimed, on K2's
+    digits): every batch the run's CMux steps took is held against the
+    plain versions."""
+    k1, n, lv = p.glwe_dimension + 1, p.polynomial_size, p.pbs_level
+    nd = torus.limbs_for_bound(decomposition.digit_bound(p.pbs_base_log))
+    seen = set().union(*(step_batches(shapes, br) for br in brs))
+    gadget = f"({lv},{p.pbs_base_log})"
+    if not seen or any((x[0], x[3]) != (n, gadget) for x in seen):
+        raise AssertionError(f"{name}: the rotations under {brs} ran at "
+                             f"{sorted(seen)}, not only at N={n} with the "
+                             f"gadget {gadget}")
+    found = sorted({(b, js) for _, b, js, _ in seen})
+    for b, js in found:
+        acc, t, _, ext = step_operands(gen, k1, n, lv, nd, b, js)
+        check_step_schedules(rows, b, acc, t, ext, js, nd, p=p, timed=False,
+                             label=f"{WIDE} {name} path js={js} ")
+    log(f"  {name}: K6, K10a, K10b and K11 bit-equal to plain and to K2 then "
+        f"K5 at the (B, js) of the rotations under {'/'.join(brs)}: {found}")
 
 
 def check_wide_limb_matmul(rows, gen) -> None:
@@ -1490,7 +1695,7 @@ def run_cli(argv, what, wanted) -> tuple[dict, dict, float]:
     sync()
     secs = time.time() - t0
     counts = read_counters()
-    log(f"{what}: K3 and K4 launches by shape: " + ", ".join(
+    log(f"{what}: launches by shape: " + ", ".join(
         f"{key}: {count}" for key, count in sorted(shapes.items())))
     require_launches(what, counts, wanted)
     return counts, shapes, secs
@@ -1505,13 +1710,15 @@ def phase_wide(rows, gen):
     expanded by the eager schedule), and lvl1's SBOX+GalMul circuit
     bootstrap of one block's 16 bytes, the only K4 launch with four digit
     limbs (lvl1's budget, max_noise_level_squared 1, stops the AES
-    pipeline at its first XOR, as in the JAX package). Between them the
-    lvl256 latency path on one encrypted request under the default lowering
-    and under (grid, partials), bit-equal. Then K3 and K8 at the (lanes, G)
-    the lvl256 latency path launched. Returns the launch counts of the
-    CLI's two runs, the pairing's, the (grid, partials) run's and lvl1's."""
+    pipeline at its first XOR, as in the JAX package), and lvl4's under
+    longk. Between them the lvl256 latency path on one encrypted request
+    under the default lowering and under LATENCY_LOWERINGS' four others,
+    each bit-equal to the default's and verified. Then K3 and K8 at the
+    (lanes, G) the lvl256 latency path launched. Returns the launch counts
+    of the CLI's two runs, the pairing's, the other lowerings' latency runs
+    and the two circuit bootstraps."""
     log("== phase 7: the N = 1024 sets at full width, default lowering "
-        "(gridg, fused)")
+        "(gridg, fused) and the latency path under four others")
     argv = ["--key", KEY.hex(), "--iv", IV.hex(), "--params", "lvl256"]
     lat, lat_shapes, lat_s = run_cli(argv + ["--number-of-outputs", "1"],
                                      "lvl256, 1 block (latency path)",
@@ -1540,65 +1747,87 @@ def phase_wide(rows, gen):
         f"{t['blocks_s']:.2f} s ({pairing['rot_diff_digits']} bootstraps in "
         "all, one a round); verified against the AES authority")
     # the latency path on one encrypted request under the default lowering
-    # and under (grid, partials): K2 + K5 a step, K8 + torch recombination
-    # a vertical-packing stage, at N = 1024
+    # and under four others, each with its own kernels a CMux step and a
+    # vertical-packing stage, at N = 1024; each run's launches
     request = scenario.encrypt_request(client, ctx, STRATEGY, KEY,
                                        scenario.ctr_blocks(IV, 1))
-    outs, grid_counts = {}, None
-    for low in (Lowering(), Lowering("grid", "partials")):
+    outs, runs, path_shapes = {}, [], {}
+    for low, kernels in LATENCY_LOWERINGS:
         reset_counters()
-        out, t = scenario.serve_request(
-            dataclasses.replace(ctx, lowering=low), STRATEGY, *request,
-            rounds=10)
+        with launch_shapes() as shapes:
+            out, t = scenario.serve_request(
+                dataclasses.replace(ctx, lowering=low), STRATEGY, *request,
+                rounds=10)
+        sync()
         outs[low] = out.array
-        if low.br == "grid":
-            grid_counts = read_counters()
+        counts = read_counters()
+        path_shapes.update(shapes)
         got = scenario.read_response(client, ctx, STRATEGY, out)
         assert got == aes_lib.encrypt_blocks(KEY, scenario.ctr_blocks(IV, 1))
         log(f"lvl256 latency path under ({low.br}, {low.vp}): "
             f"{t['fused_latency_s']:.2f} s")
-    if not torch.equal(*outs.values()):
-        raise AssertionError("lvl256: (grid, partials) ciphertext differs "
-                             "from the default lowering's")
-    require_launches("lvl256 latency path under (grid, partials)",
-                     grid_counts, ("rot_diff_digits", "extprod_step2",
-                                   "extprod_partials_grouped",
-                                   "fused_limb_matmul"))
-    log("lvl256: the two lowerings' ciphertexts bit-equal, both verified")
+        if not torch.equal(out.array, outs[Lowering()]):
+            raise AssertionError(f"lvl256: ({low.br}, {low.vp}) ciphertext "
+                                 "differs from the default lowering's")
+        require_launches(f"lvl256 latency path under ({low.br}, {low.vp})",
+                         counts, kernels)
+        if low != Lowering():
+            runs.append(counts)
+    log(f"lvl256: the {len(outs)} lowerings' ciphertexts bit-equal, all "
+        "verified")
     del ctx, raw
+    check_path_steps(rows, gen, "lvl256", P256, path_shapes,
+                     ("longk", "bucket", "glue_out"))
 
+    runs.append(sbox_circuit_bootstrap("lvl1", P1, Lowering())[0])
+    counts, shapes = sbox_circuit_bootstrap("lvl4", P4, Lowering("longk"))
+    runs.append(counts)
+    check_path_steps(rows, gen, "lvl4", P4, shapes, ("longk",))
+    check_wide_vp(rows, gen, lat_shapes)
+    return [lat, batch, pairing] + runs
+
+
+def sbox_circuit_bootstrap(name: str, p, lowering) -> tuple[dict, dict]:
+    """The SBOX+GalMul circuit bootstrap of one block's 16 bytes (128
+    lanes) at the set p under `lowering`, seeded keys, each of S(x)·1, ·2,
+    ·3 decrypted against the AES tables; the launch counters reset just
+    before and read just after (the lowering's kernels and K4 must launch;
+    at lvl1 K4 must take four digit limbs). Returns the counts and the
+    launch_shapes tally."""
     t0 = time.time()
-    client1, raw1 = keys_mod.generate_keys(P1, seed=0, device=DEV)
-    ctx1 = model.context_from_keys(P1, raw1, lowering=Lowering())
+    client, raw = keys_mod.generate_keys(p, seed=0, device=DEV)
+    ctx = model.context_from_keys(p, raw, lowering=lowering)
     sync()
-    log(f"lvl1 keygen (seeded) + key preparation: {time.time() - t0:.1f} s")
+    log(f"{name} keygen (seeded) + key preparation: {time.time() - t0:.1f} s")
     block = aes_lib.encrypt_blocks(KEY, scenario.ctr_blocks(IV, 1))[0]
     bits = np.unpackbits(np.frombuffer(block, np.uint8)[:, None], axis=-1)
-    state = model.fresh_bitct(torus.to_tensor(client1.encrypt_bits(bits),
-                                              DEV), ctx1, lane_ndim=2)
+    state = model.fresh_bitct(torus.to_tensor(client.encrypt_bits(bits),
+                                              DEV), ctx, lane_ndim=2)
     reset_counters()
     t0 = time.time()
-    with launch_shapes() as shapes1:
-        muls = sbox_gal_mul_pbs.sub_bytes_with_gal_mul(ctx1, state)
+    with launch_shapes() as shapes:
+        muls = sbox_gal_mul_pbs.sub_bytes_with_gal_mul(ctx, state)
     sync()
     cbs_s = time.time() - t0
-    lvl1 = read_counters()
+    counts = read_counters()
     for mul, got in zip((1, 2, 3), muls):
-        dec = np.packbits(client1.decrypt_bits(torus.to_numpy(got.array))
+        dec = np.packbits(client.decrypt_bits(torus.to_numpy(got.array))
                           .astype(np.uint8), axis=-1)[:, 0]
         want = [gf_256_mul(int(SBOX[x]), mul) for x in block]
         if list(dec) != want:
-            raise AssertionError(f"lvl1 SBOX x {mul} decrypts wrong")
-    log("lvl1: K3 and K4 launches by shape: " + ", ".join(
-        f"{key}: {count}" for key, count in sorted(shapes1.items())))
-    require_launches("lvl1 SBOX+GalMul circuit bootstrap", lvl1, MAIN_PATH)
-    if not any(k.startswith("K4 pfKS n_d=4") for k in shapes1):
+            raise AssertionError(f"{name} SBOX x {mul} decrypts wrong")
+    log(f"{name}: launches by shape: " + ", ".join(
+        f"{key}: {count}" for key, count in sorted(shapes.items())))
+    require_launches(f"{name} SBOX+GalMul circuit bootstrap under "
+                     f"({lowering.br}, {lowering.vp})", counts,
+                     lowering.kernels() + ("fused_limb_matmul",))
+    if name == "lvl1" and not any(k.startswith("K4 pfKS n_d=4")
+                                  for k in shapes):
         raise AssertionError("lvl1's pfKS did not launch K4 at n_d=4")
-    log(f"lvl1 SBOX+GalMul circuit bootstrap of 16 bytes (128 lanes): "
-        f"{cbs_s:.2f} s; S(x)·1, ·2, ·3 decrypt right for every byte")
-    del ctx1, raw1
-    check_wide_vp(rows, gen, lat_shapes)
-    return [lat, batch, pairing, grid_counts, lvl1]
+    log(f"{name} SBOX+GalMul circuit bootstrap of 16 bytes (128 lanes) under "
+        f"({lowering.br}, {lowering.vp}): {cbs_s:.2f} s; S(x)·1, ·2, ·3 "
+        "decrypt right for every byte")
+    return counts, shapes
 
 
 # ------------------- the other two models: tree PBS and 8-bit WoP-PBS
@@ -1620,7 +1849,9 @@ def check_model_steps(rows, gen) -> None:
     plain versions and to K5.
     Then K1, K5 and K2 timed at the widest B each model's path gives: the
     2-byte tree SBOX's first level (2,048 lanes) and a 16-byte circuit
-    bootstrap of the 8-bit model (128 lanes), with its 4-byte one (32)."""
+    bootstrap of the 8-bit model (128 lanes), with its 4-byte one (32); at
+    the tree's 2,048 lanes also K6, K9, K10a, K10b and K11
+    (check_step_schedules)."""
     done = 0
     for name, p in ((TREE, P_TREE), ("8-bit", P8)):
         k1, n = p.glwe_dimension + 1, p.polynomial_size
@@ -1724,6 +1955,11 @@ def check_model_steps(rows, gen) -> None:
                                                             nd), reps=2),
                    max_abs_err(out, kx.rot_diff_digits_plain(acc, t, bl, lv,
                                                              nd)))
+            if name == TREE:
+                # the other schedules' kernels (K6, K9, K10a, K10b, K11),
+                # which the CLI admits for the tree set, timed at its step
+                check_step_schedules(rows, b, acc, t, ext, js, nd, p=p,
+                                     label=f"{TREE} ")
 
 
 def check_model_products(rows, gen) -> None:
@@ -1912,14 +2148,16 @@ def environment(**values):
                 os.environ[k] = v
 
 
-def phase_models():
+def phase_models(rows, gen):
     """The other two models at full width: the card against the CPU on the
     same keys at the test sets; the tree model's SBOX on 2 bytes at
     PARAMS_SHORTINT_1BIT; the 8-bit model through cli.main at
     PARAMS_WOPPBS_8BIT, 2 rounds, under the default lowering, and its rounds
-    again under (gridg, partials), bit-equal; and the CLI's refusal of the
+    again under (gridg, partials) and (longk, fused), bit-equal, the longk
+    rounds' step kernels held against their plain versions at the batches
+    they ran (rows, gen: check_path_steps'); and the CLI's refusal of the
     8-bit model under merged, before keygen. Returns the launch counts of
-    the tree run, the CLI run and the partials rounds."""
+    the tree run, the CLI run, the partials and the longk rounds."""
     log("== phase 8: the other two models at full width")
     t0 = time.time()
     cards_against_the_cpu()
@@ -1928,7 +2166,7 @@ def phase_models():
     tree = tree_sbox()
     log(f"step 2 (tree SBOX, keygen included): {time.time() - t0:.1f} s")
     t0 = time.time()
-    runs = woppbs_8bit_cli()
+    runs = woppbs_8bit_cli(rows, gen)
     log(f"step 3 (8-bit model, the CLI run and its rounds under partials): "
         f"{time.time() - t0:.1f} s")
     t0 = time.time()
@@ -1978,14 +2216,17 @@ def tree_sbox() -> dict:
     return tree
 
 
-def woppbs_8bit_cli() -> list:
+def woppbs_8bit_cli(rows, gen) -> list:
     """The 8-bit model through cli.main on the card at PARAMS_WOPPBS_8BIT,
     1 block, 2 rounds, under the default lowering, verified by the CLI
     against the plain 2-round oracle; then the same 2 rounds again on the
     same prepared keys, expanded key and encrypted block under (gridg,
     partials) — the lowering TFHE_VP_FUSED=0 selects — which must launch K8
     and no K3 and give the fused run's output ciphertexts bit for bit.
-    Returns both runs' launch counts."""
+    Then the same 2 rounds under (longk, fused), K10a + K10b and no K1,
+    bit-equal too, and K6, K10a, K10b and K11 held against their plain
+    versions at each (B, js) those rounds launched K10b at. Returns the
+    three runs' launch counts."""
     argv = ["--implementation", "shortint-woppbs-8bit", "--key", KEY.hex(),
             "--iv", IV.hex(), "--number-of-outputs", "1", "--rounds", "2"]
     seen = {}
@@ -2035,7 +2276,33 @@ def woppbs_8bit_cli() -> list:
         f"keys and expanded key: {secs:.2f} s; output ciphertexts bit-equal "
         f"to the fused run's (K8 {partials['extprod_partials_grouped']} "
         f"launches, no K3)")
-    return [fused, partials]
+    # the same rounds under (longk, fused): K10a + K10b a CMux step at
+    # N = 1024, their rows split to fill the card at 4-32 lanes
+    ctx = dataclasses.replace(seen["ctx"], lowering=Lowering("longk"))
+    eks = dataclasses.replace(seen["eks"], context=ctx)
+    reset_counters()
+    t0 = time.time()
+    with launch_shapes() as shapes:
+        out = fhe.encrypt_blocks_staged(seen["strategy"], ctx, eks,
+                                        seen["blocks"], seen["rounds"]).array
+    sync()
+    longk_s = time.time() - t0
+    longk = read_counters()
+    require_launches("8-bit model, (longk, fused)", longk,
+                     ("rot_diff_digits_flat", "extprod_step_longk",
+                      "extprod_grouped_fused", "fused_limb_matmul"))
+    if longk["extprod_step2g"] != 0:
+        raise AssertionError("the (longk, fused) rounds launched K1")
+    if not torch.equal(out, seen["out"]):
+        raise AssertionError("8-bit model: the longk rounds' ciphertext "
+                             "differs from the fused run's")
+    log(f"8-bit model, the same 2 rounds under (longk, fused) on the same "
+        f"keys and expanded key: {longk_s:.2f} s against {secs:.2f} s under "
+        f"(gridg, partials); output ciphertexts bit-equal to the fused run's "
+        f"(K10a {longk['rot_diff_digits_flat']}, K10b "
+        f"{longk['extprod_step_longk']} launches, no K1)")
+    check_path_steps(rows, gen, "8-bit", P8, shapes, ("longk",))
+    return [fused, partials, longk]
 
 
 def refuse_8bit_under_merged() -> None:
@@ -2088,7 +2355,7 @@ def main() -> int:
     third = phase_server(client, raw, ctx, request, out1)
     del client, raw, ctx
     wide = phase_wide(rows, torch.Generator().manual_seed(4321))
-    models = phase_models()
+    models = phase_models(rows, torch.Generator().manual_seed(8765))
     # each kernel's launches on the main paths: the default lowering's two
     # runs (phase 4), the (grid, partials) run and the glue_out rotation
     # (phase 5), the two served requests and the three derivations (phase
@@ -2102,7 +2369,7 @@ def main() -> int:
     for name, spec in KERNELS.items():
         # the main path's row: the last at PARAMS_SQRD_LVL_64's shapes
         last = [x for x in rows[name] if WIDE not in x["name"]
-                and TREE not in x["name"]][-1]
+                and TREE not in x["name"] and x["ms"] is not None][-1]
         kernels.append(dict(
             name=name, route="cuda", source=spec["source"],
             replaces=spec["replaces"], launches=launches[name],
@@ -2113,8 +2380,7 @@ def main() -> int:
             int8_products=spec["int8_products"],
             shape=last["name"],
             shapes=[{k: v for k, v in x.items()
-                     if k not in ("macs", "nbytes", "max_abs_err")}
-                    for x in rows[name]]))
+                     if k not in ("macs", "nbytes")} for x in rows[name]]))
     log(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -160,7 +160,8 @@ def test_cuda_tensor_core_steps_extreme_values():
     require_cuda()
     gen = torch.Generator().manual_seed(9)
     k1, levels, n, n_d, js, base_log = 5, 3, 512, 2, 2, 12
-    assert [kx._longk_splits(b, k1, k1 * levels) for b in (13, 201)] == [8, 1]
+    assert [kx._longk_splits(b, k1, k1 * levels, n)
+            for b in (13, 201)] == [8, 1]
     for b in (13, 201):
         dig = torch.full((k1, levels, n_d, b, n), -128, dtype=torch.int8,
                          device="cuda")
@@ -262,7 +263,7 @@ def test_cuda_bucket_every_split_matches_plain(b):
         got = kx._launch_step3(dig, ext, acc.clone(), js, splits)
         assert torch.equal(got, want), splits
     assert 1 <= kx._bucket_splits(
-        b, k1, r, 8 - js, kx._bucket_residency(n, n_d)) <= r
+        b, k1, r, 8 - js, kx._bucket_residency(n, n_d), n) <= r
     torch.cuda.synchronize()
 
 
@@ -624,6 +625,120 @@ def test_cuda_limb_matmul_four_limbs_extreme_values():
     assert kmm._splits(96, kk, 64 * 132) == 1
     assert torch.equal(kmm.fused_limb_matmul(d, m, 1),
                        kmm.fused_limb_matmul_plain(d, m, 1))
+    torch.cuda.synchronize()
+
+
+# ------------- N = 1024 under longk, bucket and glue_out: K6, K7, K10a,
+# K10b and K11 split by columns
+
+# (k+1, levels, base_log, n_d, js) of the N = 1024 blind rotations, js the
+# set's BSK truncation: lvl1/lvl4, lvl256 and the 8-bit model
+WIDE_SCHEDULE_STEPS = {"lvl1": (3, 2, 15, 2, 2), "lvl256": (3, 4, 9, 2, 2),
+                       "woppbs_8bit": (3, 6, 7, 1, 1)}
+
+
+def _assert_wide_schedules(dig, ext, acc, t, base_log, levels, js):
+    """At N = 1024: K6 (batch-major, a new tensor), K10a then K10b (flat
+    digits; the wrapper's row split and unsplit) and K11 on K2's digits
+    (the wrapper's split, unsplit and a row a block), each bit-equal to its
+    plain version and to K5's update; K10a equal to K2 permuted."""
+    k1, _, n_d, b, n = dig.shape
+    r = k1 * levels
+    want = kx.extprod_step2(dig, ext, acc.clone(), js)
+    assert torch.equal(want, kx.extprod_step2_plain(dig, ext, acc.clone(),
+                                                    js))
+    dig_bm = dig.reshape(r, n_d, b, n).permute(1, 2, 0, 3).contiguous()
+    acc_bm = acc.permute(1, 0, 2).contiguous()
+    k6 = kx.extprod_step(dig_bm, ext, acc_bm, js)
+    assert torch.equal(k6, kx.extprod_step_plain(dig_bm, ext, acc_bm, js))
+    assert torch.equal(k6.permute(1, 0, 2), want)
+    d2 = kx.rot_diff_digits(acc, t, base_log, levels, n_d)
+    flat = kx.rot_diff_digits_flat(acc, t, base_log, levels, n_d)
+    assert torch.equal(flat, kx.rot_diff_digits_flat_plain(
+        acc, t, base_log, levels, n_d))
+    assert torch.equal(flat, d2.permute(2, 3, 0, 1, 4).reshape(n_d, b,
+                                                               r * n))
+    flat = dig.permute(2, 3, 0, 1, 4).reshape(n_d, b, r * n)
+    ref10 = kx.extprod_step_longk_plain(flat, ext, acc.clone(), js)
+    assert torch.equal(ref10, want)
+    assert torch.equal(kx.extprod_step_longk(flat, ext, acc.clone(), js),
+                       want)
+    assert torch.equal(kx._launch_longk(flat, ext, acc.clone(), js, 1), want)
+    assert torch.equal(kx.extprod_step3_plain(dig, ext, acc.clone(), js),
+                       want)
+    assert torch.equal(kx.extprod_step3(dig, ext, acc.clone(), js), want)
+    for splits in (1, r):
+        assert torch.equal(kx._launch_step3(dig, ext, acc.clone(), js,
+                                            splits), want), splits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 9, 13, 288])
+@pytest.mark.parametrize("step", sorted(WIDE_SCHEDULE_STEPS))
+def test_cuda_wide_schedules_match_plain(step, b):
+    """On the card at N = 1024 (each row tile's columns two blocks of 512):
+    the longk, bucket and glue_out steps' kernels at the step of lvl1,
+    lvl256 or the 8-bit model, with the set's js and js in {0, 2}, a ragged
+    last lane tile and the rotations 0, N-1, N and 2N-1 among the lanes."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(7600 + b + len(step))
+    k1, levels, base_log, n_d, js_set = WIDE_SCHEDULE_STEPS[step]
+    for js in sorted({js_set, 0, 2}):
+        dig, ext, acc, t = _step_operands(gen, k1, 1024, levels, n_d, b, js)
+        _assert_wide_schedules(dig, ext, acc, t, base_log, levels, js)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [13, 288])
+def test_cuda_wide_schedules_extreme_values(b):
+    """On the card at N = 1024, R = 12 (lvl256's gadget (4, 9)), js = 2:
+    every digit and key byte -128, each int32 bucket at n_d·R·N·2^14."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(7700 + b)
+    dig, ext, acc, t = _step_operands(gen, 3, 1024, 4, 2, b, 2, fill=-128)
+    _assert_wide_schedules(dig, ext, acc, t, 9, 4, 2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 13, 288])
+def test_cuda_wide_partials_match_plain(b):
+    """On the card at N = 1024: K7 (all 8 key planes, js = 0, one block an
+    SM, 213,760 bytes of shared memory at n_d = 3) bit-equal to its plain
+    version for one to three limbs at R = 12 and R = 18, recombined over
+    zeroed low planes equal to K6's update; and with every byte -128 at
+    R = 12, n_d = 2."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(7800 + b)
+    for n_d, r in ((1, 18), (2, 12), (3, 12)):
+        dig_bm = torch.randint(-128, 128, (n_d, b, r, 1024), generator=gen,
+                               dtype=torch.int8).cuda()
+        ext8 = torch.randint(-128, 128, (8, r, 3, 2048), generator=gen,
+                             dtype=torch.int8).cuda()
+        _assert_k7_matches_plain_and_k6(dig_bm, ext8)
+    _assert_k7_matches_plain_and_k6(
+        torch.full((2, b, 12, 1024), -128, dtype=torch.int8, device="cuda"),
+        torch.full((8, 12, 3, 2048), -128, dtype=torch.int8, device="cuda"))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [9, 288])
+def test_cuda_wide_longk_and_bucket_every_split_match_plain(b):
+    """On the card at lvl256's step (N = 1024, R = 12, n_d = 2, js = 2):
+    K10b and K11 at every split count 1..12 of their rows, both column
+    halves of each split its own block, bit-equal to K5's update."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(7900 + b)
+    dig, ext, acc, _ = _step_operands(gen, 3, 1024, 4, 2, b, 2)
+    want = kx.extprod_step2_plain(dig, ext, acc.clone(), 2)
+    flat = dig.permute(2, 3, 0, 1, 4).reshape(2, b, 12 * 1024)
+    for splits in range(1, 13):
+        assert torch.equal(kx._launch_longk(flat, ext, acc.clone(), 2,
+                                            splits), want), splits
+        assert torch.equal(kx._launch_step3(dig, ext, acc.clone(), 2,
+                                            splits), want), splits
     torch.cuda.synchronize()
 
 

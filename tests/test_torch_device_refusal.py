@@ -1,8 +1,8 @@
 """On a CUDA device the CLI and the server take the parameter sets with
 N = 1024 (lvl1, lvl4, lvl256, and the 8-bit model's PARAMS_WOPPBS_8BIT)
-under the lowerings whose kernels take N = 1024 — (gridg | grid) x
-(fused | partials), the default among them — and refuse them under merged,
-longk, bucket and glue_out, whose kernels take N <= 512, before any keygen
+under the lowerings whose kernels take N = 1024 — (gridg | grid | longk |
+bucket | glue_out) x (fused | partials), the default among them — and
+refuse them under merged, whose kernel K9 takes N <= 512, before any keygen
 or request; the CLI reads the set the chosen model runs. On the CPU they
 take them under every lowering. CPU only: the refusal comes before anything touches a
 card, and the accepting runs are stopped where keygen or key loading would
@@ -29,8 +29,8 @@ from tfhe_aes2_tpu_torch.ops.lowering import BR_CHOICES, VP_CHOICES, Lowering
 
 ARGV = ["--key", "00" * 16, "--iv", "00" * 8, "--number-of-outputs", "1"]
 WIDE = ["lvl1", "lvl4", "lvl256"]
-NARROW_BR = ["merged", "longk", "bucket", "glue_out"]   # kernels take N <= 512
-WIDE_BR = ["gridg", "grid"]
+NARROW_BR = ["merged"]                       # K9 takes N <= 512
+WIDE_BR = ["gridg", "grid", "longk", "bucket", "glue_out"]
 
 
 def _set_lowering(monkeypatch, br, vp="fused"):
@@ -56,7 +56,7 @@ def _stop(*args, **kwargs):
 
 def test_the_wide_sets_are_the_ones_above_the_kernels_limit():
     """The sets with N = 1024 are the wide ones; of the lowerings, exactly
-    (gridg | grid) x (fused | partials) take them on the card, each kernel
+    those of WIDE_BR x (fused | partials) take them on the card, each kernel
     by its own N_MAX."""
     above = {name for name, p in cli.PARAM_CHOICES.items()
              if p.polynomial_size > 512}
@@ -162,8 +162,8 @@ def test_cli_refuses_the_8bit_model_on_cuda_before_keygen(br, monkeypatch,
 @pytest.mark.parametrize("vp", VP_CHOICES)
 @pytest.mark.parametrize("br", WIDE_BR)
 def test_cli_on_cuda_takes_the_8bit_model_to_keygen(br, vp, monkeypatch):
-    """Under (gridg | grid) x (fused | partials) the 8-bit model goes on to
-    keygen, at PARAMS_WOPPBS_8BIT whatever --params says."""
+    """Under WIDE_BR x (fused | partials) the 8-bit model goes on to keygen,
+    at PARAMS_WOPPBS_8BIT whatever --params says."""
     _set_lowering(monkeypatch, br, vp)
     seen = []
 
@@ -238,12 +238,14 @@ def test_server_refuses_an_n1024_bundle_on_cuda(br, tmp_path, monkeypatch):
                     device="cuda", lowering=Lowering(br))
 
 
-@pytest.mark.parametrize("lowering", [None, Lowering("grid", "partials")])
+@pytest.mark.parametrize("lowering", [
+    None, Lowering("grid", "partials"), Lowering("longk"),
+    Lowering("bucket"), Lowering("glue_out", "partials")])
 def test_server_on_cuda_loads_an_n1024_bundle(lowering, tmp_path,
                                               monkeypatch):
-    """Under the default lowering (from the environment, here unset) and
-    under (grid, partials) the server goes on to move the keys onto the
-    card."""
+    """Under the default lowering (from the environment, here unset),
+    under (grid, partials) and under the longk, bucket and glue_out
+    schedules the server goes on to move the keys onto the card."""
     for name in ("TFHE_BR_KERNEL", "TFHE_BR_GLUE", "TFHE_VP_FUSED"):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setattr(serialization, "server_keys_on", _stop)

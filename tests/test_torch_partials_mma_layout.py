@@ -318,5 +318,5 @@ def test_k7_needs_n_64_off_the_cpu():
         if dev == "cpu":
             assert kx.extprod_partials(dig, ext).shape == (8, 3, 2, 32)
         else:
-            with pytest.raises(ValueError, match=r"\[64, 512\]"):
+            with pytest.raises(ValueError, match=r"\[64, 1024\]"):
                 kx.extprod_partials(dig, ext)

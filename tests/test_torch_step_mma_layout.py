@@ -14,7 +14,10 @@ and its digit limbs below `limbs`, and for K10b and K11 the split of the R
 contraction rows across blocks, whose partials the kernels add into the
 accumulator with 64-bit atomics (wrapping u64 here). Change an index in
 cmux.cu, step.cu, longk.cu, bucket.cu or nc_mma.cuh -> change it here
-first. Needs nothing of the JAX package.
+first. At N = 1024 K6, K10b and K11 split each row tile's columns between
+two blocks as K5 does: `grid_z_blocks` decodes their blockIdx.z as the
+kernels do, and the coverage tests hold every (lane, column, row, bucket)
+to exactly one block. Needs nothing of the JAX package.
 """
 
 import numpy as np
@@ -22,8 +25,8 @@ import pytest
 import torch
 
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
-from tests.test_torch_mma_layout import (ROWS, bucket_emulated,
-                                         contract_emulated)
+from tests.test_torch_mma_layout import (GID, MT, ROWS, TIG, block_warps,
+                                         bucket_emulated, contract_emulated)
 
 N = 64
 
@@ -210,7 +213,7 @@ def test_k10b_split_staged_addressing_matches_plain(b, js, n_d):
                                      torch.from_numpy(ext),
                                      torch.from_numpy(acc.copy()),
                                      js).numpy())
-    split = kx._longk_splits(b, k1, r_cnt)
+    split = kx._longk_splits(b, k1, r_cnt, n)
     assert split == r_cnt             # one or two lane tiles: a row a block
     for splits in sorted({1, 3, split}):
         assert np.array_equal(k10b_emulated(flat, ext, acc, js, splits),
@@ -226,7 +229,7 @@ def test_longk_split_choice(b, split):
     block; B=128 (80 blocks) takes two waves of 5-row blocks over one wave
     of 15 rows; B=200 (125 blocks) one unsplit wave. The measured best at
     B in {1, 9, 13, 64, 128, 160} (csrc/probes/longk_splits.py)."""
-    assert kx._longk_splits(b, 5, 15) == split
+    assert kx._longk_splits(b, 5, 15, 512) == split
 
 
 def test_longk_splits_cover_every_row_once():
@@ -240,7 +243,7 @@ def test_longk_splits_cover_every_row_once():
     for o in (1, 2, 3, 5):
         for r in (1, 2, 4, 6, 15, 16):
             for b in (1, 8, 9, 13, 40, 64, 160, 288, 1056):
-                s = kx._longk_splits(b, o, r)
+                s = kx._longk_splits(b, o, r, 512)
                 assert 1 <= s <= r
                 taken = []
                 for z in range(s):
@@ -307,7 +310,7 @@ def test_bucket_split_choice(b, split):
     396 slots, so 5 splits of 3 rows fill one wave; B=200 (750 blocks)
     stays unsplit; the picks csrc/probes/bucket_splits.py measured best or
     within 3% of it at 8 of these 9 batches (B=9: 8% off the best, 4)."""
-    assert kx._bucket_splits(b, 5, 15, 6, 3) == split
+    assert kx._bucket_splits(b, 5, 15, 6, 3, 512) == split
 
 
 def test_bucket_splits_cover_every_row_once():
@@ -323,7 +326,7 @@ def test_bucket_splits_cover_every_row_once():
         for o, nj in ((1, 8), (2, 6), (5, 6), (5, 4)):
             for r in (1, 2, 4, 6, 15, 16):
                 for b in (1, 8, 9, 13, 40, 64, 160, 288, 1056):
-                    s = kx._bucket_splits(b, o, r, nj, resident)
+                    s = kx._bucket_splits(b, o, r, nj, resident, 512)
                     assert 1 <= s <= r
                     taken = []
                     for z in range(s):
@@ -336,3 +339,163 @@ def test_bucket_splits_cover_every_row_once():
                         assert s == r
                     assert (waves_rows(blocks, s, r, resident)
                             <= waves_rows(blocks, 1, r, resident))
+
+
+# ------------------------------- N = 1024: the column split of K6, K10b, K11
+
+def fragment_cover(n, c0):
+    """int [ROWS, N]: how often a block whose columns start at c0 writes
+    each (lane, column) through nc::for_each_fragment — register c of tile
+    q of a thread is column c0 + 64·warp + 16·q + gid + 8·(c / 2) of lane
+    2·tig + c % 2, over the block's min(N, 512)/64 warps."""
+    cover = np.zeros((ROWS, n), dtype=np.int64)
+    for w in range(block_warps(n)):
+        for q in range(MT):
+            for c in range(4):
+                m = c0 + 64 * w + 16 * q + GID + 8 * (c >> 1)
+                assert (m < n).all()
+                np.add.at(cover, (2 * TIG + (c & 1), m), 1)
+    return cover
+
+
+def grid_z_blocks(kernel, gz, n, r_cnt, js):
+    """Each blockIdx.z of the kernel's launch decoded as the kernel decodes
+    it: [(c0, (r0, r1), buckets)] — the block's first column, its
+    contraction rows and the weight buckets s it adds. K6 (step.cu): z is
+    the column half; K10b (longk.cu): z = split·halves + h; K11
+    (bucket.cu): z = (split·halves + h)·(8-js) + (s-js)."""
+    halves = n // 512 if n > 512 else 1
+    nj = 8 - js
+    out = []
+    for z in range(gz):
+        if kernel == "K6":
+            out.append((z * 512, (0, r_cnt), range(js, 8)))
+        elif kernel == "K10b":
+            splits, split = gz // halves, z // halves
+            out.append(((z - split * halves) * 512,
+                        longk_rows(split, splits, r_cnt), range(js, 8)))
+        else:
+            splits = gz // (nj * halves)
+            s, column_block = js + z % nj, z // nj
+            split = column_block // halves
+            out.append(((column_block - split * halves) * 512,
+                        longk_rows(split, splits, r_cnt), [s]))
+    return out
+
+
+def grid_z(kernel, splits, n, js):
+    """gridDim.z of the kernel's launch (launch_step, launch_longk,
+    launch_bucket)."""
+    halves = n // 512 if n > 512 else 1
+    return {"K6": halves, "K10b": splits * halves,
+            "K11": (8 - js) * splits * halves}[kernel]
+
+
+# (R, js) of the N = 1024 blind rotations: lvl1/lvl4 (2, 15), lvl256 (4, 9),
+# the 8-bit model's (6, 7), each with its set's truncation of the BSK
+WIDE_STEPS = {6: 2, 12: 2, 18: 1}
+
+
+@pytest.mark.parametrize("b", [1, 9, 13, 288])
+@pytest.mark.parametrize("r_cnt", sorted(WIDE_STEPS))
+@pytest.mark.parametrize("kernel", ["K6", "K10b", "K11"])
+def test_column_split_covers_every_output_once_at_n1024(kernel, r_cnt, b):
+    """At N = 1024, k = 2: over the launch's grid (ceil(B/8), O, z), with
+    the wrapper's row split (K10b, K11 at 3 blocks an SM), one split and a
+    row a block, every (lane, component, column, contraction row, weight
+    bucket) is added by exactly one block, and no block writes a lane past
+    the batch or a column outside its half."""
+    n, o_cnt, js = 1024, 3, WIDE_STEPS[r_cnt]
+    nj = 8 - js
+    cover = {c0: fragment_cover(n, c0) for c0 in (0, 512)}
+    for c0, c in cover.items():
+        assert (c[:, c0:c0 + 512] == 1).all() and c.sum() == ROWS * 512
+    wrapper = {"K6": 1, "K10b": kx._longk_splits(b, o_cnt, r_cnt, n),
+               "K11": kx._bucket_splits(b, o_cnt, r_cnt, nj, 3, n)}[kernel]
+    lanes = np.zeros(b, dtype=np.int64)
+    for b0 in range(0, -(-b // ROWS) * ROWS, ROWS):      # blockIdx.x
+        lanes[b0:b0 + ROWS] += 1
+    assert (lanes == 1).all()
+    # blockIdx.y is the component; the tiles differ only in rows_valid
+    for splits in sorted({1, r_cnt, wrapper} if kernel != "K6" else {1}):
+        for rows in sorted({min(ROWS, b), b - ROWS * (-(-b // ROWS) - 1)}):
+            got = np.zeros((ROWS, n, r_cnt, 8), dtype=np.int64)
+            for c0, (r0, r1), buckets in grid_z_blocks(
+                    kernel, grid_z(kernel, splits, n, js), n, r_cnt, js):
+                assert r1 > r0
+                mine = cover[c0] * (np.arange(ROWS) < rows)[:, None]
+                for s in buckets:
+                    got[:, :, r0:r1, s] += mine[:, :, None]
+            assert (got[:rows, :, :, js:] == 1).all(), (splits, rows)
+            assert not got[rows:].any() and not got[:, :, :, :js].any()
+
+
+@pytest.mark.parametrize("r_cnt", sorted(WIDE_STEPS))
+def test_splits_count_both_column_halves_at_n1024(r_cnt):
+    """At N = 1024 a lane tile is two blocks of columns: K10b's and K11's
+    split models count both, so each picks what it would for twice the
+    tiles (or buckets) at N = 512 — K11 with at most BUCKET_WIDE_SLOTS
+    blocks an SM — and below N = 1024 nothing changes."""
+    js = WIDE_STEPS[r_cnt]
+    for b in (1, 9, 13, 32, 64, 128, 160, 288):
+        for o in (1, 3, 5):
+            assert (kx._longk_splits(b, o, r_cnt, 1024)
+                    == kx._longk_splits(b, 2 * o, r_cnt, 512))
+            assert (kx._longk_splits(b, o, r_cnt, 256)
+                    == kx._longk_splits(b, o, r_cnt, 512))
+            for resident in (1, 3, 6):
+                slots = min(resident, kx.BUCKET_WIDE_SLOTS)
+                assert (kx._bucket_splits(b, o, r_cnt, 8 - js, resident, 1024)
+                        == kx._bucket_splits(b, o, r_cnt, 2 * (8 - js),
+                                             slots, 512))
+                assert (kx._bucket_splits(b, o, r_cnt, 8 - js, resident, 256)
+                        == kx._bucket_splits(b, o, r_cnt, 8 - js, resident,
+                                             512))
+    # one 8-lane tile, three components: 6 column blocks, so every row of
+    # K10b is a block (108 of 132 SMs at R = 18)
+    assert kx._longk_splits(1, 3, r_cnt, 1024) == r_cnt
+
+
+# (B, K10b's split, K11's split) at lvl256's step (O = 3, R = 12, js = 2)
+# and the 8-bit model's (O = 3, R = 18, js = 1), K11 at the 3 blocks an SM
+# the H100 holds there
+WIDE_SPLITS = {"lvl256": [(1, 12, 6), (9, 6, 3), (13, 6, 3), (32, 4, 3),
+                          (64, 2, 4), (128, 4, 3), (160, 1, 1), (200, 4, 2),
+                          (256, 2, 2), (288, 3, 1)],
+               "8-bit": [(1, 18, 6), (9, 9, 3), (13, 9, 3), (32, 5, 3),
+                         (64, 5, 3), (128, 4, 3), (160, 1, 3), (200, 6, 1),
+                         (256, 2, 2), (288, 3, 1)]}
+
+
+@pytest.mark.parametrize("step", sorted(WIDE_SPLITS))
+def test_wide_split_choice(step):
+    """At N = 1024 the splits K10b and K11 take at the two steps' measured
+    batches (csrc/probes/longk_splits.py and bucket_splits.py, NVIDIA H100
+    80GB HBM3 at 700 W): K10b's are the measured best or within 3% of it
+    at 16 of 20 (the others 3.3-12.5% off, the most at lvl256's B = 64);
+    K11's within 3% at 14 of 20 (the others 3.4-11% off, the most at
+    lvl256's B = 32)."""
+    r_cnt, js = (12, 2) if step == "lvl256" else (18, 1)
+    for b, longk, bucket in WIDE_SPLITS[step]:
+        assert kx._longk_splits(b, 3, r_cnt, 1024) == longk, b
+        assert kx._bucket_splits(b, 3, r_cnt, 8 - js, 3, 1024) == bucket, b
+
+
+@pytest.mark.parametrize("nd", [1, 2, 3])
+@pytest.mark.parametrize("js", [0, 2])
+def test_step_kernels_fit_shared_memory_at_n1024(nd, js):
+    """Every build of K6, K7, K10b and K11 fits its two stages in a block's
+    232,448 bytes at N = 1024: the wrappers' _check_smem passes, K7 (all 8
+    key planes, js = 0) at n_d = 3 with 213,760 bytes."""
+    n, nj = 1024, 8 - js
+    staged = kx._mma_stage_bytes(n, nj) + 2 * kx._mma_dig_tile_bytes(n, nd)
+    kx._check_smem("extprod_step", staged)
+    kx._check_smem("extprod_step_longk", staged)
+    kx._check_smem("extprod_partials", kx._mma_stage_bytes(n, 8)
+                   + 2 * kx._mma_dig_tile_bytes(n, nd))
+    kx._check_smem("extprod_step3", kx._mma_stage_bytes(n, nd)
+                   + 2 * kx._mma_dig_tile_bytes(n, nd))
+    assert (kx._mma_stage_bytes(n, 8) + 2 * kx._mma_dig_tile_bytes(n, 3)
+            == 213760)
+    assert (kx._mma_stage_bytes(n, nd) + 2 * kx._mma_dig_tile_bytes(n, nd)
+            == nd * 37120)

@@ -3,7 +3,9 @@
 Each kernel's plain version at N = 1024 against the JAX package's Pallas
 function in interpret mode, on the same numpy-made int8 inputs: K1 and K5 at
 both N = 1024 blind-rotation gadgets, K2, K3 and K8 at the vertical
-packing's js of lvl256 (3) and lvl1/lvl4 (4), K4 with four digit limbs.
+packing's js of lvl256 (3) and lvl1/lvl4 (4), K4 with four digit limbs; K6,
+K7, K10a, K10b and K11 (the glue_out, longk and bucket steps) at lvl256's
+and the 8-bit model's step, R cut to 3 rows.
 Both sides are exact integer arithmetic mod 2^64: the tolerance is 0. Then
 the truncation's js for every set, one circuit bootstrap at N = 1024, k = 2
 with lvl1's gadgets, and the noise budgets of lvl1/lvl4 against the AES
@@ -20,6 +22,7 @@ import pytest
 import torch
 
 from tfhe_aes2_tpu.aes_128 import fhe as jfhe
+from tfhe_aes2_tpu.ops import blind_rotate as jbr
 from tfhe_aes2_tpu.models import shortint_woppbs_1bit as jm1
 from tfhe_aes2_tpu.ops import circuit_bootstrap as jcbs
 from tfhe_aes2_tpu.ops import keys as jkeys
@@ -30,6 +33,7 @@ from tfhe_aes2_tpu.ops.pallas import matmul as jmm
 
 from tfhe_aes2_tpu_torch.aes_128 import fhe as tfhe
 from tfhe_aes2_tpu_torch.models import shortint_woppbs_1bit as tm1
+from tfhe_aes2_tpu_torch.ops import blind_rotate as tbr
 from tfhe_aes2_tpu_torch.ops import circuit_bootstrap as tcbs
 from tfhe_aes2_tpu_torch.ops import decomposition, torus
 from tfhe_aes2_tpu_torch.ops import keys as tkeys
@@ -38,6 +42,7 @@ from tfhe_aes2_tpu_torch.ops import polynomial as tpoly
 from tfhe_aes2_tpu_torch.ops import truncation as ttrunc
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
 from tfhe_aes2_tpu_torch.ops.kernels import matmul as kmm
+from tfhe_aes2_tpu_torch.ops.lowering import Lowering
 from tests.torch_port_common import jax_server_keys, t8, t64, u64
 from tests.test_torch_kernels import _acc_pair, _from_pair
 
@@ -80,6 +85,94 @@ def test_k1_and_k5_match_pallas_at_n1024(levels, base_log):
     np.testing.assert_array_equal(
         kx.rot_diff_digits(got5, torch.from_numpy(t_next), base_log, levels,
                            n_d).numpy(), got_dig.numpy())
+
+
+# The steps of the schedules longk, bucket and glue_out at N = 1024, k = 2:
+# lvl256's gadget (4, 9) with two limbs and its BSK truncation js = 2, the
+# 8-bit model's (6, 7) with one limb and js = 1; the products cut to R = 3
+# rows (O = 3, one level), the glue to one component.
+WIDE_STEPS = {"lvl256": (4, 9, 2, 2), "woppbs_8bit": (6, 7, 1, 1)}
+
+
+def _wide_step_inputs(seed, name, b=9, r=3):
+    """Batch-major digit planes int8 [n_d, B, R, N], all 8 key planes int8
+    [8, R, O, 2N] with the planes below js zeroed, the prepared entry
+    ext_or int8 [O, R, 8-js, 2N] of the same planes, and acc uint64
+    [O, B, N]."""
+    _, _, n_d, js = WIDE_STEPS[name]
+    rng = np.random.default_rng(seed)
+    dig = rng.integers(-128, 128, (n_d, b, r, N)).astype(np.int8)
+    ext = rng.integers(-128, 128, (8, r, K1, 2 * N)).astype(np.int8)
+    ext[:js] = 0
+    ext_or = np.ascontiguousarray(ext[js:].transpose(2, 1, 0, 3))
+    acc = rng.integers(0, 2 ** 64, (K1, b, N), dtype=np.uint64)
+    return dig, ext, ext_or, acc, js
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_STEPS))
+def test_k6_and_k7_match_pallas_at_n1024(name):
+    """K6 (the glue_out step, a new [B, O, N] tensor) and K7 (all 8 key
+    planes as int32 buckets) at N = 1024; K7 recombined is K6's update."""
+    dig, ext, ext_or, acc, js = _wide_step_inputs(6100 + len(name), name)
+    acc_bm = np.ascontiguousarray(acc.transpose(1, 0, 2))
+    lo = jnp.asarray(acc_bm & np.uint64(0xFFFFFFFF), jnp.uint32)
+    hi = jnp.asarray(acc_bm >> np.uint64(32), jnp.uint32)
+    ref = jx.extprod_step(jnp.asarray(dig), jnp.asarray(ext[js:]), lo, hi,
+                          interpret=True, j_start=js)
+    got = kx.extprod_step(t8(dig), t8(ext_or), t64(acc_bm), js)
+    np.testing.assert_array_equal(u64(got), _from_pair(*ref))
+    parts = kx.extprod_partials(t8(dig), t8(ext))
+    np.testing.assert_array_equal(
+        parts.numpy(), np.asarray(jx.extprod_partials(
+            jnp.asarray(dig), jnp.asarray(ext), interpret=True)))
+    np.testing.assert_array_equal(
+        u64(t64(acc_bm) + tpoly.recombine_partials(parts)), u64(got))
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_STEPS))
+def test_k10a_matches_pallas_at_n1024(name):
+    """K10a (longk's glue, the flat layout [n_d, B, R·N]) at N = 1024 with
+    the set's gadget, one component, the rotations 0, N-1, N and 2N-1 among
+    the lanes."""
+    levels, base_log, n_d, _ = WIDE_STEPS[name]
+    rng = np.random.default_rng(6200 + levels)
+    b = 9
+    acc = rng.integers(0, 2 ** 64, (1, b, N), dtype=np.uint64)
+    t = rng.integers(0, 2 * N, (b,), dtype=np.int32)
+    t[:4] = [0, N - 1, N, 2 * N - 1]
+    ref = np.asarray(jx.rot_diff_digits_flat(
+        _acc_pair(acc), jnp.asarray(t), base_log, levels, n_d,
+        interpret=True))
+    got = kx.rot_diff_digits_flat(t64(acc), torch.from_numpy(t), base_log,
+                                  levels, n_d)
+    assert got.shape == (n_d, b, levels * N)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_STEPS))
+def test_k10b_and_k11_match_pallas_at_n1024(name):
+    """K10b (the longk update on flat digits; the Pallas function takes its
+    plane-major key [O, 8-js, R, 2N]) and K11 (the bucket update on K2's
+    layout [R, n_d, B, N]) at N = 1024, in place; both equal K5's update."""
+    dig, _, ext_or, acc, js = _wide_step_inputs(6300 + len(name), name)
+    n_d, b, r, _ = dig.shape
+    flat = np.ascontiguousarray(dig.reshape(n_d, b, r * N))
+    ref = np.asarray(jx.extprod_step_longk(
+        jnp.asarray(flat), jnp.asarray(ext_or.transpose(0, 2, 1, 3)),
+        _acc_pair(acc), interpret=True, j_start=js))
+    got = kx.extprod_step_longk(t8(flat), t8(ext_or), t64(acc), js)
+    np.testing.assert_array_equal(u64(got), _from_pair(ref[:, 0], ref[:, 1]))
+    dig_rf = np.ascontiguousarray(dig.transpose(2, 0, 1, 3))  # [R, n_d, B, N]
+    ref = np.asarray(jx.extprod_step3(
+        jnp.asarray(dig_rf), jnp.asarray(ext_or), _acc_pair(acc),
+        interpret=True, j_start=js))
+    dig5 = t8(dig_rf).reshape(K1, 1, n_d, b, N)
+    got11 = kx.extprod_step3(dig5, t8(ext_or), t64(acc), js)
+    np.testing.assert_array_equal(u64(got11),
+                                  _from_pair(ref[:, 0], ref[:, 1]))
+    np.testing.assert_array_equal(u64(got11), u64(got))
+    np.testing.assert_array_equal(
+        u64(kx.extprod_step2(dig5, t8(ext_or), t64(acc), js)), u64(got))
 
 
 @pytest.mark.parametrize("levels,base_log", WIDE_GADGETS)
@@ -201,6 +294,43 @@ def test_circuit_bootstrap_at_n1024_matches_the_jax_package():
     want = (np.array([f(v) for v in vals])[:, None]
             >> np.arange(2, -1, -1)) & 1
     np.testing.assert_array_equal(jclient.decrypt_bits(u64(out)), want)
+
+
+# the JAX package's environment for each schedule of the blind rotation
+BR_ENV = {"longk": {"TFHE_BR_KERNEL": "longk"},
+          "bucket": {"TFHE_BR_KERNEL": "bucket"},
+          "glue_out": {"TFHE_BR_GLUE": "xla"}}
+
+
+@pytest.mark.parametrize("br", sorted(BR_ENV))
+def test_blind_rotation_at_n1024_matches_jax_under_matching_env(monkeypatch,
+                                                                br):
+    """One blind rotation of 2 steps at lvl256's geometry (N = 1024, k = 2,
+    gadget (4, 9), the BSK truncated at js = 2) on an odd batch of 3 and a
+    random u64 BSK, prepared by each package: the port under Lowering(br)
+    on the CPU (the plain versions of K10a + K10b, K2 + K11, torch glue +
+    K6) equals the JAX package's Pallas path in interpret mode under the
+    environment that selects the same schedule there."""
+    fields = dict(tparams.PARAMS_SQRD_LVL_256.__dict__, lwe_dimension=2)
+    jp, tp = jparams.WopbsParams(**fields), tparams.WopbsParams(**fields)
+    for name in ("TFHE_BR_KERNEL", "TFHE_BR_GLUE", "TFHE_VP_FUSED"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in BR_ENV[br].items():
+        monkeypatch.setenv(name, value)
+    assert Lowering.from_env() == Lowering(br)
+    rng = np.random.default_rng(1240)
+    bsk = rng.integers(0, 2 ** 64, (2, tp.pbs_level, K1, K1, N),
+                       dtype=np.uint64)
+    lwe = rng.integers(0, 2 ** 64, (3, 3), dtype=np.uint64)
+    acc = rng.integers(0, 2 ** 64, (K1, N), dtype=np.uint64)
+    ref = np.asarray(jbr.blind_rotate_glwe(
+        jnp.asarray(lwe), jbr.prepare_bsk(jnp.asarray(bsk), jp),
+        jnp.asarray(acc), jp, use_conv="pallas"))
+    js = ttrunc.bsk_j_start(tp)
+    assert js == 2
+    got = tbr.blind_rotate_glwe(t64(lwe), tkeys.prepare_bsk(t64(bsk), js),
+                                t64(acc), tp, Lowering(br))
+    np.testing.assert_array_equal(u64(got), ref)
 
 
 def test_lvl1_and_lvl4_budgets_refuse_the_aes_pipeline():

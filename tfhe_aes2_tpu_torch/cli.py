@@ -15,10 +15,10 @@ homomorphic counter increments (aes_128/ctr_fhe.py). The kernels the
 bootstraps run follow the JAX package's TFHE_BR_KERNEL / TFHE_BR_GLUE /
 TFHE_VP_FUSED environment (ops/lowering.py); the lowering in use is printed.
 On a CUDA device the parameter sets with N = 1024 (lvl1, lvl4, lvl256 and the
-8-bit model's) run under the default lowering (gridg, fused) and under
-grid / partials, and are refused before keygen under a lowering whose
-kernels take N <= 512 (merged, longk, bucket, glue_out: ROADMAP.md Queue 2);
-the refusal reads the set the chosen model will run. lvl1's and lvl4's noise
+8-bit model's) run under every lowering but merged — gridg (the default),
+grid, longk, bucket and glue_out, each with fused or partials — and are
+refused before keygen under merged, whose kernel K9 takes N <= 512
+(ROADMAP.md Queue 2); the refusal reads the set the chosen model will run. lvl1's and lvl4's noise
 budgets (max_noise_level_squared 1 and 4) are below what the AES pipeline's
 XORs need, so there the run stops with NoiseError, as in the JAX package.
 The tree-PBS model's parameters are flagged testing parameters by the
@@ -86,10 +86,12 @@ def main(argv=None, device: str = "cuda") -> int:
                     help="parameter set for the shortint-woppbs-1bit model "
                          "(shortint-1bit: 'test*' picks PARAMS_TEST_S1, any "
                          "other PARAMS_SHORTINT_1BIT; 'test' sets are "
-                         "INSECURE, for fast runs only; lvl1 and lvl4 run "
-                         "keygen, then stop the AES pipeline with NoiseError: "
-                         "their noise budgets, 1 and 4, are below what its "
-                         "XORs need, as in the JAX package)")
+                         "INSECURE, for fast runs only; lvl1, lvl4 and "
+                         "lvl256 have N = 1024, which the card runs under "
+                         "every lowering but TFHE_BR_KERNEL=merged; lvl1 and "
+                         "lvl4 run keygen, then stop the AES pipeline with "
+                         "NoiseError: their noise budgets, 1 and 4, are "
+                         "below what its XORs need, as in the JAX package)")
     ap.add_argument("--rounds", type=int, default=10,
                     help="AES rounds (<10 verifies against the partial-round "
                          "plain oracle)")

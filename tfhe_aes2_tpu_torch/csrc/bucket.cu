@@ -37,6 +37,13 @@
 // in exactness: each block's bucket is a sub-sum of the same terms, so
 // |partial| <= limbs·R·N·2^14 < 2^31 (the wrappers' bound) and the sum of
 // the sign-extended partials is the sign-extended sum, mod 2^64.
+//
+// At N = 1024 the two column halves of each (tile, component, bucket,
+// split) are two blocks, as K5's (cmux.cu): gridDim.z is (8-js) x splits x
+// halves, and a block contracts over all N digit columns into its own 512
+// columns from c0 (nc::mma_row's column offset), so the halves' atomics
+// touch disjoint words. Its shared memory, n_d·37,120 bytes there, keeps
+// several blocks an SM (extprod._bucket_residency reads how many).
 #include "nc_mma.cuh"
 
 namespace {
@@ -50,7 +57,7 @@ __device__ __forceinline__ void bucket_contract(
     int32_t (&acc)[nc::MT][1][4], unsigned char* smem,
     const int8_t* __restrict__ ext, size_t ext_r,
     const int8_t* __restrict__ dig, size_t dig_r, unsigned dig_plane, int R,
-    int rows_valid, int n) {
+    int rows_valid, int n, int c0) {
   const int tab_b = nc::tab_bytes(LIMBS, n), raw_b = nc::raw_bytes(LIMBS, n),
             dig_b = nc::dig_tile_bytes(LIMBS, n);
   const int stride = (n + nc::DIG_PAD) >> 2;        // words a digit-tile row
@@ -90,7 +97,7 @@ __device__ __forceinline__ void bucket_contract(
 #pragma unroll
     for (int t = 0; t < LIMBS; ++t)
       nc::mma_row<1, 7>(acc, tw + t * 2 * n,
-                        dw + (LIMBS - 1 - t) * nc::ROWS * stride, n);
+                        dw + (LIMBS - 1 - t) * nc::ROWS * stride, n, c0);
     nc::cp_async_wait_all();
     __syncthreads();
   }
@@ -102,21 +109,22 @@ __device__ __forceinline__ void bucket_limbs(
     int limbs, int32_t (&acc)[nc::MT][1][4], unsigned char* smem,
     const int8_t* __restrict__ ext, size_t ext_r,
     const int8_t* __restrict__ dig, size_t dig_r, unsigned dig_plane, int R,
-    int rows_valid, int n) {
+    int rows_valid, int n, int c0) {
   if constexpr (L > 1) {
     if (limbs < L) {
       bucket_limbs<L - 1>(limbs, acc, smem, ext, ext_r, dig, dig_r,
-                          dig_plane, R, rows_valid, n);
+                          dig_plane, R, rows_valid, n, c0);
       return;
     }
   }
   bucket_contract<L>(acc, smem, ext, ext_r, dig, dig_r, dig_plane, R,
-                     rows_valid, n);
+                     rows_valid, n, c0);
 }
 
-// Grid (ceil(B/ROWS), O, (8-js)·splits), block N/2 (one warp per 64
-// columns). Block z = split·(8-js) + (s-js) takes bucket s over rows
-// [split·R/splits, (split+1)·R/splits).
+// Grid (ceil(B/ROWS), O, (8-js)·splits·halves), block min(N, 512)/2 (one
+// warp per 64 columns); halves = nc::column_blocks(N). Block
+// z = (split·halves + h)·(8-js) + (s-js) takes bucket s over rows
+// [split·R/splits, (split+1)·R/splits) and columns [512h, 512h + 512).
 // dig  int8  [R][ND][B][N]      this step's digit limb planes (K2's output)
 // ext  int8  [O][R][8-js][2N]   this step's BSK limb planes
 // acc  int64 [O][B][N]          added into with atomics
@@ -127,9 +135,12 @@ extprod_step3_kernel(const int8_t* __restrict__ dig,
                      int B, int n, int R, int js) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nj = 8 - js;
-  const int splits = gridDim.z / nj;
+  const int halves = nc::column_blocks(n);
+  const int splits = gridDim.z / (nj * halves);
   const int s = js + blockIdx.z % nj;
-  const int split = blockIdx.z / nj;
+  const int column_block = blockIdx.z / nj;       // split·halves + h
+  const int split = column_block / halves;
+  const int c0 = (column_block - split * halves) * nc::SPLIT_COLS;
   const int r0 = split * R / splits, r1 = (split + 1) * R / splits;
   const int o = blockIdx.y;
   const int b0 = blockIdx.x * nc::ROWS;
@@ -142,7 +153,7 @@ extprod_step3_kernel(const int8_t* __restrict__ dig,
       limbs, bucket, smem,
       ext + (((size_t)o * R + r0) * nj + (s - limbs + 1 - js)) * 2 * n,
       (size_t)nj * 2 * n, dig + ((size_t)r0 * ND * B + b0) * n,
-      (size_t)ND * B * n, (unsigned)B * n, r1 - r0, rows, n);
+      (size_t)ND * B * n, (unsigned)B * n, r1 - r0, rows, n, c0);
 
   unsigned long long* acc_o = acc + ((size_t)o * B + b0) * n;
   nc::for_each_fragment([&](int q, int c, int lane, int m) {
@@ -150,7 +161,7 @@ extprod_step3_kernel(const int8_t* __restrict__ dig,
       atomicAdd(acc_o + (size_t)lane * n + m,
                 (unsigned long long)((uint64_t)(int64_t)bucket[q][0][c]
                                      << (8 * s)));
-  });
+  }, c0);
 }
 
 template <int ND>
@@ -168,7 +179,8 @@ int launch_bucket(const int8_t* dig, const int8_t* ext, int64_t* acc, int B,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((B + nc::ROWS - 1) / nc::ROWS, O, (8 - js) * splits);
+  const int halves = nc::column_blocks(n);
+  dim3 grid((B + nc::ROWS - 1) / nc::ROWS, O, (8 - js) * splits * halves);
   kern<<<grid, nc::mma_threads(n), smem, stream>>>(
       dig, ext, reinterpret_cast<unsigned long long*>(acc), B, n, R, js);
   return (int)cudaGetLastError();

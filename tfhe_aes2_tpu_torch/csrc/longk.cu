@@ -32,7 +32,11 @@
 // two waves instead of one of 15 rows), each owning a contiguous range of
 // rows and adding its recombined partial into acc with a 64-bit atomicAdd:
 // addition mod 2^64 is exact in any order and recombination is linear, so
-// the result is the same bits. One split adds without atomics. What bounds
+// the result is the same bits. One split adds without atomics. At
+// N = 1024 the two column halves of each (tile, component, split) are two
+// blocks, as K5's (cmux.cu): gridDim.z is splits x halves, the half the
+// low digit of blockIdx.z, and each block adds into its own 512 columns
+// from c0, so the halves never meet in an atomic. What bounds
 // it: int8 operations, as K1 (cmux.cu), at large B; at B = 9 a block's
 // serial latency of its one or two rows.
 #include "nc_mma.cuh"
@@ -57,8 +61,10 @@ rot_diff_digits_flat_kernel(const uint64_t* __restrict__ acc,
                                        (size_t)B * rn});
 }
 
-// K10b. Grid (ceil(B/ROWS), O, splits), block N/2 (one warp per 64
-// columns). Block z takes contraction rows [z·R/splits, (z+1)·R/splits).
+// K10b. Grid (ceil(B/ROWS), O, splits·halves), block min(N, 512)/2 (one
+// warp per 64 columns); halves = nc::column_blocks(N). Block
+// z = split·halves + h takes contraction rows [split·R/splits,
+// (split+1)·R/splits) and columns [512h, 512h + 512).
 // dig  int8  [ND][B][R·N]      K10a's output
 // ext  int8  [O][R][8-JS][2N]  this step's BSK limb planes (prepared entry)
 // acc  int64 [O][B][N]         updated in place
@@ -72,16 +78,19 @@ extprod_step_longk_kernel(const int8_t* __restrict__ dig,
   const int o = blockIdx.y;
   const int b0 = blockIdx.x * nc::ROWS;
   const int rows = min(nc::ROWS, B - b0);
-  const int splits = gridDim.z;
-  const int r0 = blockIdx.z * R / splits;
-  const int r1 = (blockIdx.z + 1) * R / splits;
+  const int halves = nc::column_blocks(n);
+  const int splits = gridDim.z / halves;
+  const int split = blockIdx.z / halves;
+  const int c0 = (blockIdx.z - split * halves) * nc::SPLIT_COLS;
+  const int r0 = split * R / splits;
+  const int r1 = (split + 1) * R / splits;
   const unsigned rn = (unsigned)R * n;
 
   int32_t part[nc::MT][NJ][4];
   const nc::Staged op{ext + ((size_t)o * R + r0) * NJ * 2 * n,
                       dig + ((size_t)b0 * R + r0) * n, (unsigned)n,
                       (unsigned)B * rn, rn, nullptr};
-  nc::contract_mma<ND, JS, true>(part, smem, op, r1 - r0, rows, n);
+  nc::contract_mma<ND, JS, true>(part, smem, op, r1 - r0, rows, n, c0);
 
   uint64_t* acc_o = acc + ((size_t)o * B + b0) * n;
   nc::for_each_output<JS>(part, [&](int lane, int m, uint64_t sum) {
@@ -93,7 +102,7 @@ extprod_step_longk_kernel(const int8_t* __restrict__ dig,
         atomicAdd(reinterpret_cast<unsigned long long*>(at),
                   (unsigned long long)sum);
     }
-  });
+  }, c0);
 }
 
 template <int ND, int L, int BL>
@@ -117,7 +126,8 @@ int launch_longk(const int8_t* dig, const int8_t* ext, int64_t* acc, int B,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((B + nc::ROWS - 1) / nc::ROWS, O, splits);
+  const int halves = nc::column_blocks(n);
+  dim3 grid((B + nc::ROWS - 1) / nc::ROWS, O, splits * halves);
   kern<<<grid, nc::mma_threads(n), smem, stream>>>(
       dig, ext, reinterpret_cast<uint64_t*>(acc), B, n, R);
   return (int)cudaGetLastError();

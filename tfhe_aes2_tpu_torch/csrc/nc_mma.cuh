@@ -28,7 +28,7 @@
 // Ten words feed four tiles. A warp owns MT = 4 neighbouring 16-column
 // tiles (64 columns). A block owns COLS = min(N, 512) output columns from
 // c0 (c0 = 0 up to N = 512; 0 or 512 at N = 1024, where two blocks share a
-// row tile: cmux.cu and vp.cu) and has COLS/64 warps; it still
+// row tile: every kernel here but K9) and has COLS/64 warps; it still
 // contracts over all N digit columns. Write W(e) = word (e + 4·tig - gid)
 // and E = 32·kt - 64·warp - c0: tile q's fragment is (W(E-16q),
 // W(E-16q-8), W(E-16q+16), W(E-16q+8)), so the four tiles together read
@@ -82,6 +82,12 @@ constexpr int SPLIT_COLS = 512;   // the most output columns a block owns
 // block's min(n, SPLIT_COLS) columns.
 __host__ __device__ inline int mma_threads(int n) {
   return (n < SPLIT_COLS ? n : SPLIT_COLS) / 2;
+}
+
+// Blocks that share a row tile's n output columns, SPLIT_COLS each: 2 at
+// N = 1024, else 1 (K6, K7, K10b and K11 read theirs from blockIdx.z).
+__host__ __device__ inline int column_blocks(int n) {
+  return n > SPLIT_COLS ? n / SPLIT_COLS : 1;
 }
 
 // Bytes of one stage's S-tables, raw key rows and (K1) digit tile.

@@ -4,14 +4,16 @@ the measured curve:
 
     python3 tfhe_aes2_tpu_torch/csrc/probes/longk_splits.py
 
-At PARAMS_SQRD_LVL_64's step shape (O=5, R=15, N=512, n_d=2, js=2) and B in
-{1, 9, 13, 64, 128, 160, 200, 256, 288}, it calls the kernel's C entry with
-each split count 1..15, checks the result bit for bit against the plain
-version, and
-prints the median device time of 50 launches enqueued behind a spin of the
-device (so that the events time the device, not the host's enqueue), the
-wrapper's choice marked with '*'. Then the host's time to enqueue one
-launch through the wrapper and through the bare ctypes call.
+At the step shapes of STEPS — PARAMS_SQRD_LVL_64's (O=5, R=15, N=512,
+n_d=2, js=2), lvl256's (O=3, R=12, N=1024, n_d=2, js=2) and the 8-bit
+model's (O=3, R=18, N=1024, n_d=1, js=1), where two blocks share each row
+tile's columns — and B in {1, 9, 13, 32, 64, 128, 160, 200, 256, 288}, it
+calls the kernel's C entry with each split count 1..R, checks the result
+bit for bit against the plain version, and prints the median device time
+of 50 launches enqueued behind a spin of the device (so that the events
+time the device, not the host's enqueue), the wrapper's choice marked with
+'*'. Then the host's time to enqueue one launch through the wrapper and
+through the bare ctypes call. Arguments name a subset of STEPS.
 """
 
 import ctypes
@@ -29,6 +31,10 @@ from tfhe_aes2_tpu_torch.ops.kernels import build  # noqa: E402
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx  # noqa: E402
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# name: (O, L, N, n_d, js) of a blind rotation's step
+STEPS = {"lvl64": (5, 3, 512, 2, 2), "lvl256": (3, 4, 1024, 2, 2),
+         "8-bit": (3, 6, 1024, 1, 1)}
+BATCHES = (1, 9, 13, 32, 64, 128, 160, 200, 256, 288)
 
 
 def device_ms(fn, reps=50):
@@ -63,13 +69,19 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
+    for name in sys.argv[1:] or STEPS:
+        print(f"{name}: O, L, N, n_d, js = {STEPS[name]}", flush=True)
+        probe(*STEPS[name])
+    return 0
+
+
+def probe(o, lv, n, nd, js) -> None:
     f = kx._fn("longk", "tfhe_extprod_step_longk", [_P] * 3 + [_I] * 7 + [_P])
     gen = torch.Generator().manual_seed(11)
-    o, lv, n, nd, js = 5, 3, 512, 2, 2
     r = o * lv
     ext = torch.randint(-128, 128, (o, r, 8 - js, 2 * n), generator=gen,
                         dtype=torch.int8).cuda()
-    for b in (1, 9, 13, 64, 128, 160, 200, 256, 288):
+    for b in BATCHES:
         flat = torch.randint(-128, 128, (nd, b, r * n), generator=gen,
                              dtype=torch.int8).cuda()
         acc = torch.randint(-2 ** 62, 2 ** 62, (o, b, n), generator=gen,
@@ -80,8 +92,8 @@ def main() -> int:
         def call(splits, out):
             build.check(f(flat.data_ptr(), ext.data_ptr(), out.data_ptr(), b,
                           n, o, r, nd, js, splits, stream), "K10b")
-        chosen = kx._longk_splits(b, o, r)
-        cells = []
+        chosen = kx._longk_splits(b, o, r, n)
+        times = {}
         for splits in range(1, r + 1):
             got = acc.clone()
             call(splits, got)
@@ -89,17 +101,19 @@ def main() -> int:
                 raise AssertionError(f"K10b differs from plain at B={b} "
                                      f"splits={splits}")
             scratch = acc.clone()
-            ms = device_ms(lambda: call(splits, scratch))
-            cells.append(f"{splits}{'*' if splits == chosen else ''} "
-                         f"{ms:.4f}")
-        print(f"B={b} ({-(-b // 8) * o} tiles), ms by split count: "
-              + " | ".join(cells), flush=True)
+            times[splits] = device_ms(lambda: call(splits, scratch))
+        best = min(times, key=times.get)
+        print(f"B={b} ({-(-b // 8) * o * kx._column_blocks(n)} tiles), ms "
+              f"by split count: " + " | ".join(
+                  f"{s}{'*' if s == chosen else ''} {ms:.4f}"
+                  for s, ms in times.items())
+              + f"; chosen {chosen} is {times[chosen] / times[best] - 1:+.1%}"
+              f" of the best, {best}", flush=True)
     scratch = acc.clone()
     print(f"host enqueue of one K10b launch at B={b}: wrapper "
           f"{host_us(lambda: kx.extprod_step_longk(flat, ext, scratch, js)):.1f}"
           f" us, bare ctypes call "
           f"{host_us(lambda: call(1, scratch)):.1f} us")
-    return 0
 
 
 if __name__ == "__main__":

@@ -20,9 +20,14 @@
 // cp.async one contraction row ahead). Only the Staged record differs: the
 // batch-major digits lie as K10b's flat ones (longk.cu) — a lane's R rows
 // side by side, rows N bytes apart, lanes R·N — so the tiles are read as
-// they lie. One block owns 8 lanes x all N columns of one component and all
-// R rows: the output is a new tensor, so a split of the rows would first
-// need acc_in copied into acc_out.
+// they lie. One block owns 8 lanes x min(N, 512) columns of one component
+// and all R rows: the output is a new tensor, so a split of the rows would
+// first need acc_in copied into acc_out. At N = 1024 the two column halves
+// of a row tile are two blocks, as K5's (cmux.cu): each stages the whole
+// key row and digit tile, builds the whole S-tables, contracts over all N
+// digit columns and writes its own 512 columns from c0 = 512·blockIdx.z,
+// reading acc_in at the same columns. The offset is read at run time, so
+// every N takes one build.
 //
 // K7 (tfhe_extprod_partials) replaces extprod.py::extprod_partials: the
 // same product over all 8 key planes of ext = [p, -p] (JS = 0), left as one
@@ -35,14 +40,18 @@
 // (vp.cu): the key planes of [8, R, O, 2N] lie R·O·2N bytes apart and are
 // staged plane by plane (KEY_STRIDED), and the epilogue stores the 8
 // buckets of each D register where they are, out[s][b][o][m]. At JS = 0 a
-// thread keeps 128 int32 buckets, so one block an SM.
+// thread keeps 128 int32 buckets, so one block an SM. It splits its
+// columns at N = 1024 as K6; its two stages then take 213,760 bytes at
+// n_d = 3, under the 232,448 a block may have, with no room for a third.
 #include <type_traits>
 
 #include "nc_mma.cuh"
 
 namespace {
 
-// Grid (ceil(B/ROWS), O), block N/2 (one warp per 64 columns).
+// Grid (ceil(B/ROWS), O, halves), block min(N, 512)/2 (one warp per 64
+// columns); halves = nc::column_blocks(N), the block of z = h owning
+// columns [512h, 512h + 512).
 // K6:
 //   dig     int8  [ND][B][R][N]     digit limb planes, batch-major
 //   ext     int8  [O][R][8-JS][2N]  this step's BSK limb planes
@@ -66,20 +75,21 @@ extprod_step_kernel(
   const int b0 = blockIdx.x * nc::ROWS;
   const int rows = min(nc::ROWS, B - b0);
   const unsigned rn = (unsigned)R * n;
+  const int c0 = blockIdx.z * nc::SPLIT_COLS;   // 0 below N = 1024
 
   int32_t part[nc::MT][NJ][4];
   if constexpr (!PARTIALS) {
     const nc::Staged op{ext + (size_t)o * R * NJ * 2 * n,
                         dig + (size_t)b0 * rn, (unsigned)n, (unsigned)B * rn,
                         rn, nullptr};
-    nc::contract_mma<ND, JS, true>(part, smem, op, R, rows, n);
+    nc::contract_mma<ND, JS, true>(part, smem, op, R, rows, n, c0);
 
     nc::for_each_output<JS>(part, [&](int lane, int m, uint64_t sum) {
       if (lane < rows) {
         const size_t at = ((size_t)(b0 + lane) * O + o) * n + m;
         out[at] = acc_in[at] + sum;
       }
-    });
+    }, c0);
   } else {
     // key plane j of row r at ext + j·R·O·2N + r·O·2N + o·2N
     static_assert(JS == 0, "K7 takes all 8 key planes");
@@ -91,7 +101,7 @@ extprod_step_kernel(
                         nullptr,
                         (unsigned)O * 2 * n,
                         (unsigned)R * O * 2 * n};
-    nc::contract_mma<ND, 0, true, true>(part, smem, op, R, rows, n);
+    nc::contract_mma<ND, 0, true, true>(part, smem, op, R, rows, n, c0);
 
     const size_t plane = (size_t)B * O * n;           // out[s] to out[s+1]
     int32_t* out_o = out + ((size_t)b0 * O + o) * n;
@@ -101,7 +111,7 @@ extprod_step_kernel(
 #pragma unroll
         for (int s = 0; s < 8; ++s) at[s * plane] = part[q][s][c];
       }
-    });
+    }, c0);
   }
 }
 
@@ -115,7 +125,7 @@ int launch_step(const int8_t* dig, const int8_t* ext, const int64_t* acc_in,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((B + nc::ROWS - 1) / nc::ROWS, O);
+  dim3 grid((B + nc::ROWS - 1) / nc::ROWS, O, nc::column_blocks(n));
   using Word = std::conditional_t<PARTIALS, int32_t, uint64_t>;
   kern<<<grid, nc::mma_threads(n), smem, stream>>>(
       dig, ext, reinterpret_cast<const uint64_t*>(acc_in),

@@ -42,10 +42,10 @@ multiply-adds a step on ~15 MB of operands). Every kernel reads the
 negacirculant from shared-memory S-tables that index the 2N-byte ext row,
 so it (146 GB for the expanded BSK) never exists; the TPU's packed ladders,
 weight buckets in VMEM and sequential (n_bt, o, r) grid have no counterpart
-— a block owns ROWS lanes × all N columns of one component (at N = 1024,
-K1, K3, K5 and K8: 512 of them, two blocks a row tile, K1's two a cluster
-for its glue) and loops over r itself. Which N each kernel takes on the
-card is N_MAX. Every kernel with products (K1, K3, K5-K9, K10b, K11) puts them on
+— a block owns ROWS lanes × all N columns of one component (at N = 1024
+512 of them, two blocks a row tile, K1's two a cluster for its glue; all
+but K9, which takes N <= 512) and loops over r itself. Which N each kernel
+takes on the card is N_MAX. Every kernel with products (K1, K3, K5-K9, K10b, K11) puts them on
 the tensor cores: `mma.sync.m16n8k32` int8 whose operand fragments are S-table
 and digit-tile words, the operands staged by `cp.async` one contraction row
 ahead (csrc/nc_mma.cuh); what is left above their bound is the instruction rate
@@ -115,15 +115,22 @@ def _require_cuda(name: str, spec) -> None:
 
 # The largest polynomial size N each kernel takes on a CUDA device: 1024
 # where a block owns at most 512 output columns and two blocks share a row
-# tile (K1, K3, K5, K8: csrc/nc_mma.cuh's column offset; K1's glue across a
-# cluster of the two) or a block owns a row (K2); 512 for the others, whose
-# blocks own all N columns (ROADMAP.md Queue 2).
+# tile (K1, K3, K5-K8, K10b, K11: csrc/nc_mma.cuh's column offset; K1's
+# glue across a cluster of the two) or a block owns a row (K2, K10a); 512
+# for K9, whose blocks own all N columns and keep every row's digits in
+# shared memory (ROADMAP.md Queue 2).
 N_MAX = {"extprod_step2g": 1024, "rot_diff_digits": 1024,
          "extprod_grouped_fused": 1024, "extprod_step2": 1024,
-         "extprod_partials_grouped": 1024, "extprod_step": 512,
-         "extprod_partials": 512, "cmux_step_merged": 512,
-         "rot_diff_digits_flat": 512, "extprod_step_longk": 512,
-         "extprod_step3": 512}
+         "extprod_partials_grouped": 1024, "extprod_step": 1024,
+         "extprod_partials": 1024, "cmux_step_merged": 512,
+         "rot_diff_digits_flat": 1024, "extprod_step_longk": 1024,
+         "extprod_step3": 1024}
+
+
+def _column_blocks(n: int) -> int:
+    """Blocks that share one row tile's output columns in the tensor-core
+    kernels: a block owns at most 512 (csrc/nc_mma.cuh's SPLIT_COLS)."""
+    return max(1, n // 512)
 
 
 # The n_d values K3 and K8 are built for at N = 1024 (VP_SPLIT_DISPATCH,
@@ -147,8 +154,9 @@ def device_refusal(n: int, device, lowering: Lowering) -> str | None:
             f"{lowering.br}, vp={lowering.vp}) takes on the card: its "
             f"kernels {', '.join(short)} take N <= "
             f"{min(N_MAX[name] for name in short)}; N = {n} for them is "
-            f"ROADMAP.md Queue 2 (the default lowering (gridg, fused) takes "
-            f"N = 1024; on device 'cpu' the plain versions run it)")
+            f"ROADMAP.md Queue 2 (every other lowering, the default (gridg, "
+            f"fused) among them, takes N = 1024; on device 'cpu' the plain "
+            f"versions run it)")
 
 
 def _check_geometry(name: str, n: int, n_d: int, r: int, j_start: int,
@@ -647,14 +655,15 @@ LONGK_BLOCK_ROWS = 0.7   # a K10b block's launch, prologue and epilogue,
                          # in contraction rows (csrc/probes/longk_splits.py)
 
 
-def _longk_splits(b: int, o: int, r: int) -> int:
-    """Blocks that share one (8-lane tile, component)'s R contraction rows
-    in K10b (csrc/longk.cu): the count s in 1..r that minimises the modelled
-    time ceil(tiles·s / SMS) · (ceil(r/s) + LONGK_BLOCK_ROWS) — waves of one
-    block an SM, each as long as its longest block — and the fewest among
-    equals. Block z takes rows [z·r/s, (z+1)·r/s): floor or ceiling of r/s,
-    none empty."""
-    tiles = -(-b // 8) * o
+def _longk_splits(b: int, o: int, r: int, n: int) -> int:
+    """Blocks that share one (8-lane tile, component, column half)'s R
+    contraction rows in K10b (csrc/longk.cu): the count s in 1..r that
+    minimises the modelled time ceil(tiles·s / SMS) · (ceil(r/s) +
+    LONGK_BLOCK_ROWS) — waves of one block an SM, each as long as its
+    longest block — and the fewest among equals; tiles counts the column
+    halves, two a lane tile at N = 1024. Block z takes rows
+    [z·r/s, (z+1)·r/s): floor or ceiling of r/s, none empty."""
+    tiles = -(-b // 8) * o * _column_blocks(n)
     return min(range(1, r + 1), key=lambda s: (
         -(-tiles * s // SMS) * (-(-r // s) + LONGK_BLOCK_ROWS), s))
 
@@ -686,11 +695,22 @@ def extprod_step_longk(dig_flat: torch.Tensor, ext_or: torch.Tensor,
                   [(dig_flat, torch.int8), (ext_or, torch.int8),
                    (acc, torch.int64)])
     _check_staged("extprod_step_longk", dig_flat, ext_or)
-    f = _fn("longk", "tfhe_extprod_step_longk", [_P] * 3 + [_I] * 7 + [_P])
-    rc = f(dig_flat.data_ptr(), ext_or.data_ptr(), acc.data_ptr(), b, n, o, r,
-           n_d, j_start, _longk_splits(b, o, r), build.stream_ptr(acc.device))
-    build.check(rc, "extprod_step_longk")
+    _launch_longk(dig_flat, ext_or, acc, j_start, _longk_splits(b, o, r, n))
     extprod_step_longk.launches += 1
+    return acc
+
+
+def _launch_longk(dig_flat, ext_or, acc, j_start: int,
+                  splits: int) -> torch.Tensor:
+    """K10b's launch with its rows split `splits` ways (1..R), on operands
+    extprod_step_longk has checked; adds into acc and returns it. The card's
+    checks call it at other splits than the wrapper's, uncounted."""
+    n_d, b, _ = dig_flat.shape
+    o, r, _, two_n = ext_or.shape
+    f = _fn("longk", "tfhe_extprod_step_longk", [_P] * 3 + [_I] * 7 + [_P])
+    build.check(f(dig_flat.data_ptr(), ext_or.data_ptr(), acc.data_ptr(), b,
+                  two_n // 2, o, r, n_d, j_start, splits,
+                  build.stream_ptr(acc.device)), "extprod_step_longk")
     return acc
 
 
@@ -716,18 +736,32 @@ BUCKET_BLOCK_ROWS = 0.7  # a K11 block's launch, prologue and epilogue, in
                          # contraction rows: any value in 0.4-1.5 picks the
                          # same splits at the measured batches
                          # (csrc/probes/bucket_splits.py)
+BUCKET_WIDE_SLOTS = 2    # K11 blocks an SM that the model counts at N = 1024,
+                         # of the 3 the occupancy allows: an empirical fit,
+                         # not a measured cause. With
+                         # csrc/probes/bucket_splits.py at lvl256's and the
+                         # 8-bit model's step, 10 batches each, counting 2
+                         # picks splits 1.9% over the measured best on
+                         # average (worst 11%, 14 of 20 within 3%); counting
+                         # the occupancy's 3, 5.5% (worst 22%) for every
+                         # BUCKET_BLOCK_ROWS tried
 
 
-def _bucket_splits(b: int, o: int, r: int, nj: int, resident: int) -> int:
-    """Blocks that share one (8-lane tile, component, bucket)'s R rows in
-    K11 (csrc/bucket.cu): the count s in 1..r that minimises the modelled
-    time ceil(tiles·nj·s / (SMS·resident)) · (ceil(r/s) + BUCKET_BLOCK_ROWS)
-    — waves of `resident` blocks an SM (the kernel's occupancy), each as
-    long as its longest block — and the fewest among equals. Block z takes
-    rows [z·r/s, (z+1)·r/s), as K10b's (`_longk_splits`)."""
-    blocks = -(-b // 8) * o * nj
+def _bucket_splits(b: int, o: int, r: int, nj: int, resident: int,
+                   n: int) -> int:
+    """Blocks that share one (8-lane tile, component, bucket, column
+    half)'s R rows in K11 (csrc/bucket.cu): the count s in 1..r that
+    minimises the modelled time ceil(blocks·s / (SMS·slots)) ·
+    (ceil(r/s) + BUCKET_BLOCK_ROWS) — waves of `slots` blocks an SM, each as
+    long as its longest block — and the fewest among equals; slots is
+    `resident` (the kernel's occupancy), at most BUCKET_WIDE_SLOTS at
+    N = 1024, and blocks counts tiles·nj and the column halves, two a lane
+    tile at N = 1024. Block z takes rows [z·r/s, (z+1)·r/s), as K10b's
+    (`_longk_splits`)."""
+    blocks = -(-b // 8) * o * nj * _column_blocks(n)
+    slots = resident if n <= 512 else min(resident, BUCKET_WIDE_SLOTS)
     return min(range(1, r + 1), key=lambda s: (
-        -(-blocks * s // (SMS * resident))
+        -(-blocks * s // (SMS * slots))
         * (-(-r // s) + BUCKET_BLOCK_ROWS), s))
 
 
@@ -773,7 +807,7 @@ def extprod_step3(dig: torch.Tensor, ext_or: torch.Tensor, acc: torch.Tensor,
                                     (acc, torch.int64)])
     _check_staged("extprod_step3", dig, ext_or)
     _launch_step3(dig, ext_or, acc, j_start,
-                  _bucket_splits(b, o, r, nj, _bucket_residency(n, n_d)))
+                  _bucket_splits(b, o, r, nj, _bucket_residency(n, n_d), n))
     extprod_step3.launches += 1
     return acc
 

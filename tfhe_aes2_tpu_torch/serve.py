@@ -141,9 +141,8 @@ def serve(keys_path: str, address: str, one_shot: bool = False,
     the heavy startup happens while the first request waits in the accept
     backlog. A request that fails is answered with ok: false and the server
     goes on; a bundle whose parameters the kernels of `device` do not take
-    under the lowering (N = 1024 on CUDA under merged, longk, bucket or
-    glue_out) is refused with ValueError as it loads, before any request is
-    accepted."""
+    under the lowering (N = 1024 on CUDA under merged) is refused with
+    ValueError as it loads, before any request is accepted."""
     from multiprocessing.connection import Listener
 
     with Listener(address, "AF_UNIX") as listener:
