@@ -30,7 +30,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      K10b and K11 (each row tile's columns two blocks of 512) at the steps
      of lvl1, lvl256 and the 8-bit model, B in {1, 9, 13, 160, 288}, the
      set's js and js in {0, 2}, K10b and K11 split and unsplit, every byte
-     -128 at R = 12, K7's buckets recombined equal to K6's update; and one
+     -128 at R = 12, K7's buckets recombined equal to K6's update, and K9
+     (a lane tile's 2·O blocks one cluster) on its own glue's digits
+     against its plain version and K2 then K5 over the same grid; and one
      step of each schedule against K2 then K5 at lvl256's and the 8-bit model's
      step, B in {9, 32, 128, 288}, timed at lvl256's B = 9 and 288 and the
      8-bit model's B = 32, with the splits chosen;
@@ -69,18 +71,23 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   7. the N = 1024 sets (lvl256, lvl1) at full width under the default
      lowering, decrypt-checked against the AES authority: lvl256 through
      cli.main with 1 block (the fused latency path) and with 2 (staged),
-     then under ShortintWoppbs1BitSboxPbsAesEncrypt (the depth-11 pipeline,
+     and with 2 again under TFHE_BR_KERNEL=merged (K9 a CMux step), then
+     under ShortintWoppbs1BitSboxPbsAesEncrypt (the depth-11 pipeline,
      its key expanded by the eager schedule), the lvl256 latency path under
      the default lowering and under ("grid", "partials"), ("longk",
-     "fused"), ("bucket", "fused") and ("glue_out", "partials"), each
-     bit-equal to the default's and decrypted to the AES keystream, then
-     lvl1's SBOX+GalMul circuit bootstrap of one block's 16 bytes (its pfKS
-     the K4 launch with four digit limbs; lvl1's noise budget stops the AES
-     pipeline itself) and lvl4's under "longk"; launch counters reset and
-     read around each, K3's and K4's launches and the blind rotations
-     tallied by shape; then K6, K10a, K10b and K11 at each (B, js) of the
-     rotations of the lvl256 latency path's three lowerings and of lvl4's
-     circuit bootstrap, and K3 and K8 at the (lanes, G) the lvl256 latency
+     "fused"), ("bucket", "fused"), ("glue_out", "partials") and
+     ("merged", "fused"), each bit-equal to the default's and decrypted to
+     the AES keystream, the keystream server on a bundle of those lvl256
+     keys under Lowering("merged") answering one fresh-key request (its
+     compressed answer byte-equal to the default lowering's, decrypted to
+     the AES keystream), then lvl1's SBOX+GalMul circuit bootstrap of one
+     block's 16 bytes (its pfKS the K4 launch with four digit limbs;
+     lvl1's noise budget stops the AES pipeline itself) and lvl4's under
+     "longk" and "merged"; launch counters reset and read around each, K3's
+     and K4's launches and the blind rotations tallied by shape; then K6,
+     K9, K10a, K10b and K11 at each (B, js) of the rotations of the lvl256
+     latency path's four lowerings and of lvl4's circuit bootstraps, and K3
+     and K8 at the (lanes, G) the lvl256 latency
      path launched, each against its plain version, a row of the kernels
      JSON. Phase 2 also holds K1, K5 and K2 at N = 1024 (both N = 1024
      gadgets, B in {1, 9, 13, 288}, js in {0, 2}, every byte -128 at R = 12)
@@ -95,12 +102,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      selection product one K3 launch) decrypted to SBOX[x]; the 8-bit model
      through cli.main at PARAMS_WOPPBS_8BIT (N = 1024), 1 block, 2 rounds,
      under the default lowering, verified, then its 2 rounds again on the
-     same keys and expanded key under (gridg, partials) (K8, no K3) and
-     under (longk, fused) (K10a + K10b, no K1), each bit-equal to the
-     verified run, and K6, K10a, K10b and K11 against their plain versions
-     at each (B, js) those longk rounds launched; then the CLI's refusal of
-     the 8-bit model under TFHE_BR_KERNEL=merged before keygen. Launch
-     counters reset and read around each run. Phase 2 also holds the two
+     same keys and expanded key under (gridg, partials) (K8, no K3), under
+     (longk, fused) (K10a + K10b, no K1) and under (merged, fused) (K9, no
+     K1 or K2), each bit-equal to the verified run, and K6, K9, K10a, K10b
+     and K11 against their plain versions at each (B, js) those longk and
+     merged rounds launched. Launch counters reset and read around each
+     run. Phase 2 also holds the two
      models' kernels against their plain versions: K1, K5, K2 (the new (7,
      6) build) and K10a at the tree's step (R = 35, one limb) and at the
      8-bit model's (N = 1024, R = 18), timed, with K6, K9, K10b and K11
@@ -199,6 +206,7 @@ KERNELS = {
         int8_products="mma.sync"),
     "cmux_step_merged": dict(
         fn=kx.cmux_step_merged, source="tfhe_aes2_tpu_torch/csrc/merged.cu",
+        source_n1024="tfhe_aes2_tpu_torch/csrc/merged_wide.cu",
         replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:737",
         int8_products="mma.sync"),
     "rot_diff_digits_flat": dict(
@@ -380,7 +388,10 @@ def phase_device() -> str:
                 "rot_diff_digits_flat_kernelILi2ELi2ELi15E",
                 "rot_diff_digits_flat_kernelILi1ELi6ELi7E",
                 "step_kernelILi1ELi1ELb0E", "longk_kernelILi1ELi1E",
-                "step3_kernelILi1E")):
+                "step3_kernelILi1E",
+                # K9 at N = 1024 (merged_wide.cu): lvl256's and lvl1's
+                # (ND=2, JS=2), the 8-bit model's (ND=1, JS=1)
+                "merged_wide_kernelILi2ELi2E", "merged_wide_kernelILi1ELi1E")):
             log("ptxas: " + " | ".join(x.strip() for x in report[i:i + 3]))
     return smi
 
@@ -400,16 +411,16 @@ def check_step_schedules(rows: dict, b: int, acc, t, ext, js: int, nd: int,
     comparison is a row of rows[name] with its max_abs_err (K10b's at the
     wrapper's split and unsplit, K11's also with a row a block), timed if
     `timed`, else with ms and plain_ms None. p: the set whose gadget the
-    glue takes (PARAMS_SQRD_LVL_64 by default); at N = 1024 K9, which takes
-    N <= 512, is left out. label: the rows' name prefix. dig: the digits
-    K5, K6, K10b and K11 take, [k+1, L, n_d, B, N] (default K2's glue of
-    acc; random or constant digits reach what the glue never gives); K9,
-    which makes its own, runs only on the glue's."""
+    glue takes (PARAMS_SQRD_LVL_64 by default). label: the rows' name
+    prefix. dig: the digits K5, K6, K10b and K11 take, [k+1, L, n_d, B, N]
+    (default K2's glue of acc; random or constant digits reach what the
+    glue never gives); K9, which makes its own, is held against K2 then K5
+    on the glue's."""
     lv, bl = p.pbs_level, p.pbs_base_log
     k1, _, n = acc.shape
     r = k1 * lv
     glue = kx.rot_diff_digits(acc, t, bl, lv, nd)
-    merged = dig is None and n <= kx.N_MAX["cmux_step_merged"]
+    own_glue = dig is None
     dig = glue if dig is None else dig
     macs = b * k1 * r * n * n * pairs(nd, js)
     want = kx.extprod_step2(dig, ext, acc.clone(), js)
@@ -419,13 +430,13 @@ def check_step_schedules(rows: dict, b: int, acc, t, ext, js: int, nd: int,
     scratch = acc.clone()
 
     def check_and_time(name, what, pairs_, fn, plain, nbytes, macs=macs,
-                       as_k5=()):
+                       as_k5=(), k5=want):
         """Each (got, ref) of pairs_ bit-equal and each of as_k5 (results
-        in K5's layout) equal to K2 then K5; a row of rows[name] with the
-        largest error, fn and plain timed into it if `timed`."""
+        in K5's layout) equal to K2 then K5 (k5); a row of rows[name] with
+        the largest error, fn and plain timed into it if `timed`."""
         sync()
         err = max(max_abs_err(got, ref) for got, ref in pairs_)
-        if not all(torch.equal(x, want) for x in as_k5):
+        if not all(torch.equal(x, k5) for x in as_k5):
             raise AssertionError(f"{name}{what} differs from K2 then K5 at "
                                  f"{label}B={b}")
         record(f"{name} {label}B={b}{what}", rows[name], macs, nbytes,
@@ -442,16 +453,17 @@ def check_step_schedules(rows: dict, b: int, acc, t, ext, js: int, nd: int,
                    lambda: kx.extprod_step_plain(dig_bm, ext, acc_bm, js),
                    dig.numel() + ext.numel() + acc.numel() * 16,
                    as_k5=[k6.permute(1, 0, 2)])
-    merged_ms = None
-    if merged:
-        # K9: the digits never leave the chip, so its bytes lose them
-        k9 = kx.cmux_step_merged(t, ext, acc, bl, lv, js)
-        merged_ms = check_and_time(
-            "cmux_step_merged", "",
-            [(k9, kx.cmux_step_merged_plain(t, ext, acc, bl, lv, js))],
-            lambda: kx.cmux_step_merged(t, ext, scratch, bl, lv, js),
-            lambda: kx.cmux_step_merged_plain(t, ext, scratch, bl, lv, js),
-            ext.numel() + acc.numel() * 16 + b * 4, as_k5=[k9])["ms"]
+    # K9: the digits never leave the chip, so its bytes lose them; it makes
+    # its own, so it is held against K2 then K5 on the glue's digits
+    k9 = kx.cmux_step_merged(t, ext, acc, bl, lv, js)
+    merged_ms = check_and_time(
+        "cmux_step_merged", "" if own_glue else " (its own glue)",
+        [(k9, kx.cmux_step_merged_plain(t, ext, acc, bl, lv, js))],
+        lambda: kx.cmux_step_merged(t, ext, scratch, bl, lv, js),
+        lambda: kx.cmux_step_merged_plain(t, ext, scratch, bl, lv, js),
+        ext.numel() + acc.numel() * 16 + b * 4, as_k5=[k9],
+        k5=want if own_glue else kx.extprod_step2(glue, ext, acc.clone(),
+                                                   js))["ms"]
     # K10a on the accumulator, equal to K2's glue permuted; K10b on the
     # digits in its flat layout, at the wrapper's split and unsplit
     k10a = kx.rot_diff_digits_flat(acc, t, bl, lv, nd)
@@ -508,9 +520,8 @@ def check_step_schedules(rows: dict, b: int, acc, t, ext, js: int, nd: int,
     k1_ms = time_ms(lambda: kx.extprod_step2g(dig, ext, scratch, t, bl, lv,
                                               js))
     log(f"    one CMux step at {label}B={b}: gridg (K1) {k1_ms:.4f} ms, grid "
-        f"(K2 then K5) {grid_ms:.4f} ms, "
-        + (f"merged (K9) {merged_ms:.4f} ms, " if merged else "")
-        + f"longk (K10a then K10b, K10b split {split}) {longk_ms:.4f} ms, "
+        f"(K2 then K5) {grid_ms:.4f} ms, merged (K9) {merged_ms:.4f} ms, "
+        f"longk (K10a then K10b, K10b split {split}) {longk_ms:.4f} ms, "
         f"bucket (K2 then K11, K11 split {bsplit}) {bucket_ms:.4f} ms, "
         f"glue_out (torch glue then K6) {glue_out_ms:.4f} ms; all equal K2 "
         "then K5")
@@ -1366,6 +1377,8 @@ P1 = params_mod.PARAMS_SQRD_LVL_1
 P4 = params_mod.PARAMS_SQRD_LVL_4
 P256 = params_mod.PARAMS_SQRD_LVL_256
 WIDE = "N=1024"       # the name prefix of the rows measured at N = 1024
+# the kernels the merged lowering must launch (K9 a CMux step)
+MERGED = ("cmux_step_merged", "extprod_grouped_fused", "fused_limb_matmul")
 # the lowerings phase 7 runs the lvl256 latency path under, the default
 # first, each with the kernels it must launch: a CMux step's and a vertical
 # packing stage's (K4, the keyswitches', under every one)
@@ -1380,7 +1393,8 @@ LATENCY_LOWERINGS = (
                           "extprod_grouped_fused", "fused_limb_matmul")),
     (Lowering("glue_out", "partials"), ("extprod_step",
                                         "extprod_partials_grouped",
-                                        "fused_limb_matmul")))
+                                        "fused_limb_matmul")),
+    (Lowering("merged"), MERGED))
 
 
 def step_operands(gen, k1, n, lv, nd, b, js, fill=None):
@@ -1484,15 +1498,17 @@ def check_wide_steps(rows, gen) -> None:
 
 
 def check_wide_schedules(rows, gen) -> None:
-    """The longk, bucket and glue_out steps at N = 1024, where K6, K7, K10b
-    and K11 split each row tile's columns between two blocks: K6, K10a,
-    K10b (the wrapper's split and unsplit) and K11 (the wrapper's split,
-    unsplit and a row a block) at the steps of lvl1 (R = 6, (2, 15)),
-    lvl256 (R = 12, (4, 9)) and the 8-bit model (R = 18, (6, 7), one limb),
-    B in {1, 9, 13, 160, 288}, the set's js and js in {0, 2}, on random
-    digits, each bit-equal to its plain version and to K5's update, K10a
-    to K2 permuted; again with every digit and key byte -128 at R = 12
-    (check_step_schedules, untimed). K7 at N = 1024 (all 8 key planes)
+    """The longk, bucket, glue_out and merged steps at N = 1024, where K6,
+    K7, K10b and K11 split each row tile's columns between two blocks and
+    K9's 2·O blocks of a lane tile are one cluster: K6, K10a, K10b (the
+    wrapper's split and unsplit) and K11 (the wrapper's split, unsplit and
+    a row a block) at the steps of lvl1 (R = 6, (2, 15)), lvl256 (R = 12,
+    (4, 9)) and the 8-bit model (R = 18, (6, 7), one limb), B in {1, 9, 13,
+    160, 288}, the set's js and js in {0, 2}, on random digits, each
+    bit-equal to its plain version and to K5's update, K10a to K2 permuted,
+    K9 (its own glue's digits) to its plain version and to K2 then K5; again
+    with every digit and key byte -128 at R = 12 (check_step_schedules,
+    untimed). K7 at N = 1024 (all 8 key planes)
     against its plain version, its buckets recombined equal to K6's
     update, also at -128, timed. Then one step of each schedule against K2
     then K5 at lvl256's and the 8-bit model's shapes, B in {9, 32, 128,
@@ -1516,11 +1532,11 @@ def check_wide_schedules(rows, gen) -> None:
                       + ("random digits " if fill is None else
                          f"every byte {fill} "), dig=dig)
             done += 1
-    log(f"  N=1024: K6, K10a, K10b (split and unsplit) and K11 (split, "
-        f"unsplit, a row a block) bit-equal to plain and to K5, K10a to K2 "
-        f"permuted, in {done} cases: lvl1 R=6, lvl256 R=12, 8-bit R=18 x B "
-        "in {1, 9, 13, 160, 288} x js in {set's, 0, 2}, and every byte -128 "
-        "at R=12, B in {13, 288}")
+    log(f"  N=1024: K6, K10a, K10b (split and unsplit), K11 (split, "
+        f"unsplit, a row a block) and K9 bit-equal to plain and to K5, K10a "
+        f"to K2 permuted, in {done} cases: lvl1 R=6, lvl256 R=12, 8-bit "
+        "R=18 x B in {1, 9, 13, 160, 288} x js in {set's, 0, 2}, and every "
+        "byte -128 at R=12, B in {13, 288}")
     # K7: all 8 key planes at lvl256's step; with the planes the BSK drops
     # zeroed, its buckets recombined are K6's update; again at -128; timed
     # on the random operands
@@ -1561,15 +1577,32 @@ def check_wide_schedules(rows, gen) -> None:
             acc, t, _, ext = step_operands(gen, k1, n, lv, nd, b, js)
             check_step_schedules(rows, b, acc, t, ext, js, nd, p=p,
                                  timed=b in timed, label=f"{WIDE} {name} ")
-    log("  N=1024: one step of longk, bucket and glue_out == K2 then K5 at "
-        "lvl256's and the 8-bit model's step, B in {9, 32, 128, 288}")
+    log("  N=1024: one step of merged, longk, bucket and glue_out == K2 then "
+        "K5 at lvl256's and the 8-bit model's step, B in {9, 32, 128, 288}")
+    # K9's clusters of 2·O blocks, one block an SM: how many the card holds
+    # at once, so how many waves a step's ceil(B/8) clusters take
+    f = kx._fn("merged_wide", "tfhe_cmux_step_merged_wide_clusters",
+               [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+    for name, p in (("lvl256", P256), ("8-bit", P8)):
+        k1, lv = p.glwe_dimension + 1, p.pbs_level
+        nd = torus.limbs_for_bound(decomposition.digit_bound(p.pbs_base_log))
+        held = ctypes.c_int(0)
+        build.check(f(k1, lv, nd, truncation.bsk_j_start(p),
+                      ctypes.byref(held)), "cmux_step_merged")
+        tiles = {b: -(-b // 8) for b in (9, 32, 128, 160, 288)}
+        log(f"  N=1024: K9 at {name}'s step: the card holds {held.value} "
+            f"clusters of {2 * k1} blocks at once "
+            f"(cudaOccupancyMaxActiveClusters), {held.value * 2 * k1} of "
+            f"its SMs; B = " + ", ".join(
+                f"{b}: {c} clusters in {-(-c // max(1, held.value))} waves"
+                for b, c in tiles.items()))
 
 
 def check_path_steps(rows, gen, name: str, p, shapes, brs) -> None:
-    """K6, K10a, K10b (split and unsplit) and K11 (split, unsplit, a row a
-    block) at each (B, js) of the blind rotations a run at the set p made
-    under the schedules brs (its launch_shapes tally), against their plain
-    versions and K2 then K5 (check_step_schedules, untimed, on K2's
+    """K6, K9, K10a, K10b (split and unsplit) and K11 (split, unsplit, a
+    row a block) at each (B, js) of the blind rotations a run at the set p
+    made under the schedules brs (its launch_shapes tally), against their
+    plain versions and K2 then K5 (check_step_schedules, untimed, on K2's
     digits): every batch the run's CMux steps took is held against the
     plain versions."""
     k1, n, lv = p.glwe_dimension + 1, p.polynomial_size, p.pbs_level
@@ -1585,8 +1618,9 @@ def check_path_steps(rows, gen, name: str, p, shapes, brs) -> None:
         acc, t, _, ext = step_operands(gen, k1, n, lv, nd, b, js)
         check_step_schedules(rows, b, acc, t, ext, js, nd, p=p, timed=False,
                              label=f"{WIDE} {name} path js={js} ")
-    log(f"  {name}: K6, K10a, K10b and K11 bit-equal to plain and to K2 then "
-        f"K5 at the (B, js) of the rotations under {'/'.join(brs)}: {found}")
+    log(f"  {name}: K6, K9, K10a, K10b and K11 bit-equal to plain and to K2 "
+        f"then K5 at the (B, js) of the rotations under {'/'.join(brs)}: "
+        f"{found}")
 
 
 def check_wide_limb_matmul(rows, gen) -> None:
@@ -1711,14 +1745,17 @@ def phase_wide(rows, gen):
     bootstrap of one block's 16 bytes, the only K4 launch with four digit
     limbs (lvl1's budget, max_noise_level_squared 1, stops the AES
     pipeline at its first XOR, as in the JAX package), and lvl4's under
-    longk. Between them the lvl256 latency path on one encrypted request
-    under the default lowering and under LATENCY_LOWERINGS' four others,
-    each bit-equal to the default's and verified. Then K3 and K8 at the
+    longk and merged. Between them lvl256's 2 blocks through the CLI again
+    under TFHE_BR_KERNEL=merged, the lvl256 latency path on one encrypted
+    request under the default lowering and under LATENCY_LOWERINGS' five
+    others, each bit-equal to the default's and verified, and the server on
+    those keys under merged (serve_wide_merged). Then K3 and K8 at the
     (lanes, G) the lvl256 latency path launched. Returns the launch counts
-    of the CLI's two runs, the pairing's, the other lowerings' latency runs
-    and the two circuit bootstraps."""
+    of the CLI's three runs, the pairing's, the other lowerings' latency
+    runs, the served request and the three circuit bootstraps."""
     log("== phase 7: the N = 1024 sets at full width, default lowering "
-        "(gridg, fused) and the latency path under four others")
+        "(gridg, fused), merged through the CLI and the server, and the "
+        "latency path under five others")
     argv = ["--key", KEY.hex(), "--iv", IV.hex(), "--params", "lvl256"]
     lat, lat_shapes, lat_s = run_cli(argv + ["--number-of-outputs", "1"],
                                      "lvl256, 1 block (latency path)",
@@ -1728,6 +1765,16 @@ def phase_wide(rows, gen):
     log(f"lvl256 through cli.main: 1 block {lat_s:.2f} s and 2 blocks "
         f"{batch_s:.2f} s of wall time, keygen included; both verified "
         "against the AES authority")
+    with environment(TFHE_BR_KERNEL="merged", TFHE_BR_GLUE=None,
+                     TFHE_VP_FUSED=None):
+        batch9, _, batch9_s = run_cli(
+            argv + ["--number-of-outputs", "2"],
+            "lvl256, 2 blocks (staged), TFHE_BR_KERNEL=merged", MERGED)
+    if batch9["extprod_step2g"] or batch9["rot_diff_digits"]:
+        raise AssertionError("lvl256 under merged launched K1 or K2")
+    log(f"lvl256 through cli.main under TFHE_BR_KERNEL=merged, 2 blocks: "
+        f"{batch9_s:.2f} s of wall time, keygen included; verified against "
+        "the AES authority")
 
     t0 = time.time()
     client, raw = keys_mod.generate_keys(P256, seed=0, device=DEV)
@@ -1775,59 +1822,131 @@ def phase_wide(rows, gen):
             runs.append(counts)
     log(f"lvl256: the {len(outs)} lowerings' ciphertexts bit-equal, all "
         "verified")
+    runs.append(serve_wide_merged(client, raw, ctx, request,
+                                  outs[Lowering()]))
     del ctx, raw
     check_path_steps(rows, gen, "lvl256", P256, path_shapes,
-                     ("longk", "bucket", "glue_out"))
+                     ("longk", "bucket", "glue_out", "merged"))
 
-    runs.append(sbox_circuit_bootstrap("lvl1", P1, Lowering())[0])
-    counts, shapes = sbox_circuit_bootstrap("lvl4", P4, Lowering("longk"))
-    runs.append(counts)
-    check_path_steps(rows, gen, "lvl4", P4, shapes, ("longk",))
+    runs += sbox_circuit_bootstrap("lvl1", P1, (Lowering(),))[0]
+    counts, shapes = sbox_circuit_bootstrap(
+        "lvl4", P4, (Lowering("longk"), Lowering("merged")))
+    runs += counts
+    check_path_steps(rows, gen, "lvl4", P4, shapes, ("longk", "merged"))
     check_wide_vp(rows, gen, lat_shapes)
-    return [lat, batch, pairing] + runs
+    return [lat, batch, batch9, pairing] + runs
 
 
-def sbox_circuit_bootstrap(name: str, p, lowering) -> tuple[dict, dict]:
+def serve_wide_merged(client, raw, ctx, request, out_default) -> dict:
+    """The keystream server on a bundle of phase 7's lvl256 keys, saved and
+    loaded back, serving on a thread under Lowering("merged") (K9 at
+    N = 1024 a CMux step): one fresh-key request, the latency path, whose
+    compressed answer must be byte-equal to the default lowering's and
+    decrypt to the AES keystream. Returns its launch counts."""
+    n_lwe = P256.lwe_dimension
+    key_np, block_np = (torus.to_numpy(x) for x in request)
+    want = compression.wire_array(
+        compression.compress_bits(out_default, ctx.sks, P256, 16), 16)
+    tee = _Tee(sys.stderr)
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stderr(tee):
+        bundle, addr = f"{tmp}/server_keys.npz", f"{tmp}/fhe.sock"
+        t0 = time.time()
+        serialization.save_server_keys(bundle, raw, P256)
+        log(f"lvl256 key bundle saved: {os.path.getsize(bundle) / 1e6:.0f} "
+            f"MB in {time.time() - t0:.1f} s")
+        failed = []
+
+        def run():
+            try:
+                serve.serve(bundle, addr, max_requests=1, device=DEV,
+                            lowering=Lowering("merged"))
+            except BaseException as e:
+                failed.append(e)
+                raise
+
+        server = threading.Thread(target=run, daemon=True)
+        t0 = time.time()
+        server.start()
+        wait_for_socket(addr, server.is_alive, "the lvl256 server thread")
+        reset_counters()
+        _, arr = serve.request_keystream(addr, key_np, block_np, rounds=10,
+                                         compress=16)
+        sync()
+        secs = time.time() - t0
+        counts = read_counters()
+        server.join(timeout=120)
+        if server.is_alive() or failed:
+            raise AssertionError(f"the lvl256 server thread did not end: "
+                                 f"{failed}")
+    notes = tee.kept.getvalue()
+    got = compression.decrypt_blocks_compressed(client, arr["comp"], 16)
+    if got != aes_lib.encrypt_blocks(KEY, scenario.ctr_blocks(IV, 1)):
+        raise AssertionError("keystream mismatch, served lvl256 request")
+    if not (arr["comp"].dtype == want.dtype
+            and np.array_equal(arr["comp"], want)):
+        raise AssertionError("the served lvl256 answer differs from the "
+                             "default lowering's")
+    if "cache miss" not in notes or "fused latency path" not in notes:
+        raise AssertionError(f"lvl256 server log: {notes[-2000:]}")
+    require_counts("served lvl256 request, latency path under merged",
+                   counts, {"cmux_step_merged": 11 * n_lwe,
+                            "extprod_step2g": 0, "rot_diff_digits": 0,
+                            "extprod_step2": 0})
+    require_launches("served lvl256 request", counts, MERGED)
+    log(f"lvl256 server under (merged, fused): bundle loaded + one fresh-key "
+        f"request {secs:.2f} s (latency path); the answer byte-equal to the "
+        "default lowering's and decrypted to the AES keystream")
+    return counts
+
+
+def sbox_circuit_bootstrap(name: str, p, lowerings) -> tuple[list, dict]:
     """The SBOX+GalMul circuit bootstrap of one block's 16 bytes (128
-    lanes) at the set p under `lowering`, seeded keys, each of S(x)·1, ·2,
-    ·3 decrypted against the AES tables; the launch counters reset just
-    before and read just after (the lowering's kernels and K4 must launch;
-    at lvl1 K4 must take four digit limbs). Returns the counts and the
-    launch_shapes tally."""
+    lanes) at the set p under each of `lowerings` on one set of seeded
+    keys, each of S(x)·1, ·2, ·3 decrypted against the AES tables; the
+    launch counters reset just before and read just after each run (the
+    lowering's kernels and K4 must launch; at lvl1 K4 must take four digit
+    limbs). Returns the runs' counts and their launch_shapes tally."""
     t0 = time.time()
     client, raw = keys_mod.generate_keys(p, seed=0, device=DEV)
-    ctx = model.context_from_keys(p, raw, lowering=lowering)
+    ctx = model.context_from_keys(p, raw, lowering=lowerings[0])
     sync()
     log(f"{name} keygen (seeded) + key preparation: {time.time() - t0:.1f} s")
     block = aes_lib.encrypt_blocks(KEY, scenario.ctr_blocks(IV, 1))[0]
     bits = np.unpackbits(np.frombuffer(block, np.uint8)[:, None], axis=-1)
-    state = model.fresh_bitct(torus.to_tensor(client.encrypt_bits(bits),
-                                              DEV), ctx, lane_ndim=2)
-    reset_counters()
-    t0 = time.time()
-    with launch_shapes() as shapes:
-        muls = sbox_gal_mul_pbs.sub_bytes_with_gal_mul(ctx, state)
-    sync()
-    cbs_s = time.time() - t0
-    counts = read_counters()
-    for mul, got in zip((1, 2, 3), muls):
-        dec = np.packbits(client.decrypt_bits(torus.to_numpy(got.array))
-                          .astype(np.uint8), axis=-1)[:, 0]
-        want = [gf_256_mul(int(SBOX[x]), mul) for x in block]
-        if list(dec) != want:
-            raise AssertionError(f"{name} SBOX x {mul} decrypts wrong")
-    log(f"{name}: launches by shape: " + ", ".join(
-        f"{key}: {count}" for key, count in sorted(shapes.items())))
-    require_launches(f"{name} SBOX+GalMul circuit bootstrap under "
-                     f"({lowering.br}, {lowering.vp})", counts,
-                     lowering.kernels() + ("fused_limb_matmul",))
-    if name == "lvl1" and not any(k.startswith("K4 pfKS n_d=4")
-                                  for k in shapes):
-        raise AssertionError("lvl1's pfKS did not launch K4 at n_d=4")
-    log(f"{name} SBOX+GalMul circuit bootstrap of 16 bytes (128 lanes) under "
-        f"({lowering.br}, {lowering.vp}): {cbs_s:.2f} s; S(x)·1, ·2, ·3 "
-        "decrypt right for every byte")
-    return counts, shapes
+    runs, tally = [], {}
+    for lowering in lowerings:
+        ctx = dataclasses.replace(ctx, lowering=lowering)
+        state = model.fresh_bitct(torus.to_tensor(client.encrypt_bits(bits),
+                                                  DEV), ctx, lane_ndim=2)
+        reset_counters()
+        t0 = time.time()
+        with launch_shapes() as shapes:
+            muls = sbox_gal_mul_pbs.sub_bytes_with_gal_mul(ctx, state)
+        sync()
+        cbs_s = time.time() - t0
+        counts = read_counters()
+        for mul, got in zip((1, 2, 3), muls):
+            dec = np.packbits(client.decrypt_bits(torus.to_numpy(got.array))
+                              .astype(np.uint8), axis=-1)[:, 0]
+            want = [gf_256_mul(int(SBOX[x]), mul) for x in block]
+            if list(dec) != want:
+                raise AssertionError(f"{name} SBOX x {mul} decrypts wrong "
+                                     f"under ({lowering.br}, {lowering.vp})")
+        log(f"{name}: launches by shape: " + ", ".join(
+            f"{key}: {count}" for key, count in sorted(shapes.items())))
+        require_launches(f"{name} SBOX+GalMul circuit bootstrap under "
+                         f"({lowering.br}, {lowering.vp})", counts,
+                         lowering.kernels() + ("fused_limb_matmul",))
+        if name == "lvl1" and not any(k.startswith("K4 pfKS n_d=4")
+                                      for k in shapes):
+            raise AssertionError("lvl1's pfKS did not launch K4 at n_d=4")
+        log(f"{name} SBOX+GalMul circuit bootstrap of 16 bytes (128 lanes) "
+            f"under ({lowering.br}, {lowering.vp}): {cbs_s:.2f} s; S(x)·1, "
+            "·2, ·3 decrypt right for every byte")
+        runs.append(counts)
+        tally.update(shapes)
+    return runs, tally
 
 
 # ------------------- the other two models: tree PBS and 8-bit WoP-PBS
@@ -2153,11 +2272,11 @@ def phase_models(rows, gen):
     same keys at the test sets; the tree model's SBOX on 2 bytes at
     PARAMS_SHORTINT_1BIT; the 8-bit model through cli.main at
     PARAMS_WOPPBS_8BIT, 2 rounds, under the default lowering, and its rounds
-    again under (gridg, partials) and (longk, fused), bit-equal, the longk
-    rounds' step kernels held against their plain versions at the batches
-    they ran (rows, gen: check_path_steps'); and the CLI's refusal of the
-    8-bit model under merged, before keygen. Returns the launch counts of
-    the tree run, the CLI run, the partials and the longk rounds."""
+    again under (gridg, partials), (longk, fused) and (merged, fused),
+    bit-equal, the longk and merged rounds' step kernels held against their
+    plain versions at the batches they ran (rows, gen: check_path_steps').
+    Returns the launch counts of the tree run, the CLI run, the partials,
+    the longk and the merged rounds."""
     log("== phase 8: the other two models at full width")
     t0 = time.time()
     cards_against_the_cpu()
@@ -2167,11 +2286,8 @@ def phase_models(rows, gen):
     log(f"step 2 (tree SBOX, keygen included): {time.time() - t0:.1f} s")
     t0 = time.time()
     runs = woppbs_8bit_cli(rows, gen)
-    log(f"step 3 (8-bit model, the CLI run and its rounds under partials): "
-        f"{time.time() - t0:.1f} s")
-    t0 = time.time()
-    refuse_8bit_under_merged()
-    log(f"step 4 (the CLI's refusal): {time.time() - t0:.2f} s")
+    log(f"step 3 (8-bit model, the CLI run and its rounds under partials, "
+        f"longk and merged): {time.time() - t0:.1f} s")
     return [tree] + runs
 
 
@@ -2223,14 +2339,20 @@ def woppbs_8bit_cli(rows, gen) -> list:
     same prepared keys, expanded key and encrypted block under (gridg,
     partials) — the lowering TFHE_VP_FUSED=0 selects — which must launch K8
     and no K3 and give the fused run's output ciphertexts bit for bit.
-    Then the same 2 rounds under (longk, fused), K10a + K10b and no K1,
-    bit-equal too, and K6, K10a, K10b and K11 held against their plain
-    versions at each (B, js) those rounds launched K10b at. Returns the
-    three runs' launch counts."""
+    Then the same 2 rounds under (longk, fused), K10a + K10b and no K1, and
+    under (merged, fused), K9 and no K1 or K2, each bit-equal too and
+    decrypted against the plain 2-round oracle, and K6, K9, K10a, K10b and
+    K11 held against their plain versions at each (B, js) those rounds ran
+    their CMux steps at. Returns the four runs' launch counts."""
     argv = ["--implementation", "shortint-woppbs-8bit", "--key", KEY.hex(),
             "--iv", IV.hex(), "--number-of-outputs", "1", "--rounds", "2"]
     seen = {}
     real_serve, real_schedule = scenario.serve_request, fhe.key_schedule_staged
+    real_read = scenario.read_response
+
+    def read(client, *args, **kwargs):
+        seen["client"] = client
+        return real_read(client, *args, **kwargs)
 
     def serve(ctx, strategy, key_ct, block_cts, rounds=10, **kwargs):
         out, timings = real_serve(ctx, strategy, key_ct, block_cts, rounds,
@@ -2243,6 +2365,7 @@ def woppbs_8bit_cli(rows, gen) -> list:
         seen["eks"] = real_schedule(*args, **kwargs)
         return seen["eks"]
     scenario.serve_request, fhe.key_schedule_staged = serve, schedule
+    scenario.read_response = read
     try:
         with environment(TFHE_BR_KERNEL=None, TFHE_BR_GLUE=None,
                          TFHE_VP_FUSED=None):
@@ -2251,6 +2374,7 @@ def woppbs_8bit_cli(rows, gen) -> list:
     finally:
         scenario.serve_request, fhe.key_schedule_staged = (real_serve,
                                                            real_schedule)
+        scenario.read_response = real_read
     log(f"8-bit model through cli.main, 1 block, 2 rounds, (gridg, fused): "
         f"{secs:.2f} s of wall time, keygen included; verified against the "
         f"plain 2-round oracle")
@@ -2301,36 +2425,36 @@ def woppbs_8bit_cli(rows, gen) -> list:
         f"(gridg, partials); output ciphertexts bit-equal to the fused run's "
         f"(K10a {longk['rot_diff_digits_flat']}, K10b "
         f"{longk['extprod_step_longk']} launches, no K1)")
-    check_path_steps(rows, gen, "8-bit", P8, shapes, ("longk",))
-    return [fused, partials, longk]
-
-
-def refuse_8bit_under_merged() -> None:
-    """cli.main with the 8-bit model (N = 1024) and --params lvl64 (N = 512)
-    under TFHE_BR_KERNEL=merged on the card: refused (argparse's exit 2)
-    before any keygen, as the refusal reads the set the model runs."""
-    keygens = []
-    real_keys = tm8.generate_keys
-    tm8.generate_keys = lambda *a, **k: keygens.append(1) or real_keys(*a,
-                                                                         **k)
-    try:
-        with environment(TFHE_BR_KERNEL="merged", TFHE_BR_GLUE=None,
-                         TFHE_VP_FUSED=None), \
-                contextlib.redirect_stderr(io.StringIO()) as err:
-            cli.main(["--implementation", "shortint-woppbs-8bit", "--params",
-                      "lvl64", "--key", KEY.hex(), "--iv", IV.hex(),
-                      "--number-of-outputs", "1"], device=DEV)
-        raise AssertionError("the CLI took the 8-bit model under merged")
-    except SystemExit as e:
-        code = e.code
-    finally:
-        tm8.generate_keys = real_keys
-    if code != 2 or keygens or "polynomial_size 1024" not in err.getvalue():
-        raise AssertionError(f"the 8-bit model under merged: exit {code}, "
-                             f"{len(keygens)} keygens, {err.getvalue()!r}")
-    log(f"the CLI refused the 8-bit model under TFHE_BR_KERNEL=merged on "
-        f"{DEV} before keygen (exit 2): "
-        f"{err.getvalue().strip().splitlines()[-1][:160]}")
+    # and under (merged, fused): K9 a CMux step at N = 1024, a lane tile's
+    # 2·O blocks one cluster
+    ctx = dataclasses.replace(seen["ctx"], lowering=Lowering("merged"))
+    eks = dataclasses.replace(seen["eks"], context=ctx)
+    reset_counters()
+    t0 = time.time()
+    with launch_shapes() as shapes9:
+        out = fhe.encrypt_blocks_staged(seen["strategy"], ctx, eks,
+                                        seen["blocks"], seen["rounds"]).array
+    sync()
+    merged_s = time.time() - t0
+    merged = read_counters()
+    require_launches("8-bit model, (merged, fused)", merged, MERGED)
+    if merged["extprod_step2g"] or merged["rot_diff_digits"]:
+        raise AssertionError("the (merged, fused) rounds launched K1 or K2")
+    if not torch.equal(out, seen["out"]):
+        raise AssertionError("8-bit model: the merged rounds' ciphertext "
+                             "differs from the fused run's")
+    got = seen["strategy"].decrypt_client(seen["client"],
+                                          torus.to_numpy(out))
+    if got != plain.expand_key_and_encrypt_blocks(
+            KEY, scenario.ctr_blocks(IV, 1), seen["rounds"]):
+        raise AssertionError("8-bit model: the merged rounds decrypt wrong")
+    log(f"8-bit model, the same 2 rounds under (merged, fused) on the same "
+        f"keys and expanded key: {merged_s:.2f} s; output ciphertexts "
+        f"bit-equal to the fused run's and decrypted to the plain 2-round "
+        f"oracle (K9 {merged['cmux_step_merged']} launches, no K1 or K2)")
+    check_path_steps(rows, gen, "8-bit", P8, {**shapes, **shapes9},
+                     ("longk", "merged"))
+    return [fused, partials, longk, merged]
 
 
 def main() -> int:
@@ -2378,6 +2502,8 @@ def main() -> int:
             bound_ms=last["bound_ms"], bound_by=last["bound_by"],
             library_ms=None, launch_floor_ms=floor,
             int8_products=spec["int8_products"],
+            **({"source_n1024": spec["source_n1024"]}
+               if "source_n1024" in spec else {}),
             shape=last["name"],
             shapes=[{k: v for k, v in x.items()
                      if k not in ("macs", "nbytes")} for x in rows[name]]))

@@ -742,6 +742,57 @@ def test_cuda_wide_longk_and_bucket_every_split_match_plain(b):
     torch.cuda.synchronize()
 
 
+# ------------- N = 1024 under merged: K9, a lane tile's 2·O blocks a cluster
+
+def _assert_wide_merged(acc, t, ext, base_log, levels, js):
+    """K9 at N = 1024 bit-equal to its plain version and to K2 then K5 on
+    the same accumulator, which it leaves untouched."""
+    n_d = torus.limbs_for_bound(decomposition.digit_bound(base_log))
+    before = acc.clone()
+    k9 = kx.cmux_step_merged(t, ext, acc, base_log, levels, js)
+    assert torch.equal(acc, before)
+    assert torch.equal(k9, kx.cmux_step_merged_plain(t, ext, acc, base_log,
+                                                     levels, js))
+    d2 = kx.rot_diff_digits(acc, t, base_log, levels, n_d)
+    assert torch.equal(k9, kx.extprod_step2(d2, ext, acc.clone(), js))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 9, 13, 16, 128, 160, 288])
+@pytest.mark.parametrize("step", sorted(WIDE_SCHEDULE_STEPS))
+def test_cuda_wide_merged_matches_plain(step, b):
+    """On the card at N = 1024: K9 (the 2·O blocks of a lane tile one
+    cluster, each gluing one component's rows at its 512 columns, each
+    row's digits copied between the blocks' shared memory) at the step of
+    lvl1, lvl256 or the 8-bit model, with the set's js and js = 0, on
+    random key bytes and with every key byte -128 (its digits come from its
+    own glue), a ragged last lane tile and the rotations 0, N-1, N and 2N-1
+    among the lanes."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(8000 + b + len(step))
+    k1, levels, base_log, n_d, js_set = WIDE_SCHEDULE_STEPS[step]
+    for js in sorted({js_set, 0}):
+        for fill in (None, -128):
+            _, ext, acc, t = _step_operands(gen, k1, 1024, levels, n_d, b, js,
+                                            fill)
+            _assert_wide_merged(acc, t, ext, base_log, levels, js)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k1", [1, 4, 5, 8])
+def test_cuda_wide_merged_other_cluster_sizes(k1):
+    """On the card at N = 1024, gadget (2, 15), js = 2, B = 13: K9 with k + 1
+    components, its clusters of 2·(k+1) blocks — 2 and 8 (portable) and 10
+    and 16 (the non-portable sizes above 8) — bit-equal to its plain
+    version and to K2 then K5."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(8100 + k1)
+    _, ext, acc, t = _step_operands(gen, k1, 1024, 2, 2, 13, 2)
+    _assert_wide_merged(acc, t, ext, 15, 2, 2)
+    torch.cuda.synchronize()
+
+
 # ------------------- the other two models: tree PBS and 8-bit WoP-PBS
 
 # (k+1, N, levels, base_log) of the two models' blind rotations: the tree

@@ -1,12 +1,13 @@
 """On a CUDA device the CLI and the server take the parameter sets with
 N = 1024 (lvl1, lvl4, lvl256, and the 8-bit model's PARAMS_WOPPBS_8BIT)
-under the lowerings whose kernels take N = 1024 — (gridg | grid | longk |
-bucket | glue_out) x (fused | partials), the default among them — and
-refuse them under merged, whose kernel K9 takes N <= 512, before any keygen
-or request; the CLI reads the set the chosen model runs. On the CPU they
-take them under every lowering. CPU only: the refusal comes before anything touches a
-card, and the accepting runs are stopped where keygen or key loading would
-begin."""
+under every lowering — (gridg | grid | merged | longk | bucket | glue_out)
+x (fused | partials), each of whose kernels takes N = 1024 (extprod.N_MAX);
+the CLI reads the set the chosen model runs. The refusal path stays: a set
+above what one of a lowering's kernels takes (N = 2048, or N = 1024 with a
+kernel's N_MAX narrowed to 512 here) is refused before any keygen or
+request, on the card only. On the CPU every set runs under every lowering.
+CPU only: the refusal comes before anything touches a card, and the
+accepting runs are stopped where keygen or key loading would begin."""
 
 from types import SimpleNamespace
 
@@ -25,12 +26,21 @@ from tfhe_aes2_tpu_torch.ops import circuit_bootstrap as cbs_mod
 from tfhe_aes2_tpu_torch.ops import params as params_mod
 from tfhe_aes2_tpu_torch.ops import serialization
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
-from tfhe_aes2_tpu_torch.ops.lowering import BR_CHOICES, VP_CHOICES, Lowering
+from tfhe_aes2_tpu_torch.ops.lowering import (BR_CHOICES, BR_KERNELS,
+                                              VP_CHOICES, Lowering)
 
 ARGV = ["--key", "00" * 16, "--iv", "00" * 8, "--number-of-outputs", "1"]
 WIDE = ["lvl1", "lvl4", "lvl256"]
-NARROW_BR = ["merged"]                       # K9 takes N <= 512
-WIDE_BR = ["gridg", "grid", "longk", "bucket", "glue_out"]
+WIDE_BR = ["gridg", "grid", "merged", "longk", "bucket", "glue_out"]
+# the lowering whose kernel the refusal tests narrow to N <= 512 (K9, which
+# took N <= 512 until it had a cluster layout at N = 1024)
+NARROW_BR = ["merged"]
+
+
+def _narrow(monkeypatch, br):
+    """Every kernel br's blind rotation runs takes N <= 512 on the card."""
+    for name in BR_KERNELS[br]:
+        monkeypatch.setitem(kx.N_MAX, name, 512)
 
 
 def _set_lowering(monkeypatch, br, vp="fused"):
@@ -55,14 +65,15 @@ def _stop(*args, **kwargs):
 
 
 def test_the_wide_sets_are_the_ones_above_the_kernels_limit():
-    """The sets with N = 1024 are the wide ones; of the lowerings, exactly
-    those of WIDE_BR x (fused | partials) take them on the card, each kernel
-    by its own N_MAX."""
+    """The sets with N = 1024 are the wide ones; every lowering of WIDE_BR x
+    (fused | partials), which is all of them, takes them on the card, each
+    kernel by its own N_MAX."""
     above = {name for name, p in cli.PARAM_CHOICES.items()
              if p.polynomial_size > 512}
     assert above == set(WIDE)
     assert {p.polynomial_size for name, p in cli.PARAM_CHOICES.items()
             if name in WIDE} == {1024}
+    assert set(WIDE_BR) == set(BR_CHOICES)
     takes = {(br, vp) for br in BR_CHOICES for vp in VP_CHOICES
              if kx.device_refusal(1024, "cuda", Lowering(br, vp)) is None}
     assert takes == {(br, vp) for br in WIDE_BR for vp in VP_CHOICES}
@@ -108,14 +119,17 @@ def test_each_lowering_launches_the_kernels_it_names(br, vp, monkeypatch):
 @pytest.mark.parametrize("name", WIDE)
 def test_cli_refuses_n1024_on_cuda_before_keygen(name, br, monkeypatch,
                                                  capsys):
+    """With br's kernel narrowed to N <= 512, the CLI refuses the N = 1024
+    sets under br on the card with argparse's error, before keygen."""
     _set_lowering(monkeypatch, br)
+    _narrow(monkeypatch, br)
     monkeypatch.setattr(model, "generate_keys", _stop)
     with pytest.raises(SystemExit) as exc:
         cli.main(ARGV + ["--params", name], device="cuda")
     assert exc.value.code == 2                   # argparse's error exit
     err = capsys.readouterr().err
-    assert ("ROADMAP.md Queue 2" in err and "1024" in err and name in err
-            and f"br={br}" in err)
+    assert ("polynomial_size 1024" in err and "N <= 512" in err
+            and name in err and f"br={br}" in err)
 
 
 @pytest.mark.parametrize("vp", VP_CHOICES)
@@ -145,9 +159,11 @@ def test_cli_on_cuda_takes_lvl64_to_keygen(monkeypatch):
 def test_cli_refuses_the_8bit_model_on_cuda_before_keygen(br, monkeypatch,
                                                          capsys):
     """The 8-bit model always runs PARAMS_WOPPBS_8BIT (N = 1024), so the
-    refusal reads that set, not --params: with lvl64 (N = 512) named, it is
-    still refused before keygen."""
+    refusal reads that set, not --params: with br's kernel narrowed to
+    N <= 512 and lvl64 (N = 512) named, it is still refused before
+    keygen."""
     _set_lowering(monkeypatch, br)
+    _narrow(monkeypatch, br)
     monkeypatch.setattr(model_8, "generate_keys", _stop)
     monkeypatch.setattr(model, "generate_keys", _stop)
     with pytest.raises(SystemExit) as exc:
@@ -156,7 +172,7 @@ def test_cli_refuses_the_8bit_model_on_cuda_before_keygen(br, monkeypatch,
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert ("woppbs 8bit" in err and "polynomial_size 1024" in err
-            and f"br={br}" in err and "ROADMAP.md Queue 2" in err)
+            and f"br={br}" in err and "N <= 512" in err)
 
 
 @pytest.mark.parametrize("vp", VP_CHOICES)
@@ -230,21 +246,48 @@ def _bundle(path, params):
 
 @pytest.mark.parametrize("br", NARROW_BR)
 def test_server_refuses_an_n1024_bundle_on_cuda(br, tmp_path, monkeypatch):
+    """With br's kernel narrowed to N <= 512, the server refuses a bundle of
+    lvl1's parameters under br on the card as it loads, before the keys
+    move."""
+    _narrow(monkeypatch, br)
     monkeypatch.setattr(serialization, "server_keys_on", _stop)
     monkeypatch.setattr(model, "context_from_keys", _stop)
     keys = _bundle(str(tmp_path / "keys.npz"), params_mod.PARAMS_SQRD_LVL_1)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
+    with pytest.raises(ValueError, match="polynomial_size 1024"):
         serve.serve(keys, str(tmp_path / "s.sock"), max_requests=1,
                     device="cuda", lowering=Lowering(br))
 
 
+@pytest.mark.parametrize("vp", VP_CHOICES)
+@pytest.mark.parametrize("br", BR_CHOICES)
+def test_device_refusal_above_every_kernel(br, vp, monkeypatch):
+    """device_refusal itself, for each lowering: at N = 2048, above every
+    kernel's N_MAX, it names on the card each kernel the lowering runs and
+    the largest N they take, and nothing on the CPU; with one kernel
+    narrowed to N <= 512, it refuses N = 1024 exactly where the lowering
+    runs that kernel, naming it alone."""
+    low = Lowering(br, vp)
+    why = kx.device_refusal(2048, "cuda", low)
+    assert why is not None and "polynomial_size 2048" in why
+    assert f"br={br}, vp={vp}" in why and "N <= 1024" in why
+    assert all(name in why for name in low.kernels())
+    assert kx.device_refusal(2048, "cpu", low) is None
+    monkeypatch.setitem(kx.N_MAX, "cmux_step_merged", 512)
+    why = kx.device_refusal(1024, "cuda", low)
+    assert (why is not None) == (br == "merged")
+    if why:
+        assert "cmux_step_merged take N <= 512" in why
+    assert kx.device_refusal(512, "cuda", low) is None
+
+
 @pytest.mark.parametrize("lowering", [
     None, Lowering("grid", "partials"), Lowering("longk"),
-    Lowering("bucket"), Lowering("glue_out", "partials")])
+    Lowering("bucket"), Lowering("glue_out", "partials"),
+    Lowering("merged")])
 def test_server_on_cuda_loads_an_n1024_bundle(lowering, tmp_path,
                                               monkeypatch):
     """Under the default lowering (from the environment, here unset),
-    under (grid, partials) and under the longk, bucket and glue_out
+    under (grid, partials) and under the longk, bucket, glue_out and merged
     schedules the server goes on to move the keys onto the card."""
     for name in ("TFHE_BR_KERNEL", "TFHE_BR_GLUE", "TFHE_VP_FUSED"):
         monkeypatch.delenv(name, raising=False)

@@ -2,10 +2,11 @@
 
 Each kernel's plain version at N = 1024 against the JAX package's Pallas
 function in interpret mode, on the same numpy-made int8 inputs: K1 and K5 at
-both N = 1024 blind-rotation gadgets, K2, K3 and K8 at the vertical
-packing's js of lvl256 (3) and lvl1/lvl4 (4), K4 with four digit limbs; K6,
-K7, K10a, K10b and K11 (the glue_out, longk and bucket steps) at lvl256's
-and the 8-bit model's step, R cut to 3 rows.
+both N = 1024 blind-rotation gadgets, K9 (the merged step) at those and the
+8-bit model's, K2, K3 and K8 at the vertical packing's js of lvl256 (3) and
+lvl1/lvl4 (4), K4 with four digit limbs; K6, K7, K10a, K10b and K11 (the
+glue_out, longk and bucket steps) at lvl256's and the 8-bit model's step,
+R cut to 3 rows.
 Both sides are exact integer arithmetic mod 2^64: the tolerance is 0. Then
 the truncation's js for every set, one circuit bootstrap at N = 1024, k = 2
 with lvl1's gadgets, and the noise budgets of lvl1/lvl4 against the AES
@@ -85,6 +86,34 @@ def test_k1_and_k5_match_pallas_at_n1024(levels, base_log):
     np.testing.assert_array_equal(
         kx.rot_diff_digits(got5, torch.from_numpy(t_next), base_log, levels,
                            n_d).numpy(), got_dig.numpy())
+
+
+# K9's gadgets at N = 1024 (levels, base_log, js): lvl1/lvl4, lvl256 and the
+# 8-bit model's, each with its set's BSK truncation
+K9_GADGETS = [(2, 15, 2), (4, 9, 2), (6, 7, 1)]
+
+
+@pytest.mark.parametrize("levels,base_log,js", K9_GADGETS)
+def test_k9_matches_pallas_at_n1024(levels, base_log, js):
+    """K9 (the whole CMux step, glue included) at N = 1024, k = 2, R =
+    3·levels, B = 5 with the rotations 0, N-1, N and 2N-1 among the lanes:
+    the plain version equals the Pallas function in interpret mode, into a
+    second buffer, the input left untouched."""
+    rng = np.random.default_rng(1090 + levels)
+    b = 5
+    acc = rng.integers(0, 2 ** 64, (K1, b, N), dtype=np.uint64)
+    t = rng.integers(0, 2 * N, (b,), dtype=np.int32)
+    t[:4] = [0, N - 1, N, 2 * N - 1]
+    ext_or = rng.integers(-128, 128, (K1, K1 * levels, 8 - js, 2 * N)
+                          ).astype(np.int8)
+    ref = np.asarray(jx.cmux_step_merged(
+        jnp.asarray(t), jnp.asarray(ext_or), _acc_pair(acc), base_log, levels,
+        interpret=True, j_start=js))
+    acc_t = t64(acc)
+    got = kx.cmux_step_merged(torch.from_numpy(t), t8(ext_or), acc_t,
+                              base_log, levels, js)
+    np.testing.assert_array_equal(u64(acc_t), acc)
+    np.testing.assert_array_equal(u64(got), _from_pair(ref[:, 0], ref[:, 1]))
 
 
 # The steps of the schedules longk, bucket and glue_out at N = 1024, k = 2:
@@ -299,7 +328,8 @@ def test_circuit_bootstrap_at_n1024_matches_the_jax_package():
 # the JAX package's environment for each schedule of the blind rotation
 BR_ENV = {"longk": {"TFHE_BR_KERNEL": "longk"},
           "bucket": {"TFHE_BR_KERNEL": "bucket"},
-          "glue_out": {"TFHE_BR_GLUE": "xla"}}
+          "glue_out": {"TFHE_BR_GLUE": "xla"},
+          "merged": {"TFHE_BR_KERNEL": "merged"}}
 
 
 @pytest.mark.parametrize("br", sorted(BR_ENV))
@@ -309,8 +339,8 @@ def test_blind_rotation_at_n1024_matches_jax_under_matching_env(monkeypatch,
     gadget (4, 9), the BSK truncated at js = 2) on an odd batch of 3 and a
     random u64 BSK, prepared by each package: the port under Lowering(br)
     on the CPU (the plain versions of K10a + K10b, K2 + K11, torch glue +
-    K6) equals the JAX package's Pallas path in interpret mode under the
-    environment that selects the same schedule there."""
+    K6, K9) equals the JAX package's Pallas path in interpret mode under
+    the environment that selects the same schedule there."""
     fields = dict(tparams.PARAMS_SQRD_LVL_256.__dict__, lwe_dimension=2)
     jp, tp = jparams.WopbsParams(**fields), tparams.WopbsParams(**fields)
     for name in ("TFHE_BR_KERNEL", "TFHE_BR_GLUE", "TFHE_VP_FUSED"):

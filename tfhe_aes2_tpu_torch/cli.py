@@ -14,11 +14,12 @@ client uploads one encrypted iv‖ctr block and the server derives the rest by
 homomorphic counter increments (aes_128/ctr_fhe.py). The kernels the
 bootstraps run follow the JAX package's TFHE_BR_KERNEL / TFHE_BR_GLUE /
 TFHE_VP_FUSED environment (ops/lowering.py); the lowering in use is printed.
-On a CUDA device the parameter sets with N = 1024 (lvl1, lvl4, lvl256 and the
-8-bit model's) run under every lowering but merged — gridg (the default),
-grid, longk, bucket and glue_out, each with fused or partials — and are
-refused before keygen under merged, whose kernel K9 takes N <= 512
-(ROADMAP.md Queue 2); the refusal reads the set the chosen model will run. lvl1's and lvl4's noise
+On a CUDA device every parameter set, the ones with N = 1024 (lvl1, lvl4,
+lvl256 and the 8-bit model's) among them, runs under every lowering — gridg
+(the default), grid, merged, longk, bucket and glue_out, each with fused or
+partials; a set above what a lowering's kernels take (extprod.N_MAX, none in
+ops/params.py) would be refused before keygen, reading the set the chosen
+model will run. lvl1's and lvl4's noise
 budgets (max_noise_level_squared 1 and 4) are below what the AES pipeline's
 XORs need, so there the run stops with NoiseError, as in the JAX package.
 The tree-PBS model's parameters are flagged testing parameters by the
@@ -88,7 +89,7 @@ def main(argv=None, device: str = "cuda") -> int:
                          "other PARAMS_SHORTINT_1BIT; 'test' sets are "
                          "INSECURE, for fast runs only; lvl1, lvl4 and "
                          "lvl256 have N = 1024, which the card runs under "
-                         "every lowering but TFHE_BR_KERNEL=merged; lvl1 and "
+                         "every lowering; lvl1 and "
                          "lvl4 run keygen, then stop the AES pipeline with "
                          "NoiseError: their noise budgets, 1 and 4, are "
                          "below what its XORs need, as in the JAX package)")

@@ -20,7 +20,9 @@
 // contracts from there, and writes the new accumulator to a SECOND buffer.
 // The glue is recomputed by the O blocks of a lane tile; that costs O times
 // a short phase and keeps O times the blocks on the card that one block per
-// lane tile looping over the components would.
+// lane tile looping over the components would. This layout takes N <= 512;
+// at N = 1024 a lane tile's blocks share the glue out as one cluster
+// (merged_wide.cu).
 //
 // What bounds it on the H100: int8 operations, as for K1 (cmux.cu). The
 // products are nc::contract_mma of nc_mma.cuh: mma.sync.m16n8k32 int8 on the

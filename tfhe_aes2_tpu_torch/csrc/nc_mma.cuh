@@ -28,9 +28,9 @@
 // Ten words feed four tiles. A warp owns MT = 4 neighbouring 16-column
 // tiles (64 columns). A block owns COLS = min(N, 512) output columns from
 // c0 (c0 = 0 up to N = 512; 0 or 512 at N = 1024, where two blocks share a
-// row tile: every kernel here but K9) and has COLS/64 warps; it still
-// contracts over all N digit columns. Write W(e) = word (e + 4·tig - gid)
-// and E = 32·kt - 64·warp - c0: tile q's fragment is (W(E-16q),
+// row tile) and has COLS/64 warps; it still contracts over all N digit
+// columns. Write W(e) = word (e + 4·tig - gid) and
+// E = 32·kt - 64·warp - c0: tile q's fragment is (W(E-16q),
 // W(E-16q-8), W(E-16q+16), W(E-16q+8)), so the four tiles together read
 // the window v[p] = W(E + 16 - 8p), p = 0..9, and tile q takes (v[2q+2],
 // v[2q+3], v[2q], v[2q+1]). One k-step later E grows by 32 and v[p]
@@ -51,7 +51,8 @@
 // bytes each; contiguous in every layout but K7's and K8's, whose planes lie
 // R·O·2N and B·R·O·2N bytes apart and are copied plane by plane,
 // KEY_STRIDED) and, in K1, its
-// ND x 8 digit rows. Both come by cp.async
+// ND x 8 digit rows (K9 at N = 1024 copies these from its cluster's shared
+// memory itself: copy_dig below). Both come by cp.async
 // (16 bytes a thread) into a second stage while the current row's mma run;
 // the S-table words of the next row are built from the shared-memory copy
 // (three aligned word loads and four __byte_perm per four words, one
@@ -61,6 +62,8 @@
 // Accumulation is the instruction's int32, which wraps (no .satfinite); the
 // bucket bound of nc_common.cuh keeps every sum below 2^31 all the same.
 #pragma once
+
+#include <type_traits>
 
 #include "nc_common.cuh"
 
@@ -260,19 +263,26 @@ struct Staged {
   unsigned dig_lane;   // N where a lane's rows lie apart (K1, K3, K5), R·N in
                        // K6's, K7's and K8's batch-major and K10b's flat
                        // layouts
-  const unsigned char* dig_res;   // K9: the resident digit tiles
+  const unsigned char* dig_res;   // K9 at N <= 512: the resident digit tiles
   unsigned ext_r = 0, ext_plane = 0;   // read with KEY_STRIDED only
 };
 
 // The block's output columns start at c0 (nonzero only where a row tile is
-// split between blocks, N = 1024).
-template <int ND, int JS, bool STAGE_DIG, bool KEY_STRIDED = false>
+// split between blocks, N = 1024). With STAGE_DIG and a copy_dig (K9 at
+// N = 1024, merged_wide.cu), copy_dig(tile, r) stages row r's digit tile
+// in place of the cp.async from op.dig: a copy that is complete when it
+// returns (the row's barrier then publishes it, as cp_async_wait_all does
+// the others).
+template <int ND, int JS, bool STAGE_DIG, bool KEY_STRIDED = false,
+          typename CopyDig = std::nullptr_t>
 __device__ __forceinline__ void contract_mma(int32_t (&acc)[MT][8 - JS][4],
                                              unsigned char* smem,
                                              const Staged& op, int R,
                                              int rows_valid, int n,
-                                             int c0 = 0) {
+                                             int c0 = 0,
+                                             CopyDig copy_dig = nullptr) {
   constexpr int NJ = 8 - JS;
+  constexpr bool OWN_COPY = !std::is_same_v<CopyDig, std::nullptr_t>;
   const int tab_b = tab_bytes(NJ, n), raw_b = raw_bytes(NJ, n),
             dig_b = dig_tile_bytes(ND, n);
   unsigned char* tab = smem;
@@ -294,7 +304,9 @@ __device__ __forceinline__ void contract_mma(int32_t (&acc)[MT][8 - JS][4],
   };
 
   copy_keys(raw, 0);
-  if constexpr (STAGE_DIG)
+  if constexpr (STAGE_DIG && OWN_COPY)
+    copy_dig(dig, 0);
+  else if constexpr (STAGE_DIG)
     copy_digits_async<ND>(dig, op.dig, op.dig_plane, op.dig_lane,
                           rows_valid, n);
   if (R > 1) copy_keys(raw + raw_b, 1);
@@ -307,7 +319,9 @@ __device__ __forceinline__ void contract_mma(int32_t (&acc)[MT][8 - JS][4],
     const int s = r & 1;
     // stage s holds row r's tables and digits, raw stage s^1 row r+1's key
     // rows; everything else was last read before the barrier just passed
-    if constexpr (STAGE_DIG) {
+    if constexpr (STAGE_DIG && OWN_COPY) {
+      if (r + 1 < R) copy_dig(dig + (s ^ 1) * dig_b, r + 1);
+    } else if constexpr (STAGE_DIG) {
       if (r + 1 < R)
         copy_digits_async<ND>(dig + (s ^ 1) * dig_b,
                               op.dig + (size_t)(r + 1) * op.dig_r,

@@ -25,7 +25,10 @@ K8 `extprod_partials_grouped` — the per-lane product of the vertical packing
    csrc/vp.cu (K3's kernel, built to store its buckets).
 K9 `cmux_step_merged` — one whole CMux step in one launch (glue of all
    components, digits kept in shared memory, dots + recombine), into a new
-   accumulator. Replaces extprod.py::cmux_step_merged; source csrc/merged.cu.
+   accumulator; at N = 1024 the 2·O blocks of a lane tile are one cluster
+   that shares the glue out and copies each row's digits between its
+   blocks' shared memory. Replaces extprod.py::cmux_step_merged; sources
+   csrc/merged.cu (N <= 512) and csrc/merged_wide.cu (N = 1024).
 K10a `rot_diff_digits_flat` — K2's glue in the row-flattened layout
    [n_d, B, R·N]. Replaces extprod.py::rot_diff_digits_flat; source
    csrc/longk.cu (K2's nc::glue_wide with K10a's output strides).
@@ -43,8 +46,9 @@ negacirculant from shared-memory S-tables that index the 2N-byte ext row,
 so it (146 GB for the expanded BSK) never exists; the TPU's packed ladders,
 weight buckets in VMEM and sequential (n_bt, o, r) grid have no counterpart
 — a block owns ROWS lanes × all N columns of one component (at N = 1024
-512 of them, two blocks a row tile, K1's two a cluster for its glue; all
-but K9, which takes N <= 512) and loops over r itself. Which N each kernel
+512 of them, two blocks a row tile; K1's two a cluster for its glue, K9's
+2·O blocks of a lane tile one cluster for theirs) and loops over r
+itself. Which N each kernel
 takes on the card is N_MAX. Every kernel with products (K1, K3, K5-K9, K10b, K11) puts them on
 the tensor cores: `mma.sync.m16n8k32` int8 whose operand fragments are S-table
 and digit-tile words, the operands staged by `cp.async` one contraction row
@@ -113,16 +117,16 @@ def _require_cuda(name: str, spec) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
-# The largest polynomial size N each kernel takes on a CUDA device: 1024
+# The largest polynomial size N each kernel takes on a CUDA device: 1024,
 # where a block owns at most 512 output columns and two blocks share a row
-# tile (K1, K3, K5-K8, K10b, K11: csrc/nc_mma.cuh's column offset; K1's
-# glue across a cluster of the two) or a block owns a row (K2, K10a); 512
-# for K9, whose blocks own all N columns and keep every row's digits in
-# shared memory (ROADMAP.md Queue 2).
+# tile (K1, K3, K5-K9, K10b, K11: csrc/nc_mma.cuh's column offset; K1's
+# glue across a cluster of the two, K9's across a cluster of a lane tile's
+# 2·O blocks) or a block owns a row (K2, K10a). device_refusal reads it, so
+# a kernel that took less would be refused before keygen.
 N_MAX = {"extprod_step2g": 1024, "rot_diff_digits": 1024,
          "extprod_grouped_fused": 1024, "extprod_step2": 1024,
          "extprod_partials_grouped": 1024, "extprod_step": 1024,
-         "extprod_partials": 1024, "cmux_step_merged": 512,
+         "extprod_partials": 1024, "cmux_step_merged": 1024,
          "rot_diff_digits_flat": 1024, "extprod_step_longk": 1024,
          "extprod_step3": 1024}
 
@@ -144,7 +148,8 @@ WIDE_ND_KERNELS = ("extprod_grouped_fused", "extprod_partials_grouped")
 def device_refusal(n: int, device, lowering: Lowering) -> str | None:
     """Why a parameter set of polynomial size n cannot run on `device` under
     `lowering`, or None: on a CUDA device every kernel the lowering runs must
-    take N = n (N_MAX); on the CPU the plain versions take any N."""
+    take N = n (N_MAX); on the CPU the plain versions take any N. Every set
+    of ops/params.py (N <= 1024) runs on the card under every lowering."""
     if torch.device(device).type != "cuda":
         return None
     short = [name for name in lowering.kernels() if n > N_MAX[name]]
@@ -153,10 +158,8 @@ def device_refusal(n: int, device, lowering: Lowering) -> str | None:
     return (f"polynomial_size {n} is above what lowering (br="
             f"{lowering.br}, vp={lowering.vp}) takes on the card: its "
             f"kernels {', '.join(short)} take N <= "
-            f"{min(N_MAX[name] for name in short)}; N = {n} for them is "
-            f"ROADMAP.md Queue 2 (every other lowering, the default (gridg, "
-            f"fused) among them, takes N = 1024; on device 'cpu' the plain "
-            f"versions run it)")
+            f"{min(N_MAX[name] for name in short)} (on device 'cpu' the "
+            f"plain versions run it)")
 
 
 def _check_geometry(name: str, n: int, n_d: int, r: int, j_start: int,
@@ -553,6 +556,23 @@ extprod_partials_grouped.launches = 0
 
 # ------------------------------------- K9 the whole CMux step, one launch
 
+K9_CLUSTER_MAX = 16   # blocks of a cluster on sm_90 (above 8 non-portable)
+
+
+def _k9_smem(n: int, nj: int, n_d: int, levels: int, r: int) -> int:
+    """K9's block. N <= 512 (csrc/merged.cu): the two stages of S-tables
+    and raw key rows, or the [8][N] int64 accumulator tile of its glue,
+    whichever is larger, then all R rows' padded digit tiles. N = 1024
+    (csrc/merged_wide.cu): K1's two stages (digit tiles among them), then
+    the block's own digits [L][n_d][8][512], component o's L rows at its
+    512 columns."""
+    if n <= 512:
+        return (max(_mma_stage_bytes(n, nj), 8 * n * 8)
+                + r * _mma_dig_tile_bytes(n, n_d))
+    return (_mma_stage_bytes(n, nj) + 2 * _mma_dig_tile_bytes(n, n_d)
+            + levels * n_d * 8 * 512)
+
+
 def cmux_step_merged_plain(t, ext_or, acc, base_log: int, levels: int,
                            j_start: int):
     """acc + Σ_r digits(X^t·acc - acc)[r] ⊛ BSK rows, a new tensor."""
@@ -567,7 +587,8 @@ def cmux_step_merged(t: torch.Tensor, ext_or: torch.Tensor, acc: torch.Tensor,
     [O, B, N], left untouched -> new acc int64 [O, B, N]. (The TPU kernel
     aliases its output with acc behind a sequential grid; here every block
     reads the old accumulator of all components, so the result is a second
-    buffer.)"""
+    buffer.) At N = 1024 a lane tile's 2·O blocks launch as one cluster,
+    so O <= K9_CLUSTER_MAX / 2."""
     o, b, n = acc.shape
     o2, r, nj, two_n = ext_or.shape
     if (o2 != o or r != o * levels or nj != 8 - j_start or two_n != 2 * n
@@ -581,17 +602,26 @@ def cmux_step_merged(t: torch.Tensor, ext_or: torch.Tensor, acc: torch.Tensor,
                                       j_start)
     n_d = torus.limbs_for_bound(decomposition.digit_bound(base_log))
     _check_geometry("cmux_step_merged", n, n_d, r, j_start, n_min=64)
-    _check_smem("cmux_step_merged",
-                max(_mma_stage_bytes(n, nj), 8 * n * 8)
-                + r * _mma_dig_tile_bytes(n, n_d))
+    if n > 512 and 2 * o > K9_CLUSTER_MAX:
+        raise ValueError(f"cmux_step_merged: at N={n} the 2·O = {2 * o} "
+                         f"blocks of a lane tile are one cluster, at most "
+                         f"{K9_CLUSTER_MAX}")
+    _check_smem("cmux_step_merged", _k9_smem(n, nj, n_d, levels, r))
     _require_cuda("cmux_step_merged", [(t, torch.int32), (ext_or, torch.int8),
                                        (acc, torch.int64)])
     _check_staged("cmux_step_merged", ext_or)
     out = torch.empty_like(acc)
-    f = _fn("merged", "tfhe_cmux_step_merged", [_P] * 4 + [_I] * 7 + [_P])
-    rc = f(t.data_ptr(), ext_or.data_ptr(), acc.data_ptr(), out.data_ptr(),
-           b, n, o, levels, n_d, j_start, base_log,
-           build.stream_ptr(acc.device))
+    if n <= 512:
+        f = _fn("merged", "tfhe_cmux_step_merged", [_P] * 4 + [_I] * 7 + [_P])
+        rc = f(t.data_ptr(), ext_or.data_ptr(), acc.data_ptr(),
+               out.data_ptr(), b, n, o, levels, n_d, j_start, base_log,
+               build.stream_ptr(acc.device))
+    else:
+        f = _fn("merged_wide", "tfhe_cmux_step_merged_wide",
+                [_P] * 4 + [_I] * 6 + [_P])
+        rc = f(t.data_ptr(), ext_or.data_ptr(), acc.data_ptr(),
+               out.data_ptr(), b, o, levels, n_d, j_start, base_log,
+               build.stream_ptr(acc.device))
     build.check(rc, "cmux_step_merged")
     cmux_step_merged.launches += 1
     return out

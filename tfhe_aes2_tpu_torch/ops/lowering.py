@@ -36,8 +36,8 @@ VP_CHOICES = ("fused", "partials")
 
 # The kernel wrappers each schedule launches (ops/kernels/extprod.py); K4,
 # the keyswitches' contraction, runs under every lowering. Which N each
-# takes on the card is extprod.N_MAX, read by extprod.device_refusal: at
-# N = 1024 every lowering but merged (K9 takes N <= 512).
+# takes on the card is extprod.N_MAX, read by extprod.device_refusal: every
+# lowering takes N = 1024, the largest of ops/params.py.
 # tests/test_torch_device_refusal.py holds these tables against the
 # wrappers that blind_rotate.py and circuit_bootstrap.py call.
 BR_KERNELS = {"gridg": ("rot_diff_digits", "extprod_step2g"),
