@@ -145,7 +145,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tfhe_aes2_tpu_torch import cli, serve
+from tfhe_aes2_tpu_torch import cli, noise, serve
 from tfhe_aes2_tpu_torch.aes_128 import SBOX, aes_lib, ctr_fhe, fhe, gf_256_mul
 from tfhe_aes2_tpu_torch.aes_128 import plain, sbox_gal_mul_pbs, scenario
 from tfhe_aes2_tpu_torch.models import shortint_1bit as tm1b
@@ -159,6 +159,7 @@ from tfhe_aes2_tpu_torch.ops.lowering import Lowering
 from tfhe_aes2_tpu_torch.ops.kernels import build
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
 from tfhe_aes2_tpu_torch.ops.kernels import matmul as kmm
+from tfhe_aes2_tpu_torch.parallel import distributed, gate, mesh
 
 P = params_mod.PARAMS_SQRD_LVL_64
 DEV = "cuda"
@@ -1735,7 +1736,7 @@ def run_cli(argv, what, wanted) -> tuple[dict, dict, float]:
     return counts, shapes, secs
 
 
-def phase_wide(rows, gen):
+def phase_wide(rows, gen, keep: dict):
     """The N = 1024 sets at full width under the default lowering, each
     decrypted and checked against the AES authority: lvl256 through the
     CLI with one block (the fused latency path) and with two (the staged
@@ -1824,6 +1825,7 @@ def phase_wide(rows, gen):
         "verified")
     runs.append(serve_wide_merged(client, raw, ctx, request,
                                   outs[Lowering()]))
+    keep["lvl256"] = (client, ctx)             # phase 9's noise floor
     del ctx, raw
     check_path_steps(rows, gen, "lvl256", P256, path_shapes,
                      ("longk", "bucket", "glue_out", "merged"))
@@ -2457,6 +2459,149 @@ def woppbs_8bit_cli(rows, gen) -> list:
     return [fused, partials, longk, merged]
 
 
+# ------------------- phase 9: the noise check and the scale-out layer
+
+SCALE_OUT_LAYOUTS = (("dp", 1), ("lane", 1), ("lanehost", 2))
+
+
+def noise_floors(keep: dict) -> list:
+    """noise.measure_sbox_floor at the four reference sets, lvl64 and
+    lvl256 on phase 4's and phase 7's keys, lvl1 and lvl4 on new seeded
+    ones, each within its bars (js and log2 std); then noise.measure at
+    lvl64, 8 blocks x 10 rounds, verified, log2_std <= 59. Returns each
+    run's launch counts."""
+    runs = []
+    for name, (p, _, dual_bar, out_bar) in noise.SBOX_FLOOR_SETS.items():
+        if name in keep:
+            client, ctx = keep[name]
+        else:
+            client, ctx = model.generate_keys(p, seed=0, device=DEV,
+                                              lowering=Lowering())
+        reset_counters()
+        js, dual, out = noise.measure_sbox_floor(p, client, ctx, name)
+        sync()
+        counts = read_counters()
+        require_launches(f"{name} SBOX floor", counts, MAIN_PATH)
+        runs.append(counts)
+        log(f"noise floor {name}: js (bsk, ksk, pfpksk, vp) = {js}, SBOX+"
+            f"GalMul of 4 bytes decoded exactly, log2 std: dual {dual:.3f} "
+            f"(bar {dual_bar}), out {out:.3f} (bar {out_bar})")
+    with environment(TFHE_BR_KERNEL=None, TFHE_BR_GLUE=None,
+                     TFHE_VP_FUSED=None):
+        reset_counters()
+        res = noise.measure(8, 10, device=DEV)
+        counts = read_counters()
+    require_launches("noise.measure, lvl64, 8 blocks x 10 rounds", counts,
+                     MAIN_PATH)
+    runs.append(counts)
+    log("noise.measure: " + json.dumps(res))
+    noise.check(res)
+    log(f"lvl64 end to end, 8 blocks x 10 rounds: verified, log2_std "
+        f"{res['log2_std']} <= {noise.LOG2_STD_MAX}, "
+        f"{res['decode_margin_stds']} stds of margin to 2^62")
+    return runs
+
+
+def scale_out_jobs(tmp: str, want: torch.Tensor, params: str = "lvl64"
+                   ) -> None:
+    """The three layouts of parallel/distributed.py as 2-process gloo jobs
+    sharing the card, and the gate at --processes 2, all at once (fresh
+    interpreters; the kernels phase 1 built load from its build
+    directory). Every child must exit 0 with its "ok" line; each worker's
+    shards must equal `want`, the unsharded output of the same keys and
+    inputs."""
+    cmds, what = [], []
+    for layout, bpd in SCALE_OUT_LAYOUTS:
+        os.makedirs(f"{tmp}/{layout}")
+        for rank in (0, 1):
+            cmds.append([
+                sys.executable, "-m",
+                "tfhe_aes2_tpu_torch.parallel.distributed", "--backend",
+                "gloo", "--init-method", f"file://{tmp}/{layout}/rendezvous",
+                "--num-processes", "2", "--process-id", str(rank),
+                "--device", DEV, "--params", params, "--rounds", "1",
+                "--layout", layout, "--blocks-per-device", str(bpd),
+                "--out-dir", f"{tmp}/{layout}"])
+            what.append((f"{layout}, process {rank}",
+                         f"ok: process {rank} verified"))
+    cmds.append([sys.executable, "-m", "tfhe_aes2_tpu_torch.parallel.gate",
+                 "--processes", "2", "--backend", "gloo", "--device", DEV,
+                 "--params", params, "--out", f"{tmp}/gate.json"])
+    what.append(("the gate", "ok: gate verified 2 processes"))
+    t0 = time.time()
+    rcs, outs, timed_out = gate.run_processes(cmds, 300, cwd=ROOT)
+    secs = time.time() - t0
+    for (name, ok_line), rc, out in zip(what, rcs, outs):
+        lines = [ln for ln in out.splitlines() if ln.startswith("ok:")]
+        if timed_out or rc != 0 or not any(ln.startswith(ok_line)
+                                           for ln in lines):
+            raise AssertionError(f"{name}: rc {rc}, timed out {timed_out}:"
+                                 f"\n{out[-3000:]}")
+        log(f"  {name}: {lines[-1]}")
+    want = torus.to_numpy(want)
+    for layout, _ in SCALE_OUT_LAYOUTS:
+        seen = np.zeros(want.shape[:2], np.int64)
+        for b0, c0, shard in distributed.load_shards(f"{tmp}/{layout}"):
+            bs, nb = shard.shape[:2]
+            if not np.array_equal(shard, want[b0: b0 + bs, c0: c0 + nb]):
+                raise AssertionError(f"{layout}: shard ({b0}, {c0}) differs "
+                                     "from the unsharded output")
+            seen[b0: b0 + bs, c0: c0 + nb] += 1
+        if not (seen == 1).all():
+            raise AssertionError(f"{layout}: shards cover {seen.tolist()}")
+    record = json.loads(Path(f"{tmp}/gate.json").read_text())
+    log(f"2-process gloo jobs sharing the card (dp, lane, lanehost; lvl64, "
+        f"2 blocks, 1 round) and the gate (2 processes, lanehost, lvl64) "
+        f"ran together in {secs:.1f} s; each worker decrypt-verified, every "
+        f"shard bit-equal to the one-device run; gate "
+        f"{record['wall_s']} s, decrypt_verified {record['decrypt_verified']}")
+
+
+def phase_scale_out(keep: dict) -> list:
+    """Phase 9: the noise checks (noise_floors), then a one-device mesh
+    (make_mesh(1), dp) at lvl64 on distributed.demo_inputs' keys and
+    ciphertexts, 2 blocks x 1 round, bit-equal to encrypt_blocks_staged on
+    the same context and inputs, then scale_out_jobs held against it.
+    Returns the in-process runs' launch counts."""
+    log("== phase 9: noise floors of the four sets, lvl64 end-to-end noise, "
+        "a one-device mesh, 2-process gloo jobs and the gate")
+    t0 = time.time()
+    runs = noise_floors(keep)
+
+    t1 = time.time()
+    client, keys, ks_ct, block_cts, blocks = distributed.demo_inputs(
+        P, 2, 3, DEV, exact=False)
+    ks, cts = torus.to_tensor(ks_ct, DEV), torus.to_tensor(block_cts, DEV)
+    fn = mesh.make_sharded_encrypt_blocks_fn(STRATEGY, P, 1,
+                                             mesh.make_mesh(1, device=DEV),
+                                             Lowering())
+    reset_counters()
+    out = fn(keys, ks, cts)
+    sync()
+    counts = read_counters()
+    require_launches("one-device mesh, lvl64, 2 blocks x 1 round", counts,
+                     MAIN_PATH)
+    runs.append(counts)
+    ctx = model.FheContext(params=P, sks=keys, lowering=Lowering())
+    want = fhe.encrypt_blocks_staged(
+        STRATEGY, ctx, STRATEGY.fresh(ks, ctx, lane_ndim=3), cts, 1).array
+    if not torch.equal(out, want):
+        raise AssertionError("the one-device mesh differs from "
+                             "encrypt_blocks_staged")
+    if (STRATEGY.decrypt_client(client, torus.to_numpy(out))
+            != plain.expand_key_and_encrypt_blocks(distributed.KEY, blocks,
+                                                   1)):
+        raise AssertionError("the one-device mesh decrypts wrong")
+    log(f"one-device mesh (dp), lvl64, 2 blocks x 1 round: bit-equal to "
+        f"encrypt_blocks_staged and verified ({time.time() - t1:.1f} s "
+        "with keygen)")
+    del keys, ctx
+    with tempfile.TemporaryDirectory() as tmp:
+        scale_out_jobs(tmp, want)
+    log(f"phase 9: {time.time() - t0:.1f} s")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2477,15 +2622,20 @@ def main() -> int:
     grid, glue = phase_second_path(client, ctx, request, out1, latency,
                                    k1_ms_160)
     third = phase_server(client, raw, ctx, request, out1)
+    keep = {"lvl64": (client, ctx)}            # phase 9's noise floor
     del client, raw, ctx
-    wide = phase_wide(rows, torch.Generator().manual_seed(4321))
+    wide = phase_wide(rows, torch.Generator().manual_seed(4321), keep)
     models = phase_models(rows, torch.Generator().manual_seed(8765))
+    scale_out = phase_scale_out(keep)
+    del keep
     # each kernel's launches on the main paths: the default lowering's two
     # runs (phase 4), the (grid, partials) run and the glue_out rotation
     # (phase 5), the two served requests and the three derivations (phase
-    # 6), the N = 1024 runs (phase 7), the other two models' runs (phase 8)
+    # 6), the N = 1024 runs (phase 7), the other two models' runs (phase
+    # 8), the noise checks and the one-device mesh (phase 9)
     launches = {name: sum(c[name] for c in [batch, latency, grid, glue]
-                          + third + wide + models) for name in KERNELS}
+                          + third + wide + models + scale_out)
+                for name in KERNELS}
     missing = [name for name, count in launches.items() if count <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")

@@ -969,3 +969,65 @@ def test_cuda_limb_matmul_model_shapes_match_plain(b):
         assert torch.equal(kmm.fused_limb_matmul(d, m, js),
                            kmm.fused_limb_matmul_plain(d, m, js))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_one_device_mesh_matches_staged():
+    """On the card: the sharded entry point over make_mesh(1) (dp) at
+    PARAMS_TEST, 2 blocks x 1 round, bit-equal to encrypt_blocks_staged on
+    the same context and inputs, and decrypted to the 1-round oracle."""
+    from tfhe_aes2_tpu_torch.aes_128 import fhe, plain
+    from tfhe_aes2_tpu_torch.models import shortint_woppbs_1bit as model
+    from tfhe_aes2_tpu_torch.ops.lowering import Lowering
+    from tfhe_aes2_tpu_torch.parallel import distributed, mesh
+
+    require_cuda()
+    p, strat = distributed.PARAMS["test"], distributed.STRATEGY
+    client, keys, ks_ct, block_cts, blocks = distributed.demo_inputs(
+        p, 2, 3, "cuda", exact=False)
+    ks, cts = torus.to_tensor(ks_ct, "cuda"), torus.to_tensor(block_cts,
+                                                               "cuda")
+    m = mesh.make_mesh(1)
+    assert m.devices.tolist() == [torch.device("cuda", 0)]
+    out = mesh.make_sharded_encrypt_blocks_fn(strat, p, 1, m, Lowering())(
+        keys, ks, cts)
+    ctx = model.FheContext(params=p, sks=keys, lowering=Lowering())
+    want = fhe.encrypt_blocks_staged(strat, ctx, strat.fresh(ks, ctx, 3),
+                                     cts, 1).array
+    assert torch.equal(out, want)
+    assert (strat.decrypt_client(client, torus.to_numpy(out))
+            == plain.expand_key_and_encrypt_blocks(distributed.KEY, blocks,
+                                                   1))
+
+
+@pytest.mark.cuda
+def test_cuda_stream_ptr_refuses_a_device_not_current():
+    """On the card: a launch's stream is taken only for the current device
+    (the C side launches there); another index, or the CPU, raises."""
+    from tfhe_aes2_tpu_torch.ops.kernels import build
+
+    require_cuda()
+    current = torch.cuda.current_device()
+    assert build.stream_ptr("cuda") == build.stream_ptr(
+        torch.device("cuda", current))
+    with pytest.raises(RuntimeError, match="current device"):
+        build.stream_ptr(torch.device("cuda", current + 1))
+    with pytest.raises(RuntimeError, match="current device"):
+        build.stream_ptr("cpu")
+
+
+@pytest.mark.cuda
+def test_cuda_noise_floor_lvl64():
+    """On the card: noise.measure_sbox_floor at PARAMS_SQRD_LVL_64 with the
+    kernels dropping the truncated planes: exact decode, js (2, 5, 1, 4),
+    both log2 stds under their bars (58.6, 59.2)."""
+    from tfhe_aes2_tpu_torch import noise
+    from tfhe_aes2_tpu_torch.models import shortint_woppbs_1bit as model
+    from tfhe_aes2_tpu_torch.ops.lowering import Lowering
+
+    require_cuda()
+    p = noise.SBOX_FLOOR_SETS["lvl64"][0]
+    client, ctx = model.generate_keys(p, seed=5, device="cuda",
+                                      lowering=Lowering())
+    js, dual, out = noise.measure_sbox_floor(p, client, ctx, "lvl64")
+    assert js == (2, 5, 1, 4) and dual <= 58.6 and out <= 59.2

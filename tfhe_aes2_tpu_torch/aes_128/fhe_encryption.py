@@ -30,6 +30,13 @@ def encrypt_blocks(client: ClientKey, blocks) -> np.ndarray:
     return client.encrypt_bits(_bytes_to_bit_lanes(arr))
 
 
+def encrypt_word_array(client: ClientKey, words) -> np.ndarray:
+    """Clear key schedule [44, 4] uint8 -> [44, 4, 8, kN+1], the expanded
+    key supplied encrypted (the sharded entry points' input)."""
+    return client.encrypt_bits(_bytes_to_bit_lanes(np.asarray(words,
+                                                              np.uint8)))
+
+
 def decrypt_blocks(client: ClientKey, cts: np.ndarray) -> list[bytes]:
     """[B, 16, 8, kN+1] -> list of 16-byte blocks."""
     bits = np.asarray(client.decrypt_bits(np.asarray(cts)), dtype=np.uint8)

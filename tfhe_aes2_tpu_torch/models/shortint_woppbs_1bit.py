@@ -90,9 +90,7 @@ class FheContext:
         """
         t = bits.array.shape[-2]
         o = lut.shape[0]
-        out = cbs_ops.circuit_bootstrap_vertical_packing(
-            bits.array, self._luts(lut), self.sks, self.params,
-            self.lowering)
+        out = self.bootstrap_arrays(bits.array, lut)
         lane_shape = bits.lane_shape[:-1] + (o,)
         return BitCt(out, np.full(lane_shape, t, np.int64),
                      _fresh_ids(lane_shape), self)
@@ -101,26 +99,40 @@ class FheContext:
         """Several bootstrap requests through ONE shared circuit-bootstrap
         front end (keyswitch, blind rotation, pfKS), split per request only
         for the vertical-packing lookups. parts: [(batchless BitCt, lut)]."""
-        n1 = self.params.big_lwe_dimension + 1
-        flats, metas = [], []
-        for bits, lut in parts:
+        for bits, _ in parts:
             if bits.array.ndim != len(bits.lane_shape) + 1:
                 raise ValueError("circuit_bootstrap_mixed takes batchless "
                                  "BitCts")
-            flats.append(bits.array.reshape(-1, n1))
-            metas.append((bits.lane_shape[:-1] + (lut.shape[0],),
-                          bits.array.shape[-2]))
+        outs = self.bootstrap_mixed_arrays([(bits.array, lut)
+                                            for bits, lut in parts])
+        metas = [(bits.lane_shape[:-1] + (lut.shape[0],), bits.array.shape[-2])
+                 for bits, lut in parts]
+        return [BitCt(out, np.full(shape, t, np.int64), _fresh_ids(shape),
+                      self) for out, (shape, t) in zip(outs, metas)]
+
+    # -- the ciphertext work of the two bootstraps, without the metadata;
+    #    parallel/mesh.py's LaneShardedContext splits it across devices --
+
+    def bootstrap_arrays(self, bits: torch.Tensor,
+                         lut: np.ndarray) -> torch.Tensor:
+        """[..., T, kN+1] -> [..., O, kN+1]: circuit_bootstrap's arrays."""
+        return cbs_ops.circuit_bootstrap_vertical_packing(
+            bits, self._luts(lut), self.sks, self.params, self.lowering)
+
+    def bootstrap_mixed_arrays(self, parts) -> list[torch.Tensor]:
+        """[(array [*lanes, T, kN+1], lut)] -> [array [*lanes, O, kN+1]]:
+        circuit_bootstrap_mixed's arrays, one shared front end."""
+        n1 = self.params.big_lwe_dimension + 1
+        flats = [bits.reshape(-1, n1) for bits, _ in parts]
         ggsw = cbs_ops.circuit_bootstrap_bits(torch.cat(flats), self.sks,
                                               self.params, self.lowering)
         outs, off = [], 0
-        for (bits, lut), flat, (shape, t) in zip(parts, flats, metas):
-            nl = flat.shape[0]
+        for (bits, lut), flat in zip(parts, flats):
+            nl, t = flat.shape[0], bits.shape[-2]
             g = ggsw[off: off + nl].reshape((nl // t, t) + ggsw.shape[1:])
             out = cbs_ops.vertical_packing(g, self._luts(lut), self.params,
                                            self.sks.vp_js, self.lowering)
-            outs.append(BitCt(out.reshape(shape + (n1,)),
-                              np.full(shape, t, np.int64), _fresh_ids(shape),
-                              self))
+            outs.append(out.reshape(bits.shape[:-2] + (lut.shape[0], n1)))
             off += nl
         return outs
 

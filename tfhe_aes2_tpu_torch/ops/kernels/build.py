@@ -111,7 +111,18 @@ def library(stem: str) -> ctypes.CDLL:
 
 
 def stream_ptr(device) -> int:
+    """The current stream of `device`, which must be the current CUDA
+    device: the C side launches, and sets kernel attributes, on the
+    current device, so a tensor on another one would be read from the
+    wrong card. A thread working for cuda:i calls torch.cuda.set_device(i)
+    first (parallel/mesh.py)."""
     import torch
+    device = torch.device(device)
+    current = torch.cuda.current_device()
+    if device.type != "cuda" or device.index not in (None, current):
+        raise RuntimeError(f"kernel launch for {device} while cuda:{current} "
+                           "is the current device: call "
+                           "torch.cuda.set_device first")
     return torch.cuda.current_stream(device).cuda_stream
 
 

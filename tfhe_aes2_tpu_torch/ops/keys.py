@@ -74,6 +74,24 @@ class PreparedServerKeys(NamedTuple):
     vp_js: int
     pksk: torch.Tensor
 
+    def to(self, device) -> "PreparedServerKeys":
+        """The same keys on `device` (a copy, or self where they already
+        lie there; any CPU device index means the one host memory). K4's
+        keys are laid out K-major again there: a copy of the padded view
+        would lose its row stride."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        here = self.bsk.device
+        if device.type == here.type == "cpu" or device == here:
+            return self
+        return PreparedServerKeys(
+            bsk=self.bsk.to(device),
+            ksk=kmajor_key_planes(self.ksk.to(device)),
+            pfpksk=kmajor_key_planes(self.pfpksk.to(device)),
+            vp_js=self.vp_js,
+            pksk=kmajor_key_planes(self.pksk.to(device)))
+
 
 @dataclass
 class ClientKey:
