@@ -116,6 +116,25 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      K3 at the tree's selection product (R = 2, G = 1, O = 5), K3 and K8 at
      N = 1024 with one limb (their new split builds), and K4 at both models'
      keyswitches, the packing keyswitch and the 8-bit pfKS.
+  9. the noise floors of the four sets, lvl64's end-to-end noise, a
+     one-device mesh, the three 2-process gloo layouts and the gate
+     (phase_scale_out);
+  10. the last modules: lvl64 keygen through _KeygenRng (the native
+     ChaCha20 stream where cmake builds native/, else numpy, as in the
+     JAX package) and with the numpy stream, each timed, the first's keys
+     equal to phase 4's; the CRT-NTT product (ops/ntt.py) at phase 2's
+     vertical-packing shapes bit-equal to K3 on pre-truncated selectors
+     and to itself on the CPU on random ones, each timed beside K3 and
+     its float64 bound; the lvl64 latency path on phase 4's keys and
+     request under Lowering(ntt=True) (no K3 launch), AES-verified,
+     bit-equal to itself again with each distinct NTT call held against
+     the CPU, and timed against the default in turns (ntt, default, ntt);
+     the lvl256 latency path under it (5 kept planes: K3 as the fallback)
+     bit-equal to phase 7's; and cli.main at lvl64 with one output as a
+     subprocess with the warm-up (aot.py) and under TFHE_AOT=0, both
+     verified, with the warm-up's context and wait seconds and both walls.
+     The in-process runs of phases 3–9 take TFHE_AOT=0, as before the
+     warm-up existed, so their launch counts are the paths' alone.
 The line before the last is the kernels JSON, each kernel's `shapes`
 every shape it was held against its plain version at, with its
 max_abs_err (ms and plain_ms null where the shape was not timed); the last
@@ -153,6 +172,7 @@ from tfhe_aes2_tpu_torch.models import shortint_woppbs_1bit as model
 from tfhe_aes2_tpu_torch.models import shortint_woppbs_8bit as tm8
 from tfhe_aes2_tpu_torch.ops import blind_rotate, compression, decomposition
 from tfhe_aes2_tpu_torch.ops import keys as keys_mod
+from tfhe_aes2_tpu_torch.ops import ntt
 from tfhe_aes2_tpu_torch.ops import params as params_mod
 from tfhe_aes2_tpu_torch.ops import polynomial, serialization, torus, truncation
 from tfhe_aes2_tpu_torch.ops.lowering import Lowering
@@ -165,6 +185,7 @@ P = params_mod.PARAMS_SQRD_LVL_64
 DEV = "cuda"
 PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core rate, ops/s
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3 bytes/s
+PEAK_FP64_OPS = 67e12        # H100 SXM dense float64 tensor-core rate, FLOP/s
 KEY = bytes.fromhex("76b8e0ada0f13d90405d6ae55386bd28")
 IV = bytes.fromhex("bdd219b8a08ded1a")
 
@@ -1826,6 +1847,7 @@ def phase_wide(rows, gen, keep: dict):
     runs.append(serve_wide_merged(client, raw, ctx, request,
                                   outs[Lowering()]))
     keep["lvl256"] = (client, ctx)             # phase 9's noise floor
+    keep["lvl256_request"] = (request, outs[Lowering()])   # phase 10
     del ctx, raw
     check_path_steps(rows, gen, "lvl256", P256, path_shapes,
                      ("longk", "bucket", "glue_out", "merged"))
@@ -2602,10 +2624,236 @@ def phase_scale_out(keep: dict) -> list:
     return runs
 
 
+# ------------------- phase 10: the last modules: native keygen, the CRT-NTT
+# vertical packing, the warm-up
+
+VP_SHAPES = ((4, 8), (16, 8), (16, 24), (128, 1), (32, 24))   # phase 2's
+
+
+def keygen_streams(raw64) -> None:
+    """lvl64 keygen through _KeygenRng as the CLI takes it (native=None:
+    the ChaCha20 core where cmake builds it, else numpy, as the JAX package
+    does) and with the numpy stream, each timed; the first's keys must be
+    phase 4's (the same seed and stream)."""
+    for native in (None, False):
+        sync()
+        t0 = time.time()
+        client, raw = keys_mod.generate_keys_numpy(P, seed=0, device=DEV,
+                                                   native=native)
+        sync()
+        log(f"lvl64 keygen (native={native}): the {client.keygen_stream} "
+            f"stream, {time.time() - t0:.2f} s")
+        if native is None:
+            for name in ("bsk", "ksk", "pfpksk", "pksk"):
+                if not np.array_equal(raw[name],
+                                      torus.to_numpy(getattr(raw64, name))):
+                    raise AssertionError(f"lvl64 keygen: {name} differs "
+                                         "from phase 4's")
+    log("lvl64 keygen through _KeygenRng: the keys of phase 4 again")
+
+
+def ntt_against_k3() -> list:
+    """The CRT-NTT product at phase 2's vertical-packing shapes (lvl64:
+    R = O = 5, js = 4, digits up to 2^12): on pre-truncated selectors,
+    whose extension's dropped planes negate, bit-equal to K3 on the same
+    operands; on random ones bit-equal to the NTT on the CPU. Each timed
+    beside K3 and the float64 bound. Returns the rows."""
+    gen = torch.Generator().manual_seed(2468)
+    k1, n = P.glwe_dimension + 1, P.polynomial_size
+    r = k1 * P.cbs_level
+    js = truncation.vp_ggsw_j_start(P)
+    d_bound = decomposition.digit_bound(P.cbs_base_log)
+    nd = torus.limbs_for_bound(d_bound)
+    rows = []
+    for lanes, g in VP_SHAPES:
+        digits = torch.randint(-d_bound, d_bound + 1, (lanes, g, r, n),
+                               generator=gen, dtype=torch.int32).to(DEV)
+        polys = torch.randint(-2**62, 2**62, (lanes, r, k1, n),
+                              generator=gen, dtype=torch.int64).to(DEV) * 2
+        planes = kx.split_polys_ext(truncation.truncate_u64_values(
+            polys, js))[js:].contiguous()                 # [8-js, B, R, O, 2N]
+        got = ntt.polymul_digits_ntt_grouped(digits, planes, d_bound, js)
+        dig3 = torus.split_int32_signed(digits, nd).permute(
+            1, 3, 0, 2, 4).reshape(lanes, r, nd * g, n).contiguous()
+        ext3 = planes.permute(1, 3, 2, 0, 4).contiguous()  # [B, O, R, 8-js, 2N]
+        k3 = kx.extprod_grouped_fused(dig3, ext3, nd, js)  # [B, O, G, N]
+        raw_planes = kx.split_polys_ext(polys)[js:].contiguous()
+        on_card = ntt.polymul_digits_ntt_grouped(digits, raw_planes, d_bound,
+                                                 js)
+        on_cpu = ntt.polymul_digits_ntt_grouped(digits.cpu(),
+                                                raw_planes.cpu(), d_bound, js)
+        sync()
+        err = max(max_abs_err(got, k3.permute(0, 2, 1, 3)),
+                  max_abs_err(on_card.cpu(), on_cpu))
+        ms = time_ms(lambda: ntt.polymul_digits_ntt_grouped(
+            digits, planes, d_bound, js))
+        k3_ms = time_ms(lambda: kx.extprod_grouped_fused(dig3, ext3, nd, js))
+        flops = (2 * n * 4 * n * (lanes * g * r + lanes * k1 * r * (8 - js))
+                 + 2 * 4 * lanes * g * k1 * n * n)
+        nbytes = digits.numel() * 4 + planes.numel() + got.numel() * 8
+        t_ops = flops / PEAK_FP64_OPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        row = dict(name=f"ntt lanes={lanes} G={g}", ms=ms, k3_ms=k3_ms,
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   gflop=flops / 1e9, max_abs_err=err)
+        rows.append(row)
+        log(f"  CRT-NTT lanes={lanes} G={g}: {ms:.4f} ms against K3's "
+            f"{k3_ms:.4f} ms ({ms / k3_ms:.1f}x; float64 bound "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']}, "
+            f"{row['gflop']:.2f} GFLOP), max_abs_err {err}")
+        if err:
+            raise AssertionError(f"the CRT-NTT at lanes={lanes} G={g} "
+                                 "differs from K3 or from the CPU")
+    return rows
+
+
+def ntt_latency_lvl64(client, ctx, request, out_default) -> list:
+    """The lvl64 latency path on phase 4's keys and request under
+    Lowering(ntt=True): 4 kept planes, so every vertical-packing stage is
+    the CRT-NTT and no K3 runs. AES-verified; timed in turns with the
+    default (ntt, default, ntt); then once more with each distinct
+    (lanes, G) NTT call held against the same call on the CPU, bit-equal
+    to the first. Its ciphertext differs from phase 4's where a selector's
+    dropped planes of -x are not those of x negated: the NTT reads only
+    the first N columns, as the JAX package's does. Returns the counts."""
+    expect = aes_lib.encrypt_blocks(KEY, scenario.ctr_blocks(IV, 1))
+    nctx = dataclasses.replace(ctx, lowering=Lowering(ntt=True))
+    times, runs, outs = {}, [], []
+    for what, c in (("ntt", nctx), ("default", ctx), ("ntt", nctx)):
+        reset_counters()
+        out, t = scenario.serve_request(c, STRATEGY, *request, rounds=10)
+        sync()
+        counts = read_counters()
+        times.setdefault(what, []).append(t["fused_latency_s"])
+        if scenario.read_response(client, ctx, STRATEGY, out) != expect:
+            raise AssertionError(f"lvl64 latency path ({what}) decrypts "
+                                 "wrong")
+        if what == "ntt":
+            require_launches("lvl64 latency path under the CRT-NTT", counts,
+                             ("extprod_step2g", "rot_diff_digits",
+                              "fused_limb_matmul"))
+            if (counts["extprod_grouped_fused"]
+                    or counts["extprod_partials_grouped"]):
+                raise AssertionError("lvl64 under the CRT-NTT launched K3 "
+                                     "or K8")
+            runs.append(counts)
+            outs.append(out.array)
+        elif not torch.equal(out.array, out_default):
+            raise AssertionError("lvl64 default latency path differs from "
+                                 "phase 4's")
+    checked = {}
+    plain = ntt.polymul_digits_ntt_grouped
+
+    def held(digits, planes, d_bound, j_start=0):
+        got = plain(digits, planes, d_bound, j_start)
+        key = (digits.shape[0], digits.shape[1])
+        if key not in checked:
+            checked[key] = max_abs_err(got.cpu(), plain(
+                digits.cpu(), planes.cpu(), d_bound, j_start))
+        return got
+    ntt.polymul_digits_ntt_grouped = held
+    try:
+        out, _ = scenario.serve_request(nctx, STRATEGY, *request, rounds=10)
+        sync()
+    finally:
+        ntt.polymul_digits_ntt_grouped = plain
+    if not all(torch.equal(x, out.array) for x in outs) or any(
+            checked.values()):
+        raise AssertionError(f"lvl64 under the CRT-NTT: runs differ or a "
+                             f"call differs from the CPU: {checked}")
+    differ = int((outs[0] != out_default).sum())
+    log(f"lvl64 latency path under the CRT-NTT: {times['ntt']} s against "
+        f"the default's {times['default']} s; 0 K3 launches, verified, "
+        f"bit-equal across its 3 runs; the NTT calls at (lanes, G) "
+        f"{sorted(checked)} bit-equal to the CPU's; {differ} of "
+        f"{out_default.numel()} words differ from phase 4's ciphertext "
+        "(the NTT reads the selectors' first N columns, as the JAX "
+        "package's does)")
+    return runs
+
+
+def ntt_latency_lvl256(client, ctx, request, out_default) -> dict:
+    """The lvl256 latency path under Lowering(ntt=True): 5 kept planes,
+    so the vertical packing falls back to K3 (the JAX package's own
+    semantics), and the ciphertext is phase 7's. Returns the counts."""
+    reset_counters()
+    out, t = scenario.serve_request(
+        dataclasses.replace(ctx, lowering=Lowering(ntt=True)), STRATEGY,
+        *request, rounds=10)
+    sync()
+    counts = read_counters()
+    require_launches("lvl256 latency path under the CRT-NTT (K3 fallback)",
+                     counts, MAIN_PATH)
+    if not torch.equal(out.array, out_default):
+        raise AssertionError("lvl256 under the CRT-NTT differs from phase 7")
+    if (scenario.read_response(client, ctx, STRATEGY, out)
+            != aes_lib.encrypt_blocks(KEY, scenario.ctr_blocks(IV, 1))):
+        raise AssertionError("lvl256 under the CRT-NTT decrypts wrong")
+    log(f"lvl256 latency path under the CRT-NTT: {t['fused_latency_s']:.2f} "
+        f"s, K3 {counts['extprod_grouped_fused']} launches (the fallback at "
+        "5 planes), bit-equal to phase 7's, verified")
+    return counts
+
+
+def warmup_cli() -> dict:
+    """cli.main at lvl64, one output, as a subprocess: with the warm-up
+    (TFHE_AOT unset: on for the card) and under TFHE_AOT=0; both must
+    verify. Returns the walls and the warm-up's line."""
+    argv = [sys.executable, "-m", "tfhe_aes2_tpu_torch.cli", "--key",
+            KEY.hex(), "--iv", IV.hex(), "--number-of-outputs", "1",
+            "--params", "lvl64"]
+    found = {}
+    for setting in (None, "0"):
+        env = {k: v for k, v in os.environ.items() if k != "TFHE_AOT"}
+        if setting is not None:
+            env["TFHE_AOT"] = setting
+        t0 = time.time()
+        proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        wall = time.time() - t0
+        lines = proc.stdout.splitlines()
+        warm = [ln for ln in lines if ln.startswith("warm-up:")]
+        if (proc.returncode != 0 or not any(
+                ln.startswith("ok: FHE keystream verified") for ln in lines)
+                or bool(warm) != (setting is None)):
+            raise AssertionError(f"cli (TFHE_AOT={setting}) failed:\n"
+                                 f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        keys = [ln for ln in lines if ln.startswith("keys generated")]
+        log(f"cli lvl64, 1 block, TFHE_AOT={setting}: {wall:.2f} s wall, "
+            f"verified; {keys[0] if keys else ''}"
+            + (f"; {warm[0]}" if warm else ""))
+        found[setting] = dict(wall=wall, warm=warm[0] if warm else None)
+    return found
+
+
+def phase_last_modules(raw64, client64, ctx64, request64, out64,
+                       keep: dict, smi: str) -> list:
+    """Phase 10: keygen_streams, ntt_against_k3, ntt_latency_lvl64,
+    ntt_latency_lvl256, warmup_cli, every timing on the card `smi` names.
+    Returns the in-process runs' launch counts."""
+    log("== phase 10: the last modules: native keygen, the CRT-NTT vertical "
+        f"packing, the warm-up (card: {smi})")
+    t0 = time.time()
+    keygen_streams(raw64)
+    rows = ntt_against_k3()
+    runs = ntt_latency_lvl64(client64, ctx64, request64, out64)
+    client, ctx = keep["lvl256"]
+    runs.append(ntt_latency_lvl256(client, ctx, *keep["lvl256_request"]))
+    cli_runs = warmup_cli()
+    log(json.dumps({"card": smi, "ntt": rows, "warmup_cli": cli_runs}))
+    log(f"phase 10: {time.time() - t0:.1f} s (card: {smi})")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # the in-process runs take no warm-up (aot.py), as before it existed:
+    # their launch counts are then their paths' alone; phase 10 runs the
+    # CLI with it in a subprocess
+    os.environ["TFHE_AOT"] = "0"
     smi = phase_device()
     rows, floor = phase_kernels()
     if sys.argv[1:] == ["--kernels-only"]:
@@ -2623,18 +2871,19 @@ def main() -> int:
                                    k1_ms_160)
     third = phase_server(client, raw, ctx, request, out1)
     keep = {"lvl64": (client, ctx)}            # phase 9's noise floor
-    del client, raw, ctx
     wide = phase_wide(rows, torch.Generator().manual_seed(4321), keep)
     models = phase_models(rows, torch.Generator().manual_seed(8765))
     scale_out = phase_scale_out(keep)
-    del keep
+    last = phase_last_modules(raw, client, ctx, request, out1, keep, smi)
+    del keep, client, raw, ctx
     # each kernel's launches on the main paths: the default lowering's two
     # runs (phase 4), the (grid, partials) run and the glue_out rotation
     # (phase 5), the two served requests and the three derivations (phase
     # 6), the N = 1024 runs (phase 7), the other two models' runs (phase
-    # 8), the noise checks and the one-device mesh (phase 9)
+    # 8), the noise checks and the one-device mesh (phase 9), the CRT-NTT
+    # latency paths (phase 10)
     launches = {name: sum(c[name] for c in [batch, latency, grid, glue]
-                          + third + wide + models + scale_out)
+                          + third + wide + models + scale_out + last)
                 for name in KERNELS}
     missing = [name for name, count in launches.items() if count <= 0]
     if missing:

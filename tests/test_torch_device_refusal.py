@@ -24,7 +24,7 @@ from tfhe_aes2_tpu_torch.models import shortint_woppbs_8bit as model_8
 from tfhe_aes2_tpu_torch.ops import blind_rotate as br_mod
 from tfhe_aes2_tpu_torch.ops import circuit_bootstrap as cbs_mod
 from tfhe_aes2_tpu_torch.ops import params as params_mod
-from tfhe_aes2_tpu_torch.ops import serialization
+from tfhe_aes2_tpu_torch.ops import serialization, truncation
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
 from tfhe_aes2_tpu_torch.ops.lowering import (BR_CHOICES, BR_KERNELS,
                                               VP_CHOICES, Lowering)
@@ -45,7 +45,8 @@ def _narrow(monkeypatch, br):
 
 def _set_lowering(monkeypatch, br, vp="fused"):
     """The environment that selects Lowering(br, vp) (Lowering.from_env)."""
-    for name in ("TFHE_BR_KERNEL", "TFHE_BR_GLUE", "TFHE_VP_FUSED"):
+    for name in ("TFHE_BR_KERNEL", "TFHE_BR_GLUE", "TFHE_VP_FUSED",
+                 "TFHE_VP_NTT"):
         monkeypatch.delenv(name, raising=False)
     if br == "glue_out":
         monkeypatch.setenv("TFHE_BR_GLUE", "xla")
@@ -204,10 +205,11 @@ def test_cli_runs_the_tree_model_at_its_own_sets(params, want, monkeypatch):
     nothing is computed."""
     _set_lowering(monkeypatch, "merged")
     keygen, runs = [], []
+    client = SimpleNamespace(keygen_stream="numpy")
 
     def fake_keys(pset, **kwargs):
         keygen.append((pset, kwargs["device"]))
-        return "client", SimpleNamespace(lowering=kwargs["lowering"])
+        return client, SimpleNamespace(lowering=kwargs["lowering"])
 
     def fake_run(client, ctx, key, iv, count, **kwargs):
         runs.append((client, kwargs["strategy"], kwargs["rounds"]))
@@ -217,7 +219,7 @@ def test_cli_runs_the_tree_model_at_its_own_sets(params, want, monkeypatch):
     assert cli.main(ARGV + ["--implementation", "shortint-1bit", "--params",
                             params, "--rounds", "2"], device="cuda") == 0
     assert keygen == [(getattr(model_1b, want), "cuda")]
-    assert runs == [("client", fhe_mod.Shortint1BitSboxPbsAesEncrypt, 2)]
+    assert runs == [(client, fhe_mod.Shortint1BitSboxPbsAesEncrypt, 2)]
 
 
 @pytest.mark.parametrize("flag", [["--compress-output", "16"],
@@ -280,6 +282,92 @@ def test_device_refusal_above_every_kernel(br, vp, monkeypatch):
     assert kx.device_refusal(512, "cuda", low) is None
 
 
+# under the CRT-NTT (TFHE_VP_NTT=1): refused where the set's selectors keep
+# at most 4 planes at N = 1024 (the NTT's primes have no 2048-th root)
+NTT_SETS = [("PARAMS_SQRD_LVL_1", True), ("PARAMS_SQRD_LVL_4", True),
+            ("PARAMS_SQRD_LVL_256", False), ("PARAMS_WOPPBS_8BIT", False),
+            ("PARAMS_SQRD_LVL_64", False), ("PARAMS_TEST", False)]
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("name,refused", NTT_SETS)
+def test_device_refusal_of_the_ntt_at_n1024(name, refused, device):
+    """The refusal matches the JAX package's ValueError, on either device
+    (it is arithmetic, not a kernel's limit); at lvl256 and the 8-bit set
+    (vp_js 3: 5 planes) the NTT falls back to K3/K8, as there."""
+    p = getattr(params_mod, name)
+    vp_js = truncation.vp_ggsw_j_start(p)
+    low = Lowering(ntt=True)
+    assert low.vp_ntt(vp_js) == (vp_js >= 4)
+    why = kx.device_refusal(p.polynomial_size, device, low, vp_js)
+    assert (why is not None) == refused
+    if refused:
+        assert "no primitive 2048-th root mod 13313" in why
+    assert kx.device_refusal(p.polynomial_size, device, Lowering(),
+                             vp_js) is None
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("name", ["lvl1", "lvl4"])
+def test_cli_refuses_the_ntt_at_n1024_before_keygen(name, device,
+                                                    monkeypatch, capsys):
+    _set_lowering(monkeypatch, "gridg")
+    monkeypatch.setenv("TFHE_VP_NTT", "1")
+    monkeypatch.setattr(model, "generate_keys", _stop)
+    with pytest.raises(SystemExit) as exc:
+        cli.main(ARGV + ["--params", name], device=device)
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "no primitive 2048-th root mod 13313" in err and name in err
+
+
+def test_cli_takes_lvl256_to_keygen_under_the_ntt(monkeypatch):
+    _set_lowering(monkeypatch, "gridg")
+    monkeypatch.setenv("TFHE_VP_NTT", "1")
+    monkeypatch.setattr(model, "generate_keys", _stop)
+    with pytest.raises(Reached):
+        cli.main(ARGV + ["--params", "lvl256"], device="cuda")
+
+
+def test_server_refuses_the_ntt_at_lvl1(tmp_path, monkeypatch):
+    monkeypatch.setattr(serialization, "server_keys_on", _stop)
+    keys = _bundle(str(tmp_path / "keys.npz"), params_mod.PARAMS_SQRD_LVL_1)
+    with pytest.raises(ValueError, match="2048-th root"):
+        serve.serve(keys, str(tmp_path / "s.sock"), max_requests=1,
+                    device="cpu", lowering=Lowering(ntt=True))
+
+
+@pytest.mark.parametrize("vp", VP_CHOICES)
+@pytest.mark.parametrize("vp_js", [4, 3])
+def test_the_ntt_lowering_launches_the_kernels_it_names(vp, vp_js,
+                                                        monkeypatch):
+    """Under ntt, Lowering.kernels(vp_js) names no vertical-packing kernel
+    where the NTT runs (4 kept planes) and the fallback's where it does
+    not (5), as the wrappers called show."""
+    called = set()
+    for name in kx.N_MAX:
+        def spy(*args, _name=name, _fn=getattr(kx, name), **kwargs):
+            called.add(_name)
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(kx, name, spy)
+    p = params_mod.PARAMS_TEST
+    k1, n = p.glwe_dimension + 1, p.polynomial_size
+    gen = torch.Generator().manual_seed(6)
+    low = Lowering("gridg", vp, ntt=True)
+    bsk = torch.randint(-128, 128, (1, k1, k1 * p.pbs_level, 6, 2 * n),
+                        generator=gen, dtype=torch.int8)
+    lwe = torch.randint(-2 ** 62, 2 ** 62, (2, 2), generator=gen)
+    br_mod.blind_rotate_glwe(lwe, bsk, torch.zeros((k1, n),
+                                                   dtype=torch.int64), p, low)
+    ggsw = torch.randint(-2 ** 62, 2 ** 62, (2, 2, p.cbs_level, k1, k1, n),
+                         generator=gen)
+    cbs_mod.vertical_packing(ggsw, torch.zeros((1, 1, n), dtype=torch.int64),
+                             p, vp_js, low)
+    assert called == set(low.kernels(vp_js))
+    assert ("extprod_grouped_fused" in called
+            or "extprod_partials_grouped" in called) == (vp_js == 3)
+
+
 @pytest.mark.parametrize("lowering", [
     None, Lowering("grid", "partials"), Lowering("longk"),
     Lowering("bucket"), Lowering("glue_out", "partials"),
@@ -289,7 +377,8 @@ def test_server_on_cuda_loads_an_n1024_bundle(lowering, tmp_path,
     """Under the default lowering (from the environment, here unset),
     under (grid, partials) and under the longk, bucket, glue_out and merged
     schedules the server goes on to move the keys onto the card."""
-    for name in ("TFHE_BR_KERNEL", "TFHE_BR_GLUE", "TFHE_VP_FUSED"):
+    for name in ("TFHE_BR_KERNEL", "TFHE_BR_GLUE", "TFHE_VP_FUSED",
+                 "TFHE_VP_NTT"):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setattr(serialization, "server_keys_on", _stop)
     keys = _bundle(str(tmp_path / "keys.npz"),

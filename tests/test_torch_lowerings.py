@@ -28,7 +28,7 @@ from tfhe_aes2_tpu_torch.ops.lowering import Lowering
 from tests.torch_port_common import jax_server_keys, port_keys, t64, u64
 
 KEY = bytes(range(16))
-ENV_NAMES = ("TFHE_BR_KERNEL", "TFHE_BR_GLUE", "TFHE_VP_FUSED")
+ENV_NAMES = ("TFHE_BR_KERNEL", "TFHE_BR_GLUE", "TFHE_VP_FUSED", "TFHE_VP_NTT")
 # Lowering.br -> the JAX package's environment for the same schedule
 BR_ENV = {"gridg": {"TFHE_BR_KERNEL": "gridg"},
           "grid": {"TFHE_BR_KERNEL": "grid"},
@@ -66,6 +66,31 @@ def test_from_env_maps_the_jax_names(monkeypatch, env, expect):
     _set_env(monkeypatch, env)
     assert Lowering.from_env() == expect
     assert Lowering() == Lowering("gridg", "fused")
+
+
+@pytest.mark.parametrize("ntt", ["0", "1", None])
+@pytest.mark.parametrize("fused", ["1", "0", None])
+def test_vp_ntt_x_vp_fused_table(monkeypatch, ntt, fused):
+    """TFHE_VP_NTT x TFHE_VP_FUSED: the NTT where the selectors keep at
+    most 4 planes (vp_js >= 4: lvl64, lvl1, lvl4, the TEST sets), K3 or K8
+    by TFHE_VP_FUSED elsewhere (vp_js 3: lvl256, the 8-bit set; vp_js 0
+    under TFHE_VP_TRUNC=0) — the JAX package's choice in
+    circuit_bootstrap.vertical_packing."""
+    env = {name: value for name, value in (("TFHE_VP_NTT", ntt),
+                                           ("TFHE_VP_FUSED", fused))
+           if value is not None}
+    _set_env(monkeypatch, env)
+    low = Lowering.from_env()
+    vp = "partials" if fused == "0" else "fused"
+    assert low == Lowering("gridg", vp, ntt == "1")
+    fallback = ("extprod_partials_grouped",) if fused == "0" \
+        else ("extprod_grouped_fused",)
+    for vp_js, takes_ntt in ((5, True), (4, True), (3, False), (0, False)):
+        assert low.vp_ntt(vp_js) == (ntt == "1" and takes_ntt)
+        kernels = low.kernels(vp_js)
+        assert kernels[:2] == ("rot_diff_digits", "extprod_step2g")
+        assert kernels[2:] == (() if low.vp_ntt(vp_js) else fallback)
+    assert low.kernels() == low.kernels(0)
 
 
 @pytest.mark.parametrize("kernel", ["fastest", "glue_out"])
@@ -149,6 +174,31 @@ def test_vertical_packing_matches_jax_under_matching_env(setup, monkeypatch,
         use_conv="pallas"))
     got = tcbs.vertical_packing(ggsw, t64(lut), p, sks.vp_js,
                                 Lowering.from_env())
+    np.testing.assert_array_equal(u64(got), ref)
+    expect = [[((v * 5 + 1) % 8 >> (2 - o)) & 1 for o in range(3)]
+              for v in (0x3a, 0xc5)]
+    np.testing.assert_array_equal(jclient.decrypt_bits(u64(got)), expect)
+
+
+@pytest.mark.parametrize("fused", ["1", "0"])
+def test_vertical_packing_matches_jax_under_vp_ntt(setup, monkeypatch,
+                                                   fused):
+    """TFHE_VP_NTT=1 at PARAMS_TEST (vp_js 5: 3 kept planes, so the
+    CRT-NTT in both packages, whatever TFHE_VP_FUSED says). The NTT reads
+    only the selectors' first N columns, so where the dropped planes of
+    -x are not those of x negated (~1/256 of the coefficients,
+    tests/test_torch_ntt.py) its ciphertexts differ from K3's in both
+    packages; they decrypt to the same bits."""
+    jclient, p, sks, _, _, _, ggsw = setup
+    _set_env(monkeypatch, {"TFHE_VP_NTT": "1", "TFHE_VP_FUSED": fused})
+    low = Lowering.from_env()
+    assert low.vp_ntt(sks.vp_js) and low.kernels(sks.vp_js) == (
+        "rot_diff_digits", "extprod_step2g")
+    lut = tcbs.generate_lut(8, 3, lambda v: (v * 5 + 1) % 8, p)
+    ref = np.asarray(jcbs.vertical_packing(
+        jnp.asarray(u64(ggsw)), jnp.asarray(lut), jclient.params,
+        use_conv="pallas"))
+    got = tcbs.vertical_packing(ggsw, t64(lut), p, sks.vp_js, low)
     np.testing.assert_array_equal(u64(got), ref)
     expect = [[((v * 5 + 1) % 8 >> (2 - o)) & 1 for o in range(3)]
               for v in (0x3a, 0xc5)]

@@ -24,7 +24,8 @@ from tfhe_aes2_tpu_torch.ops import params as tparams
 from tfhe_aes2_tpu_torch.ops import polynomial as tpoly
 from tfhe_aes2_tpu_torch.ops import torus as ttorus
 from tfhe_aes2_tpu_torch.ops import truncation as ttrunc
-from tests.torch_port_common import port_keys, port_params, t64, u64
+from tests.torch_port_common import (jax_server_keys, port_keys, port_params,
+                                     t64, u64)
 
 SETS = ["PARAMS_SQRD_LVL_1", "PARAMS_SQRD_LVL_4", "PARAMS_SQRD_LVL_64",
         "PARAMS_SQRD_LVL_256", "PARAMS_TEST", "PARAMS_TEST_N256"]
@@ -44,6 +45,72 @@ def test_truncation_values_at_lvl64_and_test():
              ttrunc.vp_ggsw_j_start)
     assert [f(tparams.PARAMS_SQRD_LVL_64) for f in rules] == [2, 5, 1, 4]
     assert [f(tparams.PARAMS_TEST) for f in rules] == [2, 4, 2, 5]
+
+
+TRUNC_ENV = ("TFHE_BSK_TRUNC", "TFHE_KSK_TRUNC", "TFHE_VP_TRUNC",
+             "TFHE_TRUNC_BUDGET")
+TRUNC_SWITCHES = {"bsk_off": {"TFHE_BSK_TRUNC": "0"},
+                  "ksk_off": {"TFHE_KSK_TRUNC": "0"},
+                  "vp_off": {"TFHE_VP_TRUNC": "0"},
+                  "budget_quarter": {"TFHE_TRUNC_BUDGET": "0.25"},
+                  "vp_off_budget_quarter": {"TFHE_VP_TRUNC": "0",
+                                            "TFHE_TRUNC_BUDGET": "0.25"},
+                  "budget_zero": {"TFHE_TRUNC_BUDGET": "0"}}
+
+
+def _set_trunc_env(monkeypatch, env):
+    for name in TRUNC_ENV:
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+
+
+@pytest.mark.parametrize("switch", sorted(TRUNC_SWITCHES))
+def test_truncation_switches_match_at_every_set(switch, monkeypatch):
+    """The JAX package's four truncation switches, read by both packages
+    at each call: the same js per key at every set of ops/params.py."""
+    _set_trunc_env(monkeypatch, TRUNC_SWITCHES[switch])
+    names = [n for n in dir(jparams) if isinstance(getattr(jparams, n),
+                                                   jparams.WopbsParams)]
+    assert len(names) >= 9
+    for name in names:
+        jp, tp = getattr(jparams, name), getattr(tparams, name)
+        for fn in ("bsk_j_start", "ksk_j_start", "pfpksk_j_start",
+                   "vp_ggsw_j_start"):
+            assert getattr(ttrunc, fn)(tp) == getattr(jtrunc, fn)(jp), \
+                (name, fn)
+
+
+def test_truncation_switches_disable_their_keys(monkeypatch):
+    p = tparams.PARAMS_SQRD_LVL_64
+    rules = (ttrunc.bsk_j_start, ttrunc.ksk_j_start, ttrunc.pfpksk_j_start,
+             ttrunc.vp_ggsw_j_start)
+    expect = {"bsk_off": [0, 5, 1, 4], "ksk_off": [2, 0, 0, 4],
+              "vp_off": [2, 5, 1, 0], "vp_off_budget_quarter": [1, 5, 1, 0]}
+    for switch, js in expect.items():
+        _set_trunc_env(monkeypatch, TRUNC_SWITCHES[switch])
+        assert [f(p) for f in rules] == js, switch
+
+
+@pytest.mark.parametrize("switch", ["vp_off", "bsk_off", "ksk_off",
+                                    "budget_quarter"])
+def test_prepared_keys_match_under_a_switch(keys_test, monkeypatch, switch):
+    """PARAMS_TEST's prepared keys under one switch: the port's int8
+    planes and vp_js equal the JAX package's prepared planes
+    (tests/torch_port_common.jax_server_keys) under the same switch."""
+    _set_trunc_env(monkeypatch, TRUNC_SWITCHES[switch])
+    client, raw = port_keys(keys_test)
+    p = client.params
+    prep = tkeys.prepare_server_keys(raw, p, truncate=True)
+    jprep = jax_server_keys(keys_test, True)
+    jp = keys_test[0].params
+    assert prep.vp_js == jtrunc.vp_ggsw_j_start(jp)
+    np.testing.assert_array_equal(prep.bsk.numpy(), np.asarray(jprep.bsk))
+    np.testing.assert_array_equal(
+        prep.ksk.numpy(), np.asarray(jprep.ksk).reshape(prep.ksk.shape))
+    np.testing.assert_array_equal(
+        prep.pfpksk.numpy(),
+        np.asarray(jprep.pfpksk).reshape(prep.pfpksk.shape))
 
 
 @pytest.mark.parametrize("js", [0, 1, 3, 7])
@@ -147,7 +214,7 @@ def test_keygen_byte_identical_without_native(monkeypatch):
     monkeypatch.setattr(tfhe_aes2_tpu.native, "NativeRng", no_native)
     jc, jsks = jkeys.generate_keys(jparams.PARAMS_TEST, seed=11)
     tc, raw = tkeys.generate_keys_numpy(tparams.PARAMS_TEST, seed=11,
-                                        device="cpu")
+                                        device="cpu", native=False)
     np.testing.assert_array_equal(tc.lwe_sk, jc.lwe_sk)
     np.testing.assert_array_equal(tc.glwe_sk, jc.glwe_sk)
     for name in ("bsk", "ksk", "pfpksk", "pksk"):

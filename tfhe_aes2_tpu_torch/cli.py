@@ -13,13 +13,19 @@ shortint-woppbs-1bit model, as in the JAX package. With --fhe-counter the
 client uploads one encrypted iv‖ctr block and the server derives the rest by
 homomorphic counter increments (aes_128/ctr_fhe.py). The kernels the
 bootstraps run follow the JAX package's TFHE_BR_KERNEL / TFHE_BR_GLUE /
-TFHE_VP_FUSED environment (ops/lowering.py); the lowering in use is printed.
+TFHE_VP_FUSED / TFHE_VP_NTT environment (ops/lowering.py); the lowering in
+use is printed, and so is the stream the evaluation keys were drawn from
+(the native ChaCha20 core where it builds, else numpy, as in the JAX
+package). Under TFHE_AOT (default: on for a CUDA device) the kernels build
+and the device context starts on background threads while keygen runs,
+and the run's kernels load before the first request (aot.py).
 On a CUDA device every parameter set, the ones with N = 1024 (lvl1, lvl4,
 lvl256 and the 8-bit model's) among them, runs under every lowering — gridg
 (the default), grid, merged, longk, bucket and glue_out, each with fused or
 partials; a set above what a lowering's kernels take (extprod.N_MAX, none in
 ops/params.py) would be refused before keygen, reading the set the chosen
-model will run. lvl1's and lvl4's noise
+model will run, and so are lvl1 and lvl4 under TFHE_VP_NTT=1, where the
+CRT-NTT has no 2N-th root of unity at N = 1024 (the JAX package raises). lvl1's and lvl4's noise
 budgets (max_noise_level_squared 1 and 4) are below what the AES pipeline's
 XORs need, so there the run stops with NoiseError, as in the JAX package.
 The tree-PBS model's parameters are flagged testing parameters by the
@@ -34,7 +40,9 @@ import logging
 import sys
 import time
 
+from tfhe_aes2_tpu_torch import aot
 from tfhe_aes2_tpu_torch.ops import params as params_mod
+from tfhe_aes2_tpu_torch.ops import truncation
 from tfhe_aes2_tpu_torch.ops.kernels.extprod import device_refusal
 from tfhe_aes2_tpu_torch.ops.lowering import Lowering
 
@@ -112,7 +120,8 @@ def main(argv=None, device: str = "cuda") -> int:
     lowering = Lowering.from_env()
     model, strategy, pset, pname = _implementation(args.implementation,
                                                    args.params)
-    refusal = device_refusal(pset.polynomial_size, device, lowering)
+    vp_js = truncation.vp_ggsw_j_start(pset)
+    refusal = device_refusal(pset.polynomial_size, device, lowering, vp_js)
     if refusal:
         ap.error(f"--implementation {args.implementation} (parameters "
                  f"{pname}) on {device}: {refusal}")
@@ -130,12 +139,29 @@ def main(argv=None, device: str = "cuda") -> int:
     from tfhe_aes2_tpu_torch.aes_128.scenario import (
         run_client_server_aes_scenario)
 
+    # warm-up before keygen: the kernel build and the device context start
+    # on background threads (aot.py), as the JAX CLI starts its programs'
+    # compiles before its keygen
+    handle = aot.warmup_staged(device) if aot.enabled(device) else None
     print(f"generating keys ({pname}) on {device}...")
     t0 = time.time()
     client, ctx = model.generate_keys(pset, seed=args.seed, device=device,
                                       lowering=lowering)
-    print(f"keys generated and prepared in: {time.time() - t0:.3f}s")
+    print(f"keys generated and prepared in: {time.time() - t0:.3f}s "
+          f"(evaluation keys from the {client.keygen_stream} stream)")
     print(f"lowering: br={ctx.lowering.br} vp={ctx.lowering.vp}")
+    if ctx.lowering.ntt:
+        print("vertical packing: " + (
+            "the CRT-NTT" if ctx.lowering.vp_ntt(vp_js) else
+            f"{ctx.lowering.vp} (TFHE_VP_NTT=1, but the selectors keep "
+            f"{8 - vp_js} > 4 planes: the JAX package's fallback)"))
+    if handle is not None:
+        handle.attach(ctx)
+        handle.wait()
+        print(f"warm-up: context ready in {handle.context_ready_s}s, "
+              f"kernels built or loaded in {handle.build_s:.3f}s, "
+              f"{len(handle.loaded)} kernels loaded in {handle.load_s:.3f}s; "
+              f"the run waited {handle.wait_s:.3f}s on it")
     run_client_server_aes_scenario(client, ctx, key, iv,
                                    args.number_of_outputs, strategy=strategy,
                                    rounds=args.rounds,

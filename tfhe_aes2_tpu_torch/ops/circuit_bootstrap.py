@@ -9,7 +9,10 @@ selector GGSW shared by its accumulators (the JAX package's pair-mode stage
 loop, tfhe_aes2_tpu/ops/circuit_bootstrap.py:154-198, on int64) — or, under
 `Lowering.vp == "partials"`, one launch of kernel K8 and the recombination
 of its int32 partial sums in torch (the JAX package's TFHE_VP_FUSED=0 stage,
-circuit_bootstrap.py:200-253).
+circuit_bootstrap.py:200-253) — or, under `Lowering.ntt` where the
+selectors keep at most 4 limb planes, the CRT-NTT product of ops/ntt.py on
+K8's operand layout (the JAX package's TFHE_VP_NTT=1 stage,
+circuit_bootstrap.py:221-228).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 from tfhe_aes2_tpu_torch.ops import blind_rotate as br
 from tfhe_aes2_tpu_torch.ops import decomposition
 from tfhe_aes2_tpu_torch.ops import keyswitch as ks
-from tfhe_aes2_tpu_torch.ops import polynomial, torus
+from tfhe_aes2_tpu_torch.ops import ntt, polynomial, torus
 from tfhe_aes2_tpu_torch.ops.keys import PreparedServerKeys
 from tfhe_aes2_tpu_torch.ops.kernels import extprod
 from tfhe_aes2_tpu_torch.ops.lowering import Lowering
@@ -87,7 +90,9 @@ def vertical_packing(ggsw: torch.Tensor, luts: torch.Tensor,
     ggsw:  [..., T, L, k+1, k+1, N] int64, T selector bits, MSB first;
     luts:  [O, P, N] int64 clear LUT polynomials (shared by the batch);
     vp_js: GGSW limb planes dropped by K3/K8 (keys.PreparedServerKeys.vp_js);
-    lowering: its `vp` picks K3 or K8 + recombination for the CMux stages.
+    lowering: its `vp` picks K3 or K8 + recombination for the CMux stages,
+    its `ntt` the CRT-NTT where lowering.vp_ntt(vp_js) (ValueError at
+    N = 1024, as in the JAX package).
     returns LWE [..., O, kN+1], one ct per output bit.
     """
     p = params
@@ -103,10 +108,11 @@ def vertical_packing(ggsw: torch.Tensor, luts: torch.Tensor,
     k1 = p.glwe_dimension + 1
     n_d = torus.limbs_for_bound(decomposition.digit_bound(p.cbs_base_log))
 
+    use_ntt = lowering.vp_ntt(vp_js)
     partials = lowering.vp == "partials"
     rows = ggsw_to_rows(ggsw.reshape((b_flat, t) + ggsw.shape[-4:]))
     planes = extprod.split_polys_ext(rows)[vp_js:]         # [8-js, B, T, R, O, 2N]
-    if partials:                      # per bit, K8's [8-js, B, R, O, 2N]
+    if partials or use_ntt:           # per bit, K8's [8-js, B, R, O, 2N]
         planes = planes.permute(2, 0, 1, 3, 4, 5).contiguous()
     else:                             # per bit, K3's [B, O, R, 8-js, 2N]
         planes = planes.permute(2, 1, 4, 3, 0, 5).contiguous()
@@ -115,6 +121,11 @@ def vertical_packing(ggsw: torch.Tensor, luts: torch.Tensor,
         diff = ct1 - ct0                                   # [B, G..., k+1, N]
         digits = br.decompose_glwe(diff, p.cbs_base_log, p.cbs_level)
         d4 = digits.reshape((b_flat, -1) + digits.shape[-2:])  # [B, G, R, N]
+        if use_ntt:
+            out = ntt.polymul_digits_ntt_grouped(
+                d4, planes[bit_idx], decomposition.digit_bound(p.cbs_base_log),
+                vp_js)                                     # [B, G, O, N]
+            return ct0 + out.reshape(diff.shape)
         dig = torus.split_int32_signed(d4, n_d)            # [n_d, B, G, R, N]
         if partials:
             parts = extprod.extprod_partials_grouped(dig, planes[bit_idx],

@@ -77,7 +77,7 @@ import ctypes
 
 import torch
 
-from tfhe_aes2_tpu_torch.ops import decomposition, polynomial, torus
+from tfhe_aes2_tpu_torch.ops import decomposition, ntt, polynomial, torus
 from tfhe_aes2_tpu_torch.ops.kernels import build
 from tfhe_aes2_tpu_torch.ops.kernels.matmul import SMS
 from tfhe_aes2_tpu_torch.ops.lowering import Lowering
@@ -145,14 +145,26 @@ WIDE_ND = frozenset({1, 2})
 WIDE_ND_KERNELS = ("extprod_grouped_fused", "extprod_partials_grouped")
 
 
-def device_refusal(n: int, device, lowering: Lowering) -> str | None:
-    """Why a parameter set of polynomial size n cannot run on `device` under
-    `lowering`, or None: on a CUDA device every kernel the lowering runs must
-    take N = n (N_MAX); on the CPU the plain versions take any N. Every set
-    of ops/params.py (N <= 1024) runs on the card under every lowering."""
+def device_refusal(n: int, device, lowering: Lowering,
+                   vp_js: int | None = None) -> str | None:
+    """Why a parameter set of polynomial size n whose vertical packing drops
+    vp_js selector planes cannot run on `device` under `lowering`, or None.
+    Under lowering.ntt, where the set takes the CRT-NTT (lowering.vp_ntt)
+    the NTT must have its roots of unity at N = n, on any device: at
+    N = 1024 with 4 planes (lvl1, lvl4) it has not, and the JAX package
+    raises. On a CUDA device every kernel the lowering runs must take N = n
+    (N_MAX); on the CPU the plain versions take any N. Every set of
+    ops/params.py (N <= 1024) runs on the card under every lowering without
+    ntt."""
+    if vp_js is not None and lowering.vp_ntt(vp_js):
+        why = ntt.refusal(n)
+        if why:
+            return (f"{why} (TFHE_VP_NTT=1 takes the NTT where the "
+                    f"selectors keep {8 - vp_js} <= {ntt.MAX_PLANES} limb "
+                    "planes, as in the JAX package)")
     if torch.device(device).type != "cuda":
         return None
-    short = [name for name in lowering.kernels() if n > N_MAX[name]]
+    short = [name for name in lowering.kernels(vp_js) if n > N_MAX[name]]
     if not short:
         return None
     return (f"polynomial_size {n} is above what lowering (br="

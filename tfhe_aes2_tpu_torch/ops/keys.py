@@ -9,12 +9,15 @@
   - PKSK    LWE->GLWE packing keyswitch key (the tree-PBS model's,
             ops/packing_keyswitch.py)
 
-Randomness is numpy's: the secret keys and client encryption draw from
-np.random.default_rng(seed), the evaluation keys from
-np.random.default_rng(seed ^ 0x6B657967) — the JAX package's keygen stream
-when its native ChaCha core is absent, so both packages make byte-identical
-keys from one seed. The exact GLWE bodies Σ_u A_u ⊛ S_u run as float64 limb
-GEMMs on the target device.
+Randomness follows the JAX package's keygen (tfhe_aes2_tpu/ops/keys.py,
+_KeygenRng): the secret keys and client encryption draw from
+np.random.default_rng(seed); the evaluation keys' masks and noise from the
+native core's threaded ChaCha20 fills (native.py) where cmake and ninja
+build it, else from np.random.default_rng(seed ^ 0x6B657967), which is the
+JAX package's fallback too. Both packages draw in the same order, so one
+seed gives byte-identical keys wherever both take the same stream; keygen
+logs which it took (ClientKey.keygen_stream). The exact GLWE bodies
+Σ_u A_u ⊛ S_u run as float64 limb GEMMs on the target device.
 
 The client (ClientKey) stays on the host in numpy uint64; the evaluation
 keys are int64 tensors on the device.
@@ -22,12 +25,15 @@ keys are int64 tensors on the device.
 
 from __future__ import annotations
 
+import logging
+import subprocess
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from tfhe_aes2_tpu_torch import native as native_mod
 from tfhe_aes2_tpu_torch.ops import truncation
 from tfhe_aes2_tpu_torch.ops.kernels.matmul import kmajor_key_planes
 from tfhe_aes2_tpu_torch.ops.lowering import Lowering
@@ -35,6 +41,7 @@ from tfhe_aes2_tpu_torch.ops.params import WopbsParams
 from tfhe_aes2_tpu_torch.ops.torus import split_u64_signed, to_tensor
 
 _KEYGEN_SALT = 0x6B65_7967
+log = logging.getLogger(__name__)
 
 
 class ServerKeySet(NamedTuple):
@@ -99,6 +106,9 @@ class ClientKey:
     lwe_sk: np.ndarray    # [n] uint64 in {0,1}
     glwe_sk: np.ndarray   # [k, N] uint64 in {0,1}
     rng: np.random.Generator
+    # the evaluation keys' stream ("chacha20" or "numpy"); None where the
+    # keys came from elsewhere (keys_from_numpy)
+    keygen_stream: str | None = None
 
     @property
     def big_sk(self) -> np.ndarray:
@@ -177,6 +187,42 @@ def _wrap_dot(a: np.ndarray, s: np.ndarray) -> np.ndarray:
         return (a * s).sum(axis=-1, dtype=np.uint64)
 
 
+class _KeygenRng:
+    """Fill source of the evaluation keys' masks and noise, as the JAX
+    package's: the native core's threaded ChaCha20 fills (deterministic,
+    independent of the thread count) when it builds, numpy otherwise.
+
+    native: None takes the core where it builds and falls back to numpy,
+    logged, where it does not (the JAX package's behaviour); False takes
+    numpy; True takes the core or raises."""
+
+    def __init__(self, seed: int, native: bool | None = None):
+        self._np = np.random.default_rng(seed ^ _KEYGEN_SALT)
+        self._native = None
+        if native is not False:
+            try:
+                self._native = native_mod.NativeRng(seed)
+            except (OSError, subprocess.SubprocessError) as ex:
+                if native:
+                    raise
+                log.warning("native ChaCha20 core unavailable (%s: %s); "
+                            "evaluation keys from the numpy stream",
+                            type(ex).__name__, ex)
+        self.stream = "numpy" if self._native is None else "chacha20"
+
+    def uniform(self, shape) -> np.ndarray:
+        if self._native is None:
+            return _uniform_u64(self._np, shape)
+        count = int(np.prod(shape, dtype=np.int64))
+        return self._native.uniform_u64_par(count).reshape(shape)
+
+    def gaussian(self, std_torus: float, shape) -> np.ndarray:
+        if self._native is None:
+            return _gaussian_u64(self._np, std_torus, shape)
+        count = int(np.prod(shape, dtype=np.int64))
+        return self._native.gaussian_u64_par(count, std_torus).reshape(shape)
+
+
 def _signed_nc_stack(glwe_sk: np.ndarray, device) -> torch.Tensor:
     """[kN, N] float64 negacirculants of the binary S_u, entries in {-1,0,1}:
     (Σ_u A_u ⊛ S_u) = A_flat @ this."""
@@ -208,20 +254,21 @@ def _glwe_bodies(a: np.ndarray, nc_signed: torch.Tensor) -> np.ndarray:
     return np.concatenate(parts, axis=0)
 
 
-def _encrypt_zero(params: WopbsParams, krng: np.random.Generator,
+def _encrypt_zero(params: WopbsParams, krng: _KeygenRng,
                   nc_signed: torch.Tensor, rows: int, noise_std: float):
     """-> (A [rows, k, N], B [rows, N]) uint64: GLWE encryptions of zero."""
     k, n = params.glwe_dimension, params.polynomial_size
-    a = _uniform_u64(krng, (rows, k, n))
-    e = _gaussian_u64(krng, noise_std, (rows, n))
+    a = krng.uniform((rows, k, n))
+    e = krng.gaussian(noise_std, (rows, n))
     with np.errstate(over="ignore"):
         b = e + _glwe_bodies(a.reshape(rows, k * n), nc_signed)
     return a, b
 
 
 def generate_keys_numpy(params: WopbsParams, seed: int = 0,
-                        device="cuda"):
-    """(ClientKey, dict of raw uint64 numpy evaluation keys)."""
+                        device="cuda", native: bool | None = None):
+    """(ClientKey, dict of raw uint64 numpy evaluation keys); `native` picks
+    the evaluation keys' stream as _KeygenRng says."""
     rng = np.random.default_rng(seed)
     p = params
     n, k, big_n = p.lwe_dimension, p.glwe_dimension, p.polynomial_size
@@ -230,10 +277,13 @@ def generate_keys_numpy(params: WopbsParams, seed: int = 0,
 
     lwe_sk = rng.integers(0, 2, size=(n,), dtype=np.uint64)
     glwe_sk = rng.integers(0, 2, size=(k, big_n), dtype=np.uint64)
-    client = ClientKey(params=p, lwe_sk=lwe_sk, glwe_sk=glwe_sk, rng=rng)
+    krng = _KeygenRng(seed, native)
+    log.info("evaluation keys from the %s stream (seed %d)", krng.stream,
+             seed)
+    client = ClientKey(params=p, lwe_sk=lwe_sk, glwe_sk=glwe_sk, rng=rng,
+                       keygen_stream=krng.stream)
     big_sk = client.big_sk
 
-    krng = np.random.default_rng(seed ^ _KEYGEN_SALT)
     nc_signed = _signed_nc_stack(glwe_sk, device)
 
     # BSK: GGSW_S(s_i), rows (l, u) = enc(0) + s_i·g_l at component u
@@ -249,8 +299,8 @@ def generate_keys_numpy(params: WopbsParams, seed: int = 0,
 
     # KSK: LWE_s(s'_i · g_l)
     lk = p.ks_level
-    a = _uniform_u64(krng, (kn, lk, n))
-    e = _gaussian_u64(krng, p.lwe_noise_std, (kn, lk))
+    a = krng.uniform((kn, lk, n))
+    e = krng.gaussian(p.lwe_noise_std, (kn, lk))
     with np.errstate(over="ignore"):
         body = _wrap_dot(a, lwe_sk) + e
         for l in range(lk):
@@ -303,11 +353,15 @@ def keys_from_numpy(params: WopbsParams, lwe_sk, glwe_sk, bsk, ksk, pfpksk,
     return client, sks
 
 
-def generate_keys(params: WopbsParams, seed: int = 0, device="cuda"):
-    """(ClientKey, raw ServerKeySet on `device`)."""
-    client, raw = generate_keys_numpy(params, seed, device)
-    return keys_from_numpy(params, client.lwe_sk, client.glwe_sk,
-                           rng=client.rng, device=device, **raw)
+def generate_keys(params: WopbsParams, seed: int = 0, device="cuda",
+                  native: bool | None = None):
+    """(ClientKey, raw ServerKeySet on `device`); `native` as in
+    generate_keys_numpy."""
+    client, raw = generate_keys_numpy(params, seed, device, native)
+    out, sks = keys_from_numpy(params, client.lwe_sk, client.glwe_sk,
+                               rng=client.rng, device=device, **raw)
+    out.keygen_stream = client.keygen_stream
+    return out, sks
 
 
 def prepare_bsk(bsk: torch.Tensor, js: int) -> torch.Tensor:

@@ -24,12 +24,24 @@ schedule in both packages:
                   default
       "partials"  K8 per CMux stage (int32 partial sums), recombined in
                   torch; TFHE_VP_FUSED=0
+  ntt True        the CMux stages' product as the CRT-NTT of ops/ntt.py
+                  (float64 matmuls and int64 torch, no kernel of its own)
+                  where the selectors keep at most 4 limb planes
+                  (8 - vp_js <= 4), and `vp`'s kernel elsewhere — the JAX
+                  package's TFHE_VP_NTT=1, which takes
+                  polymul_digits_pallas_grouped (K3, or K8 under
+                  TFHE_VP_FUSED=0) where kp.shape[0] > 4
+                  (tfhe_aes2_tpu/ops/circuit_bootstrap.py:221-231). At
+                  N = 1024 with 4 planes (lvl1, lvl4) the NTT has no
+                  2N-th root of unity and raises, as there.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+
+from tfhe_aes2_tpu_torch.ops.ntt import MAX_PLANES as NTT_MAX_PLANES
 
 BR_CHOICES = ("gridg", "grid", "merged", "longk", "bucket", "glue_out")
 VP_CHOICES = ("fused", "partials")
@@ -54,6 +66,7 @@ VP_KERNELS = {"fused": ("extprod_grouped_fused",),
 class Lowering:
     br: str = "gridg"
     vp: str = "fused"
+    ntt: bool = False
 
     def __post_init__(self):
         if self.br not in BR_CHOICES:
@@ -61,17 +74,25 @@ class Lowering:
         if self.vp not in VP_CHOICES:
             raise ValueError(f"Lowering.vp {self.vp!r} not in {VP_CHOICES}")
 
-    def kernels(self) -> tuple[str, ...]:
+    def vp_ntt(self, vp_js: int) -> bool:
+        """Whether the vertical packing's CMux stages run the CRT-NTT on
+        selectors that drop vp_js limb planes."""
+        return self.ntt and 8 - vp_js <= NTT_MAX_PLANES
+
+    def kernels(self, vp_js: int | None = None) -> tuple[str, ...]:
         """The names of the kernel wrappers this lowering's blind rotation
-        and vertical packing launch."""
-        return BR_KERNELS[self.br] + VP_KERNELS[self.vp]
+        and vertical packing launch where the selectors drop vp_js planes;
+        under ntt with vp_js None, the fallback's too (all it may launch)."""
+        vp = (() if vp_js is not None and self.vp_ntt(vp_js)
+              else VP_KERNELS[self.vp])
+        return BR_KERNELS[self.br] + vp
 
     @classmethod
     def from_env(cls) -> "Lowering":
         """The lowering the JAX package would run under the same
-        TFHE_BR_GLUE / TFHE_BR_KERNEL / TFHE_VP_FUSED. As there,
-        TFHE_BR_GLUE=xla takes the blind rotation whatever TFHE_BR_KERNEL
-        says."""
+        TFHE_BR_GLUE / TFHE_BR_KERNEL / TFHE_VP_FUSED / TFHE_VP_NTT. As
+        there, TFHE_BR_GLUE=xla takes the blind rotation whatever
+        TFHE_BR_KERNEL says."""
         env = os.environ
         kernel = env.get("TFHE_BR_KERNEL", "gridg")
         if env.get("TFHE_BR_GLUE", "pallas") == "xla":
@@ -82,4 +103,4 @@ class Lowering:
             raise ValueError(f"TFHE_BR_KERNEL={kernel!r} is not a schedule "
                              "of the blind rotation")
         vp = "partials" if env.get("TFHE_VP_FUSED", "1") == "0" else "fused"
-        return cls(br=br, vp=vp)
+        return cls(br=br, vp=vp, ntt=env.get("TFHE_VP_NTT", "0") == "1")

@@ -17,13 +17,18 @@ The BSK rule deliberately omits key_amp (the JAX package documents the
 measured end-to-end margin that justifies it). At PARAMS_SQRD_LVL_64 the
 rules give (bsk 2, ksk 5, pfpksk 1, vp 4); at PARAMS_TEST (2, 4, 2, 5).
 
-Copied from tfhe_aes2_tpu/ops/truncation.py with its environment gates
-removed: the port's keys.prepare_server_keys(truncate=...) is the one switch.
+Copied from tfhe_aes2_tpu/ops/truncation.py with its environment switches,
+read at each call as there: TFHE_BSK_TRUNC=0 keeps every BSK plane,
+TFHE_KSK_TRUNC=0 every KSK and pfPKSK plane, TFHE_VP_TRUNC=0 every VP GGSW
+plane (a switch at 0 disables both arms), and TFHE_TRUNC_BUDGET (default
+1.0) scales the budget arm's V_round. keys.prepare_server_keys(truncate=
+False) keeps all planes whatever they say.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -66,14 +71,26 @@ def lwe_key_amp(params: WopbsParams) -> float:
     return 1.0 + params.lwe_dimension / 2.0
 
 
+def _gate(env: str) -> bool:
+    return os.environ.get(env, "1") != "0"
+
+
+def _budget_frac() -> float:
+    return float(os.environ.get("TFHE_TRUNC_BUDGET", "1.0"))
+
+
 def budget_sigma(v_round: float, amplification: float) -> float:
     """Largest per-coefficient truncation std whose amplified variance stays
-    within the operation's own rounding variance."""
-    return math.sqrt(v_round / amplification)
+    within frac·V_round, frac = TFHE_TRUNC_BUDGET."""
+    frac = _budget_frac()
+    return math.sqrt(frac * v_round / amplification) if frac > 0 else 0.0
 
 
 def bsk_j_start(params: WopbsParams) -> int:
-    """BSK planes dropped in the blind-rotate CMux (no key_amp, see above)."""
+    """BSK planes dropped in the blind-rotate CMux (no key_amp, see above);
+    0 under TFHE_BSK_TRUNC=0."""
+    if not _gate("TFHE_BSK_TRUNC"):
+        return 0
     p = params
     sigma = max(p.glwe_noise_std * _Q / 32.0,
                 budget_sigma(pbs_round_variance(p), pbs_amplification(p)))
@@ -81,13 +98,19 @@ def bsk_j_start(params: WopbsParams) -> int:
 
 
 def ksk_j_start(params: WopbsParams) -> int:
-    """KSK planes dropped in the big->small keyswitch (sigma arm)."""
+    """KSK planes dropped in the big->small keyswitch (sigma arm); 0 under
+    TFHE_KSK_TRUNC=0."""
+    if not _gate("TFHE_KSK_TRUNC"):
+        return 0
     return j_start_for_sigma(params.lwe_noise_std * _Q, safety=8.0,
                              key_amp=lwe_key_amp(params))
 
 
 def pfpksk_j_start(params: WopbsParams) -> int:
-    """pfPKSK planes dropped in the pfKS contraction."""
+    """pfPKSK planes dropped in the pfKS contraction; 0 under
+    TFHE_KSK_TRUNC=0."""
+    if not _gate("TFHE_KSK_TRUNC"):
+        return 0
     p = params
     sigma = max(p.pfks_noise_std * _Q / 8.0,
                 budget_sigma(pfks_round_variance(p), pfks_amplification(p)))
@@ -171,7 +194,10 @@ def cbs_ggsw_sigma(params: WopbsParams) -> float:
 
 def vp_ggsw_j_start(params: WopbsParams) -> int:
     """GGSW planes dropped in the vertical-packing CMux: the selectors are
-    circuit-bootstrap outputs whose noise floor covers the low planes."""
+    circuit-bootstrap outputs whose noise floor covers the low planes; 0
+    under TFHE_VP_TRUNC=0."""
+    if not _gate("TFHE_VP_TRUNC"):
+        return 0
     p = params
     sigma = max(cbs_ggsw_sigma(p) / 8.0,
                 budget_sigma(vp_round_variance(p), vp_amplification(p)))

@@ -21,11 +21,16 @@ talks to either server: length-framed messages (multiprocessing.connection)
 whose payload is an npz archive — arrays + one JSON meta entry; no pickle,
 so a malicious peer cannot run code in either process.
 
-The JAX server compiles its programs ahead of the first request; PyTorch
-runs eagerly, so there is no warm-up here: the CUDA kernels build (or load
-from the build directory) at the first request's first launch. The kernels
-the bootstraps run follow `lowering`, by default the TFHE_BR_KERNEL /
-TFHE_BR_GLUE / TFHE_VP_FUSED environment (ops/lowering.py).
+As the JAX server warms its programs while the bundle loads, this one
+starts aot.py's warm-up (under TFHE_AOT, default on for a CUDA device)
+once the bundle is read and accepted, before its keys go to the device:
+the CUDA kernels build (or load from the store) and the device context
+starts on background threads, then the kernels the context runs load
+before the first request is accepted. A failed build or
+load stops the server there. Without the warm-up the kernels build at the
+first request's first launch. The kernels the bootstraps run follow
+`lowering`, by default the TFHE_BR_KERNEL / TFHE_BR_GLUE / TFHE_VP_FUSED /
+TFHE_VP_NTT environment (ops/lowering.py).
 """
 
 from __future__ import annotations
@@ -141,32 +146,43 @@ def serve(keys_path: str, address: str, one_shot: bool = False,
     the heavy startup happens while the first request waits in the accept
     backlog. A request that fails is answered with ok: false and the server
     goes on; a bundle whose parameters the kernels of `device` do not take
-    under the lowering (extprod.N_MAX on CUDA: no set of ops/params.py) is
-    refused with ValueError as it loads, before any request is accepted."""
+    under the lowering (extprod.N_MAX on CUDA: no set of ops/params.py;
+    on any device lvl1 and lvl4 under the CRT-NTT, which has no root of
+    unity at N = 1024) is refused with ValueError as it loads, before any
+    request is accepted."""
     from multiprocessing.connection import Listener
 
     with Listener(address, "AF_UNIX") as listener:
         _note(f"listening on {address}; loading evaluation keys")
 
+        from tfhe_aes2_tpu_torch import aot
         from tfhe_aes2_tpu_torch.aes_128 import fhe as fhe_mod
         from tfhe_aes2_tpu_torch.models import shortint_woppbs_1bit as model
-        from tfhe_aes2_tpu_torch.ops import serialization
+        from tfhe_aes2_tpu_torch.ops import serialization, truncation
         from tfhe_aes2_tpu_torch.ops.kernels.extprod import device_refusal
         from tfhe_aes2_tpu_torch.ops.lowering import Lowering
 
         if lowering is None:
             lowering = Lowering.from_env()
         raw, params = serialization.load_server_keys(keys_path)
-        refusal = device_refusal(params.polynomial_size, device, lowering)
+        refusal = device_refusal(params.polynomial_size, device, lowering,
+                                 truncation.vp_ggsw_j_start(params))
         if refusal:
             raise ValueError(f"key bundle {keys_path} on {device}: {refusal}")
+        handle = aot.warmup_staged(device) if aot.enabled(device) else None
         ctx = model.context_from_keys(
             params, serialization.server_keys_on(raw, device),
             lowering=lowering)
         del raw
         strategy = fhe_mod.ShortintWoppbs1BitSboxGalMulPbsAesEncrypt
         _note(f"evaluation keys loaded on {ctx.device} (lowering "
-              f"br={ctx.lowering.br} vp={ctx.lowering.vp})")
+              f"br={ctx.lowering.br} vp={ctx.lowering.vp} "
+              f"ntt={ctx.lowering.ntt})")
+        if handle is not None:
+            handle.attach(ctx)
+            handle.wait()
+            _note(f"warm-up: {len(handle.loaded)} kernels loaded; waited "
+                  f"{handle.wait_s:.3f} s on it")
 
         eks_cache = {}   # key-ct digest -> expanded key (insertion = LRU)
         if one_shot:
