@@ -135,6 +135,17 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      verified, with the warm-up's context and wait seconds and both walls.
      The in-process runs of phases 3–9 take TFHE_AOT=0, as before the
      warm-up existed, so their launch counts are the paths' alone.
+  11. the bench entry: K1 and K2 at B = 1280 and 2048, K3 at 256 lanes x
+     G = 8 and 24, K4's keyswitch and pfKS at B = 2048 (with the
+     torch._int_mm yardstick), each bit-equal to its plain version and
+     timed (rows under the kernels JSON's `shapes`, labelled "bench"; the
+     main-path rows stay phase 2's); lvl64mxu (k = 8, N = 256) through the CTR scenario,
+     2 blocks x 10 rounds, AES-verified, then K1, K2 and K3 at the shapes
+     its run launched them at; and `python -m tfhe_aes2_tpu_torch.bench`
+     as a subprocess (lvl64, 16 blocks x 10 rounds, 3 reps, compressed to
+     q' = 2^16, latency and stages on, its warm-up on): exit 0, every
+     output AES-verified, its JSON line logged and its launches over one
+     steady rep added to the kernels' counts.
 The line before the last is the kernels JSON, each kernel's `shapes`
 every shape it was held against its plain version at, with its
 max_abs_err (ms and plain_ms null where the shape was not timed); the last
@@ -245,6 +256,11 @@ KERNELS = {
         replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:988",
         int8_products="mma.sync"),
 }
+# the library call timed beside a kernel (library_ms; the port never calls
+# it): only K4's function has one, torch has no exact int8 negacirculant
+# product
+LIBRARY = {"fused_limb_matmul": "torch._int_mm per weight bucket + int64 "
+                                "recombination"}
 ROOT = Path(__file__).resolve().parent
 STRATEGY = fhe.ShortintWoppbs1BitSboxGalMulPbsAesEncrypt
 # the kernels every model's default lowering launches
@@ -672,6 +688,88 @@ def int8_library_rate(b: int, n: int, macs: int) -> None:
         f"{macs // (b * n * n)} such products")
 
 
+def check_k2_at(rows, p, acc, t, label: str = "", timed: bool = True):
+    """K2 at the set p's CMux glue on (acc, t), against its plain version
+    (timed if `timed`)."""
+    lv = p.pbs_level
+    nd = torus.limbs_for_bound(decomposition.digit_bound(p.pbs_base_log))
+    b = t.shape[0]
+    got = kx.rot_diff_digits(acc, t, p.pbs_base_log, lv, nd)
+    err = max_abs_err(got, kx.rot_diff_digits_plain(acc, t, p.pbs_base_log,
+                                                    lv, nd))
+    record(f"rot_diff_digits {label}B={b}", rows["rot_diff_digits"], 0,
+           acc.numel() * 8 + got.numel() + b * 4,
+           time_ms(lambda: kx.rot_diff_digits(acc, t, p.pbs_base_log, lv,
+                                              nd)) if timed else None,
+           time_ms(lambda: kx.rot_diff_digits_plain(
+               acc, t, p.pbs_base_log, lv, nd), reps=2) if timed else None,
+           err)
+
+
+def check_k1_at(rows, p, dig, ext, acc, t, label: str = "",
+                timed: bool = True):
+    """K1 at the set p's CMux step on (dig, ext, acc, t), against its plain
+    version (timed if `timed`); returns K1's (acc, digits)."""
+    k1, n, lv = p.glwe_dimension + 1, p.polynomial_size, p.pbs_level
+    nd = torus.limbs_for_bound(decomposition.digit_bound(p.pbs_base_log))
+    js = truncation.bsk_j_start(p)
+    b = t.shape[0]
+    acc_k, dig_k = kx.extprod_step2g(dig, ext, acc.clone(), t,
+                                     p.pbs_base_log, lv, js)
+    acc_p, dig_p = kx.extprod_step2g_plain(dig, ext, acc.clone(), t,
+                                           p.pbs_base_log, lv, js)
+    sync()
+    err = max(max_abs_err(acc_k, acc_p), max_abs_err(dig_k, dig_p))
+    del acc_p, dig_p
+    scratch = acc.clone()
+    record(f"extprod_step2g {label}B={b}", rows["extprod_step2g"],
+           b * k1 * k1 * lv * n * n * pairs(nd, js),
+           dig.numel() * 2 + ext.numel() + acc.numel() * 16 + b * 4,
+           time_ms(lambda: kx.extprod_step2g(
+               dig, ext, scratch, t, p.pbs_base_log, lv, js))
+           if timed else None,
+           time_ms(lambda: kx.extprod_step2g_plain(
+               dig, ext, scratch, t, p.pbs_base_log, lv, js), reps=2)
+           if timed else None, err)
+    return acc_k, dig_k
+
+
+def check_step_at(rows, gen, p, b: int, label: str = "",
+                  timed: bool = True) -> None:
+    """K2 and K1 at the set p's CMux step for batch b on fresh operands
+    (step_operands), each against its plain version (timed if `timed`)."""
+    k1, n, lv = p.glwe_dimension + 1, p.polynomial_size, p.pbs_level
+    nd = torus.limbs_for_bound(decomposition.digit_bound(p.pbs_base_log))
+    acc, t, dig, ext = step_operands(gen, k1, n, lv, nd, b,
+                                     truncation.bsk_j_start(p))
+    check_k2_at(rows, p, acc, t, label, timed)
+    check_k1_at(rows, p, dig, ext, acc, t, label, timed)
+
+
+def check_vp_at(rows, gen, p, lanes: int, g: int, label: str = "",
+                timed: bool = True):
+    """K3 at the set p's vertical-packing stage of `lanes` lanes and G = g
+    accumulators a lane, against its plain version (timed if `timed`);
+    returns its operands and K3's output."""
+    k1, n = p.glwe_dimension + 1, p.polynomial_size
+    r = k1 * p.cbs_level
+    nd = torus.limbs_for_bound(decomposition.digit_bound(p.cbs_base_log))
+    js = truncation.vp_ggsw_j_start(p)
+    dig = rand_i8(gen, (lanes, r, nd * g, n))
+    ext = rand_i8(gen, (lanes, k1, r, 8 - js, 2 * n))
+    got = kx.extprod_grouped_fused(dig, ext, nd, js)
+    err = max_abs_err(got, kx.extprod_grouped_fused_plain(dig, ext, nd, js))
+    record(f"extprod_grouped_fused {label}lanes={lanes} G={g}",
+           rows["extprod_grouped_fused"],
+           lanes * g * k1 * r * n * n * pairs(nd, js),
+           dig.numel() + ext.numel() + got.numel() * 8,
+           time_ms(lambda: kx.extprod_grouped_fused(dig, ext, nd, js))
+           if timed else None,
+           time_ms(lambda: kx.extprod_grouped_fused_plain(dig, ext, nd, js),
+                   reps=2) if timed else None, err)
+    return dig, ext, got
+
+
 def phase_kernels() -> tuple[dict, float]:
     """K1-K11 at main-path shapes vs their plain versions, and the
     cross-checks between kernels; returns every measurement by kernel and
@@ -690,16 +788,7 @@ def phase_kernels() -> tuple[dict, float]:
         t = torch.randint(0, 2 * n, (b,), generator=gen,
                           dtype=torch.int32).to(DEV)
         # K2, at B=9 too: the `grid` and `bucket` derivations' shape
-        got = kx.rot_diff_digits(acc, t, P.pbs_base_log, lv, nd)
-        ref = kx.rot_diff_digits_plain(acc, t, P.pbs_base_log, lv, nd)
-        sync()
-        err = max_abs_err(got, ref)
-        ms = time_ms(lambda: kx.rot_diff_digits(acc, t, P.pbs_base_log, lv,
-                                                nd))
-        pms = time_ms(lambda: kx.rot_diff_digits_plain(
-            acc, t, P.pbs_base_log, lv, nd), reps=2)
-        record(f"rot_diff_digits B={b}", rows["rot_diff_digits"], 0,
-               acc.numel() * 8 + got.numel() + b * 4, ms, pms, err)
+        check_k2_at(rows, P, acc, t)
         if b == 9:
             check_step_schedules(rows, b, acc, t, rand_i8(
                 gen, (k1, r, 8 - js, 2 * n)), js, nd)
@@ -707,21 +796,9 @@ def phase_kernels() -> tuple[dict, float]:
         # K1
         dig = rand_i8(gen, (k1, lv, nd, b, n))
         ext = rand_i8(gen, (k1, r, 8 - js, 2 * n))
-        acc_k, dig_k = kx.extprod_step2g(dig, ext, acc.clone(), t,
-                                         P.pbs_base_log, lv, js)
-        acc_p, dig_p = kx.extprod_step2g_plain(dig, ext, acc.clone(), t,
-                                               P.pbs_base_log, lv, js)
-        sync()
-        err = max(max_abs_err(acc_k, acc_p), max_abs_err(dig_k, dig_p))
+        acc_k, dig_k = check_k1_at(rows, P, dig, ext, acc, t)
         scratch = acc.clone()
-        ms = time_ms(lambda: kx.extprod_step2g(dig, ext, scratch, t,
-                                               P.pbs_base_log, lv, js))
-        pms = time_ms(lambda: kx.extprod_step2g_plain(
-            dig, ext, scratch, t, P.pbs_base_log, lv, js), reps=2)
         macs = b * k1 * r * n * n * pairs(nd, js)
-        nbytes = dig.numel() * 2 + ext.numel() + acc.numel() * 16 + b * 4
-        record(f"extprod_step2g B={b}", rows["extprod_step2g"], macs,
-               nbytes, ms, pms, err)
         # K5: the same step without its glue, and K2 then K5 against K1
         acc_5 = kx.extprod_step2(dig, ext, acc.clone(), js)
         ref = kx.extprod_step2_plain(dig, ext, acc.clone(), js)
@@ -802,20 +879,8 @@ def phase_kernels() -> tuple[dict, float]:
     nd_vp = torus.limbs_for_bound(decomposition.digit_bound(P.cbs_base_log))
     r_vp = k1 * P.cbs_level
     for lanes, g in ((4, 8), (16, 8), (16, 24), (128, 1), (32, 24)):
-        dig = rand_i8(gen, (lanes, r_vp, nd_vp * g, n))
-        ext = rand_i8(gen, (lanes, k1, r_vp, 8 - js_vp, 2 * n))
-        got = kx.extprod_grouped_fused(dig, ext, nd_vp, js_vp)
-        ref = kx.extprod_grouped_fused_plain(dig, ext, nd_vp, js_vp)
-        sync()
-        err = max_abs_err(got, ref)
-        ms = time_ms(lambda: kx.extprod_grouped_fused(dig, ext, nd_vp,
-                                                      js_vp))
-        pms = time_ms(lambda: kx.extprod_grouped_fused_plain(
-            dig, ext, nd_vp, js_vp), reps=2)
+        dig, ext, got = check_vp_at(rows, gen, P, lanes, g)
         macs = lanes * g * k1 * r_vp * n * n * pairs(nd_vp, js_vp)
-        record(f"extprod_grouped_fused lanes={lanes} G={g}",
-               rows["extprod_grouped_fused"], macs,
-               dig.numel() + ext.numel() + got.numel() * 8, ms, pms, err)
         # K8 on the same operands in its own layouts; recombined it is K3
         dig_8 = dig.reshape(lanes, r_vp, nd_vp, g, n).permute(
             2, 0, 3, 1, 4).contiguous()                    # [n_d, B, G, R, N]
@@ -941,30 +1006,39 @@ def yardstick(row: dict, what: str, d, m, js: int, ref) -> None:
         f"{row['ms']:.4f} ms")
 
 
+def check_k4_at(rows, gen, shape, m, b: int, label: str = "",
+                yard: bool = False) -> None:
+    """K4 at k4_shapes()'s `shape` (name, n_d, K, N, js) for batch b, on
+    the key planes m (K-major), against its plain version, timed; with the
+    torch._int_mm yardstick beside it if `yard`."""
+    what, nd_m, kk, nn, js_m = shape
+    d = rand_i8(gen, (nd_m, b, kk))
+    got = kmm.fused_limb_matmul(d, m, js_m)
+    ref = kmm.fused_limb_matmul_plain(d, m, js_m)
+    sync()
+    err = max_abs_err(got, ref)
+    record(f"fused_limb_matmul {label}{what} B={b} (split "
+           f"{kmm._splits(b, kk, nn)})", rows["fused_limb_matmul"],
+           b * kk * nn * pairs(nd_m, js_m),
+           d.numel() + m.numel() + got.numel() * 8,
+           time_ms(lambda: kmm.fused_limb_matmul(d, m, js_m)),
+           time_ms(lambda: kmm.fused_limb_matmul_plain(d, m, js_m), reps=2),
+           err)
+    if yard:
+        yardstick(rows["fused_limb_matmul"][-1], what, d, m, js_m, ref)
+
+
 def check_limb_matmul(rows, gen) -> None:
     """K4 at the keyswitch and pfKS shapes for B in {9, 160, 256, 288},
     each bit-equal to its plain version and timed; a ragged shape; every
     byte -128 at the longest K the wrapper admits for three digit limbs,
     in one block a tile (no split); and the torch._int_mm yardstick."""
-    for what, nd_m, kk, nn, js_m in k4_shapes():
+    for shape in k4_shapes():
+        _, _, kk, nn, js_m = shape
         # K-major, as ops/keys.py prepares the keys the path passes
         m = kmm.kmajor_key_planes(rand_i8(gen, (8 - js_m, kk, nn)))
         for b in (9, 160, 256, 288):
-            d = rand_i8(gen, (nd_m, b, kk))
-            got = kmm.fused_limb_matmul(d, m, js_m)
-            ref = kmm.fused_limb_matmul_plain(d, m, js_m)
-            sync()
-            err = max_abs_err(got, ref)
-            ms = time_ms(lambda: kmm.fused_limb_matmul(d, m, js_m))
-            pms = time_ms(lambda: kmm.fused_limb_matmul_plain(d, m, js_m),
-                          reps=2)
-            record(f"fused_limb_matmul {what} B={b} (split "
-                   f"{kmm._splits(b, kk, nn)})", rows["fused_limb_matmul"],
-                   b * kk * nn * pairs(nd_m, js_m),
-                   d.numel() + m.numel() + got.numel() * 8, ms, pms, err)
-            if b in (9, 288):
-                yardstick(rows["fused_limb_matmul"][-1], what, d, m, js_m,
-                          ref)
+            check_k4_at(rows, gen, shape, m, b, yard=b in (9, 288))
         del m
     for b, kk, nn, nd_m, js_m in ((13, 130, 40, 3, 1), (70, 4098, 678, 1, 5),
                                   (1, 77, 33, 2, 0), (289, 4098, 1000, 3, 1)):
@@ -2846,6 +2920,130 @@ def phase_last_modules(raw64, client64, ctx64, request64, out64,
     return runs
 
 
+# ------------------- phase 11: the bench entry at 16 blocks, and lvl64mxu
+
+BENCH_BLOCKS = 16
+P_MXU = params_mod.PARAMS_SQRD_LVL_64_MXU
+MXU = "lvl64mxu"      # the name prefix of the rows measured at P_MXU
+BENCH = "bench"       # the label of the rows at the bench's batch shapes
+BENCH_ENV = dict(BENCH_PARAMS="lvl64", BENCH_BLOCKS=str(BENCH_BLOCKS),
+                 BENCH_ROUNDS="10", BENCH_REPS="3", BENCH_COMPRESS="16",
+                 BENCH_LATENCY="1", BENCH_STAGES="1", BENCH_AOT="1")
+BENCH_LATENCY_KEYS = ("reused_key_latency_s", "latency_1block_s",
+                      "latency_1block_fused_s", "scenario_10_outputs_s")
+
+
+def check_bench_shapes(rows, gen) -> None:
+    """The kernels at the shapes the bench's batches give them, never run
+    before this phase: K1 and K2 at B = 1280 (the 10-block scenario) and
+    2048 (16 blocks x 128 bits), K3 at the 16-block SubBytes' 256 lanes x
+    G = 8 (the last round) and 24 (the other rounds), K4's keyswitch and
+    pfKS at B = 2048 with the torch._int_mm yardstick beside each; each
+    against its plain version, timed. Their rows carry the BENCH label: the
+    kernels JSON lists them under `shapes`, its main-path rows stay phase
+    2's."""
+    for b in (10 * 128, BENCH_BLOCKS * 128):
+        check_step_at(rows, gen, P, b, f"{BENCH} ")
+    for g in (8, 24):
+        check_vp_at(rows, gen, P, BENCH_BLOCKS * 16, g, f"{BENCH} ")
+    for shape in k4_shapes():
+        _, _, kk, nn, js_m = shape
+        m = kmm.kmajor_key_planes(rand_i8(gen, (8 - js_m, kk, nn)))
+        check_k4_at(rows, gen, shape, m, BENCH_BLOCKS * 128, f"{BENCH} ",
+                    yard=True)
+        del m
+
+
+def mxu_run(rows, gen) -> dict:
+    """lvl64mxu (k = 8, N = 256: O = 9, R = 27) through the CTR scenario,
+    2 blocks x 10 rounds under the default lowering, decrypted against the
+    AES authority, launch counters reset just before and read just after;
+    then K1 and K2 at every batch its blind rotations took (timed at the
+    widest) and K3 at every (lanes, G) it launched, against their plain
+    versions. Returns the run's counts."""
+    t0 = time.time()
+    client, raw = keys_mod.generate_keys(P_MXU, seed=0, device=DEV)
+    ctx = model.context_from_keys(P_MXU, raw, lowering=Lowering())
+    del raw
+    sync()
+    log(f"lvl64mxu keygen + key preparation: {time.time() - t0:.1f} s")
+    reset_counters()
+    with launch_shapes() as shapes:
+        _, timings = scenario.run_client_server_aes_scenario(
+            client, ctx, KEY, IV, 2, rounds=10)
+    counts = read_counters()
+    require_launches("lvl64mxu, 2 blocks x 10 rounds", counts, MAIN_PATH)
+    log("lvl64mxu launches by shape: " + ", ".join(
+        f"{key}: {count}" for key, count in sorted(shapes.items())))
+    log(f"lvl64mxu 2 blocks x 10 rounds, verified: key expansion "
+        f"{timings['key_expansion_s']:.3f} s, 10 rounds "
+        f"{timings['blocks_s']:.3f} s")
+    del client, ctx
+    batches = sorted({b for _, b, _, _ in step_batches(shapes, "gridg")})
+    for b in batches:
+        check_step_at(rows, gen, P_MXU, b, f"{MXU} ", timed=b == batches[-1])
+    vp = sorted({(int(k.split("lanes=")[1].split()[0]),
+                  int(k.split("G=")[1])) for k in shapes
+                 if k.startswith("K3 ")})
+    for lanes, g in vp:
+        check_vp_at(rows, gen, P_MXU, lanes, g, f"{MXU} ",
+                    timed=(lanes, g) == max(vp, key=lambda x: x[0] * x[1]))
+    log(f"  lvl64mxu: K1 and K2 bit-equal to plain at the rotations' B "
+        f"{batches}, K3 at (lanes, G) {vp}")
+    return counts
+
+
+def bench_subprocess() -> tuple[dict, dict, float]:
+    """python -m tfhe_aes2_tpu_torch.bench at BENCH_ENV (lvl64, 16 blocks,
+    10 rounds, 3 reps, compressed, latency and stages on, its warm-up on)
+    as a subprocess. Fails unless it exits 0 with a verified result of
+    bench.py's keys. Returns (its JSON line, its launches over one steady
+    rep, wall seconds)."""
+    env = {k: v for k, v in os.environ.items() if k != "TFHE_AOT"}
+    env.update(BENCH_ENV)
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "tfhe_aes2_tpu_torch.bench"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.time() - t0
+    for ln in proc.stderr.splitlines():
+        log("  " + ln)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"bench rc {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    res = json.loads(lines[-1])
+    sec = res.get("secondary") or {}
+    if ("error" in res or not res["value"] > 0
+            or sec.get("params") != BENCH_ENV["BENCH_PARAMS"]
+            or any(not sec.get(k, 0) > 0 for k in BENCH_LATENCY_KEYS)
+            or set(sec.get("stage_ms_per_round") or ())
+            != {"ks", "pbs", "pfks", "vp"}):
+        raise AssertionError(f"bench result: {lines[-1]}")
+    marker = "[bench] launches over one steady rep: "
+    launches = json.loads(next(ln for ln in proc.stderr.splitlines()
+                               if ln.startswith(marker))[len(marker):])
+    require_launches("bench, 16 blocks x 10 rounds, one steady rep",
+                     {**dict.fromkeys(KERNELS, 0), **launches}, MAIN_PATH)
+    return res, launches, wall
+
+
+def phase_bench(rows, gen, smi: str) -> tuple[list, dict]:
+    """Phase 11: check_bench_shapes, mxu_run, bench_subprocess. Returns the
+    mxu run's and the bench's launch counts, and the bench's JSON line."""
+    log("== phase 11: the bench entry at 16 blocks (2,048 lanes) and "
+        f"lvl64mxu (card: {smi})")
+    t0 = time.time()
+    check_bench_shapes(rows, gen)
+    counts = mxu_run(rows, gen)
+    torch.cuda.empty_cache()
+    res, launches, wall = bench_subprocess()
+    log(json.dumps({"card": smi, "bench": res, "bench_wall_s": wall,
+                    "bench_launches_one_rep": launches}))
+    log(f"phase 11: {time.time() - t0:.1f} s (bench subprocess {wall:.1f} s)")
+    return [counts, {**dict.fromkeys(KERNELS, 0), **launches}], res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2876,30 +3074,38 @@ def main() -> int:
     scale_out = phase_scale_out(keep)
     last = phase_last_modules(raw, client, ctx, request, out1, keep, smi)
     del keep, client, raw, ctx
+    bench_runs, _ = phase_bench(rows, torch.Generator().manual_seed(2468),
+                                smi)
     # each kernel's launches on the main paths: the default lowering's two
     # runs (phase 4), the (grid, partials) run and the glue_out rotation
     # (phase 5), the two served requests and the three derivations (phase
     # 6), the N = 1024 runs (phase 7), the other two models' runs (phase
     # 8), the noise checks and the one-device mesh (phase 9), the CRT-NTT
-    # latency paths (phase 10)
+    # latency paths (phase 10), lvl64mxu's run and one steady rep of the
+    # bench's 16-block batch (phase 11)
     launches = {name: sum(c[name] for c in [batch, latency, grid, glue]
-                          + third + wide + models + scale_out + last)
+                          + third + wide + models + scale_out + last
+                          + bench_runs)
                 for name in KERNELS}
     missing = [name for name, count in launches.items() if count <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")
     kernels = []
     for name, spec in KERNELS.items():
-        # the main path's row: the last at PARAMS_SQRD_LVL_64's shapes
-        last = [x for x in rows[name] if WIDE not in x["name"]
-                and TREE not in x["name"] and x["ms"] is not None][-1]
+        # the main path's row: the last of phase 2 at PARAMS_SQRD_LVL_64's
+        # shapes (phase 11's 16-block rows stand under `shapes`)
+        last = [x for x in rows[name]
+                if not any(tag in x["name"] for tag in (WIDE, TREE, MXU,
+                                                        BENCH))
+                and x["ms"] is not None][-1]
         kernels.append(dict(
             name=name, route="cuda", source=spec["source"],
             replaces=spec["replaces"], launches=launches[name],
             max_abs_err=max(x["max_abs_err"] for x in rows[name]),
             ms=last["ms"], plain_ms=last["plain_ms"],
             bound_ms=last["bound_ms"], bound_by=last["bound_by"],
-            library_ms=None, launch_floor_ms=floor,
+            library_ms=last.get("int_mm_yardstick_ms"),
+            library=LIBRARY.get(name), launch_floor_ms=floor,
             int8_products=spec["int8_products"],
             **({"source_n1024": spec["source_n1024"]}
                if "source_n1024" in spec else {}),

@@ -20,7 +20,7 @@ from tfhe_aes2_tpu_torch.aes_128 import fhe as tfhe, fhe_encryption, plain
 from tfhe_aes2_tpu_torch.aes_128 import scenario
 from tfhe_aes2_tpu_torch.models.shortint_woppbs_1bit import fresh_bitct
 from tfhe_aes2_tpu_torch.ops.lowering import Lowering
-from tests.torch_port_common import port_context, t64, u64
+from tests.torch_port_common import port_context, private_keys, t64, u64
 
 KEY = bytes.fromhex("000102030405060708090a0b0c0d0e0f")
 IV = bytes.fromhex("bdd219b8a08ded1a")
@@ -34,7 +34,7 @@ def _block(counter: int, iv: bytes = IV) -> bytes:
 def setup(keys_test_n256):
     """Both packages' contexts over the same raw keys, all limb planes kept
     (the JAX package's CPU arithmetic)."""
-    jclient, jsks = keys_test_n256
+    jclient, jsks = private_keys(keys_test_n256)
     jctx = jm1.FheContext(params=jclient.params,
                           sks=jax.tree_util.tree_map(jnp.asarray, jsks))
     client, tctx = port_context(keys_test_n256, truncate=False)

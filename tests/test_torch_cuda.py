@@ -1031,3 +1031,40 @@ def test_cuda_noise_floor_lvl64():
                                       lowering=Lowering())
     js, dual, out = noise.measure_sbox_floor(p, client, ctx, "lvl64")
     assert js == (2, 5, 1, 4) and dual <= 58.6 and out <= 59.2
+
+
+@pytest.mark.cuda
+def test_cuda_bench_stage_dissection_lvl64():
+    """On the card: bench.stage_dissection at PARAMS_SQRD_LVL_64, 2 blocks
+    (256 lanes): the four stages, each positive, the pbs stage's int8 share
+    of the card's peak between 0 and 1."""
+    from tfhe_aes2_tpu_torch import bench
+    from tfhe_aes2_tpu_torch.models import shortint_woppbs_1bit as model
+    from tfhe_aes2_tpu_torch.ops.lowering import Lowering
+
+    require_cuda()
+    p = bench.PARAMS["lvl64"]
+    client, ctx = model.generate_keys(p, seed=11, device="cuda",
+                                      lowering=Lowering())
+    out = bench.stage_dissection(client, ctx, p, 2, "cuda")
+    assert set(out) == {"ks", "pbs", "pfks", "vp"}
+    assert all(v > 0 for v in out.values())
+    assert 0 < bench.int8_peak_share(p, 2, out["pbs"]) < 1
+
+
+@pytest.mark.cuda
+def test_cuda_bench_run_two_blocks_lvl64():
+    """On the card: bench.run at PARAMS_SQRD_LVL_64, 2 blocks x 10 rounds,
+    compressed to q' = 2^16, no latency figures or stages: verified, the
+    card's name and power limit in secondary.card, the default lowering,
+    and a positive throughput."""
+    from tfhe_aes2_tpu_torch import bench
+
+    require_cuda()
+    res = bench.run("lvl64", n_blocks=2, rounds=10, reps=2, compress=16,
+                    device="cuda", latency=False, stages=False)
+    assert "error" not in res and res["value"] > 0
+    sec = res["secondary"]
+    assert sec["card"] and sec["device"] == torch.cuda.get_device_name(0)
+    assert sec["lowering"] == ["gridg", "fused", False]
+    assert sec["stage_ms_per_round"] is None and len(res["reps_s"]) == 2

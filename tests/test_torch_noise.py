@@ -32,12 +32,13 @@ from tfhe_aes2_tpu.ops.torus import split_u64_signed
 from tfhe_aes2_tpu_torch import noise
 from tfhe_aes2_tpu_torch.ops import params as tparams
 from tests.torch_port_common import (jax_server_keys, port_context,
-                                     port_params, u64)
+                                     port_params, private_keys, u64)
 
 
 @pytest.fixture(scope="module", params=["test", "test_n256"])
 def floor_setup(request, keys_test, keys_test_n256):
-    keys = keys_test if request.param == "test" else keys_test_n256
+    keys = (keys_test if request.param == "test"
+            else private_keys(keys_test_n256))
     client, ctx = port_context(keys, truncate=True)
     return keys, client, ctx, noise.sbox_floor_phases(ctx.params, client,
                                                       ctx)

@@ -19,7 +19,7 @@ from tfhe_aes2_tpu_torch.aes_128 import fhe as tfhe, gf_256_mul, plain
 from tfhe_aes2_tpu_torch.aes_128 import sbox_pbs as tsp
 from tfhe_aes2_tpu_torch.models import shortint_woppbs_1bit as tm1
 from tfhe_aes2_tpu_torch.ops import params as tparams
-from tests.torch_port_common import port_keys, t64, u64
+from tests.torch_port_common import port_keys, private_keys, t64, u64
 
 
 @pytest.fixture(scope="module")
@@ -86,7 +86,7 @@ def test_light_two_rounds_match_the_jax_package(keys_test_n256):
     budget 256 that its XOR depth needs: the port's encrypt_blocks_eager
     bit-equal to the JAX package's and decrypting to the plain 2-round
     oracle."""
-    jclient, jsks = keys_test_n256
+    jclient, jsks = private_keys(keys_test_n256)
     jp = dataclasses.replace(jclient.params, max_noise_level_squared=256)
     tp = dataclasses.replace(tparams.PARAMS_TEST_N256,
                              max_noise_level_squared=256)

@@ -4,6 +4,8 @@ between the two packages' array types. Inputs are made by numpy."""
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,17 @@ def port_params(jax_params):
                     cand.__dict__ == jax_params.__dict__:
                 return cand
     raise KeyError(jax_params)
+
+
+def private_keys(jax_keys):
+    """(a copy of the JAX client drawing from a copy of its rng, the server
+    keys): encryptions with it leave the session-cached client's rng, which
+    the JAX package's tests draw from too (tests/conftest.py), where it was.
+    tests/test_torch_rng_isolation.py holds every port test file to it."""
+    client, sks = jax_keys
+    client = copy.copy(client)
+    client.rng = copy.deepcopy(client.rng)
+    return client, sks
 
 
 def port_keys(jax_keys):
