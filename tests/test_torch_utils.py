@@ -1,8 +1,9 @@
 """The port's utils/ (tfhe_aes2_tpu_torch/utils/) against the JAX
 package's (tfhe_aes2_tpu/utils/): the MSB-first bit helpers value for
-value, the logger's TFHE_AES_LOG level, idempotent init and timed span,
-and profile(), which takes a torch.profiler trace (the JAX package's takes
-a jax.profiler one), here of CPU work."""
+value, the logger's TFHE_AES_LOG level, idempotent init and the span
+(a profiler range only while a profiler records), and profile(), which takes
+a torch.profiler trace (the JAX package's takes a jax.profiler one), here of
+CPU work."""
 
 import json
 import logging
@@ -69,14 +70,21 @@ def test_logger_init_reads_tfhe_aes_log_once(monkeypatch):
     assert calls == ["WARNING", "DEBUG"]
 
 
-def test_timed_logs_the_span(caplog):
-    log = logging.getLogger("tfhe_aes2_tpu_torch.test")
-    with caplog.at_level(logging.DEBUG, logger=log.name):
-        with tlogger.timed("keygen", log):
-            pass
-    assert len(caplog.records) == 1
-    assert caplog.records[0].getMessage().startswith("keygen ")
-    assert caplog.records[0].getMessage().endswith("s")
+def test_span_is_a_range_only_while_profiling(monkeypatch):
+    """No profiler: the shared null context, record_function never entered.
+    Under one: a range of that name in the trace."""
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler")
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    with tlogger.span("tfhe.wop.vp") as got:
+        assert got is None
+    assert tlogger.span("tfhe.br.steps") is tlogger.span("tfhe.wop.pbs")
+    monkeypatch.undo()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tlogger.span("tfhe.wop.vp"):
+            torch.ones(4).sum()
+    assert "tfhe.wop.vp" in {e.key for e in prof.key_averages()}
 
 
 def test_profile_traces_cpu_work(tmp_path):

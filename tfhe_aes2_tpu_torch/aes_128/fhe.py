@@ -25,6 +25,7 @@ from tfhe_aes2_tpu_torch.aes_128 import (RC, fhe_encryption, sbox_gal_mul_pbs,
                                          sbox_pbs)
 from tfhe_aes2_tpu_torch.models.shortint_woppbs_1bit import (
     BitCt, FheContext, fresh_bitct)
+from tfhe_aes2_tpu_torch.utils.logger import spanned
 
 
 class ShortintWoppbs1BitSboxGalMulPbsAesEncrypt:
@@ -173,6 +174,7 @@ def key_schedule_eager(strategy, ctx: FheContext,
                                           **_pipeline_kwargs(strategy, ctx))
 
 
+@spanned("tfhe.aes.encrypt_blocks")
 def encrypt_blocks_eager(strategy, ctx: FheContext, eks: BitCt,
                          blocks_arr: torch.Tensor, rounds: int) -> BitCt:
     """AES rounds on blocks [B, 16, 8, dim+1] under `eks` (from
@@ -187,6 +189,7 @@ def _rc(ctx: FheContext, g: int) -> BitCt:
     return ctx.trivial_bits(np.unpackbits(np.array([RC[g]], np.uint8)))
 
 
+@spanned("tfhe.aes.key_schedule")
 def key_schedule_staged(strategy, ctx: FheContext,
                         key_arr: torch.Tensor) -> BitCt:
     """FHE key expansion, fused form: the SubWord half of group 1, then 9
@@ -211,6 +214,7 @@ def key_schedule_staged(strategy, ctx: FheContext,
     return BitCt.concat_lanes(groups, axis=0)
 
 
+@spanned("tfhe.aes.encrypt_blocks")
 def encrypt_blocks_staged(strategy, ctx: FheContext, eks: BitCt,
                           blocks_arr: torch.Tensor, rounds: int,
                           blocks_meta=None) -> BitCt:
@@ -228,6 +232,7 @@ def encrypt_blocks_staged(strategy, ctx: FheContext, eks: BitCt,
         ctx, eks, blocks, rounds, **_pipeline_kwargs(strategy, ctx))
 
 
+@spanned("tfhe.aes.encrypt_latency")
 def encrypt_block_latency(strategy, ctx: FheContext, key_arr: torch.Tensor,
                           block_arr: torch.Tensor, return_eks: bool = False):
     """Single-block minimum-latency path: key expansion AND all ten rounds

@@ -17,6 +17,7 @@ import numpy as np
 from tfhe_aes2_tpu_torch.aes_128 import RC, SBOX, gf_256_mul
 from tfhe_aes2_tpu_torch.aes_128 import data_model as dm
 from tfhe_aes2_tpu_torch.models.shortint_woppbs_1bit import BitCt, FheContext
+from tfhe_aes2_tpu_torch.utils.logger import span, spanned
 
 _LUT_CACHE: dict = {}
 
@@ -100,9 +101,12 @@ def encrypt_block_for_rounds(ctx: FheContext, expanded_key: BitCt,
     """
     state = blocks ^ dm.key_word_group(expanded_key, 0)
     for i in range(1, rounds):
-        state = middle_round(ctx, state, dm.key_word_group(expanded_key, i))
+        with span("tfhe.aes.round"):
+            state = middle_round(ctx, state,
+                                 dm.key_word_group(expanded_key, i))
     # final-round key is always words 40..44 (fhe_sbox_gal_mul_pbs.rs:126-129)
-    return final_round(ctx, state, dm.key_word_group(expanded_key, 10))
+    with span("tfhe.aes.round"):
+        return final_round(ctx, state, dm.key_word_group(expanded_key, 10))
 
 
 def key_schedule_group_preboot(ctx: FheContext, base: BitCt, prev: BitCt,
@@ -150,6 +154,7 @@ def key_schedule_fused_boot_sub(ctx: FheContext, preboot: BitCt):
     return booted_flat.reshape_lanes(*preboot.lane_shape), sub
 
 
+@spanned("tfhe.aes.round")
 def latency_fused_middle(ctx: FheContext, preboot: BitCt, state: BitCt,
                          rc_val_or_byte):
     """Latency-mode step g (single block): ONE shared cbs front end covers
@@ -179,6 +184,7 @@ def latency_fused_middle(ctx: FheContext, preboot: BitCt, state: BitCt,
     return nxt, mix_columns(muls) ^ rk, booted
 
 
+@spanned("tfhe.aes.round")
 def latency_fused_final(ctx: FheContext, preboot: BitCt, state: BitCt):
     """Latency-mode last step: [boot of group 10 ‖ final-round SubBytes]
     through one cbs front end, then ShiftRows + the last AddRoundKey.

@@ -15,6 +15,7 @@ from tfhe_aes2_tpu_torch.aes_128 import RC
 from tfhe_aes2_tpu_torch.aes_128 import data_model as dm
 from tfhe_aes2_tpu_torch.aes_128.sbox_gal_mul_pbs import boot_word, sbox_lut
 from tfhe_aes2_tpu_torch.models.shortint_woppbs_1bit import BitCt, FheContext
+from tfhe_aes2_tpu_torch.utils.logger import span
 
 
 class Woppbs1BitByteOps:
@@ -98,9 +99,12 @@ def encrypt_block_for_rounds(ctx: FheContext, expanded_key: BitCt,
     ops = _ops(ctx, ops)
     state = blocks ^ dm.key_word_group(expanded_key, 0)
     for i in range(1, rounds):
-        state = middle_round(ctx, state, dm.key_word_group(expanded_key, i),
-                             ops)
-    return final_round(ctx, state, dm.key_word_group(expanded_key, 10), ops)
+        with span("tfhe.aes.round"):
+            state = middle_round(ctx, state,
+                                 dm.key_word_group(expanded_key, i), ops)
+    with span("tfhe.aes.round"):
+        return final_round(ctx, state, dm.key_word_group(expanded_key, 10),
+                           ops)
 
 
 def key_schedule(ctx: FheContext, key: BitCt, ops=None) -> BitCt:

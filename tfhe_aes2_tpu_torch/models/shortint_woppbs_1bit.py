@@ -28,6 +28,7 @@ from tfhe_aes2_tpu_torch.ops import lwe as lwe_ops
 from tfhe_aes2_tpu_torch.ops.lowering import Lowering
 from tfhe_aes2_tpu_torch.ops.params import PARAMS_SQRD_LVL_64, WopbsParams
 from tfhe_aes2_tpu_torch.ops.torus import to_tensor
+from tfhe_aes2_tpu_torch.utils.logger import span, spanned
 
 
 class NoiseError(Exception):
@@ -38,6 +39,7 @@ class NoiseError(Exception):
 _ID_COUNTER = itertools.count(1)
 
 
+@spanned("tfhe.model.meta")
 def _fresh_ids(shape) -> np.ndarray:
     """Array of singleton component sets with globally unique ids."""
     out = np.empty(shape, dtype=object)
@@ -163,18 +165,22 @@ class BitCt:
         return self.noise_sq.shape
 
     def __xor__(self, rhs: "BitCt") -> "BitCt":
-        noise_sq = self.noise_sq + rhs.noise_sq
-        max_sq = self.context.params.max_noise_level_squared
-        if noise_sq.max(initial=0) > max_sq:
-            raise NoiseError(
-                f"NoiseTooBig: noise_level_squared {noise_sq.max()} exceeds "
-                f"max {max_sq}")
-        inter = np.frompyfunc(lambda a, b: a & b, 2, 1)(self.comps, rhs.comps)
-        if any(len(s) > 0 for s in inter.reshape(-1)):
-            raise NoiseError("noise components not independent")
-        comps = np.frompyfunc(lambda a, b: a | b, 2, 1)(self.comps, rhs.comps)
+        with span("tfhe.model.meta"):
+            noise_sq = self.noise_sq + rhs.noise_sq
+            max_sq = self.context.params.max_noise_level_squared
+            if noise_sq.max(initial=0) > max_sq:
+                raise NoiseError(
+                    f"NoiseTooBig: noise_level_squared {noise_sq.max()} "
+                    f"exceeds max {max_sq}")
+            inter = np.frompyfunc(lambda a, b: a & b, 2, 1)(self.comps,
+                                                            rhs.comps)
+            if any(len(s) > 0 for s in inter.reshape(-1)):
+                raise NoiseError("noise components not independent")
+            comps = np.frompyfunc(lambda a, b: a | b, 2, 1)(self.comps,
+                                                            rhs.comps)
+            degree = np.minimum(self.degree + rhs.degree, 1)
         return BitCt(lwe_ops.add(self.array, rhs.array), noise_sq, comps,
-                     self.context, np.minimum(self.degree + rhs.degree, 1))
+                     self.context, degree)
 
     def _arr_axis(self, axis: int) -> int:
         n_lane = len(self.lane_shape)

@@ -32,6 +32,7 @@ from tfhe_aes2_tpu_torch.ops.kernels import extprod
 from tfhe_aes2_tpu_torch.ops.lowering import Lowering
 from tfhe_aes2_tpu_torch.ops.params import WopbsParams
 from tfhe_aes2_tpu_torch.ops.torus import srl, wrap
+from tfhe_aes2_tpu_torch.utils.logger import span, spanned
 
 
 def mod_switch(x: torch.Tensor, log2n: int) -> torch.Tensor:
@@ -75,41 +76,46 @@ def blind_rotate_glwe(lwe: torch.Tensor, bsk: torch.Tensor,
     acc = polynomial.monomial_mul(acc, ((2 * n - b_tilde) % (2 * n))[:, None])
     n_lwe = a_steps.shape[0]
 
-    if lowering.br == "glue_out":
-        acc = acc.contiguous()                                 # [B, O, N]
-        for i in range(n_lwe):
-            rot = polynomial.monomial_mul(acc, a_steps[i][:, None])
-            digits = decompose_glwe(rot - acc, p.pbs_base_log, p.pbs_level)
-            planes = torus.split_int32_signed(digits, n_d)     # [n_d, B, R, N]
-            acc = extprod.extprod_step(planes, bsk[i], acc, js)
-        return acc.reshape(batch + (k1, n))
+    # one span a call around the whole chain, none a step: the span's
+    # own cost would rival the enqueue it measures
+    with span("tfhe.br.steps"):
+        if lowering.br == "glue_out":
+            acc = acc.contiguous()                             # [B, O, N]
+            for i in range(n_lwe):
+                rot = polynomial.monomial_mul(acc, a_steps[i][:, None])
+                digits = decompose_glwe(rot - acc, p.pbs_base_log,
+                                        p.pbs_level)
+                # [n_d, B, R, N]
+                planes = torus.split_int32_signed(digits, n_d)
+                acc = extprod.extprod_step(planes, bsk[i], acc, js)
+            return acc.reshape(batch + (k1, n))
 
-    acc_of = acc.permute(1, 0, 2).contiguous()                 # [O, B, N]
-    base_log, levels = p.pbs_base_log, p.pbs_level
-    if lowering.br == "gridg":
-        dig = extprod.rot_diff_digits(acc_of, a_steps[0], base_log, levels,
-                                      n_d)
-        zero = torch.zeros_like(a_steps[0])
-        for i in range(n_lwe):
-            t_next = a_steps[i + 1] if i + 1 < n_lwe else zero
-            acc_of, dig = extprod.extprod_step2g(
-                dig, bsk[i], acc_of, t_next, base_log, levels, js)
-    elif lowering.br == "merged":
-        for i in range(n_lwe):
-            acc_of = extprod.cmux_step_merged(a_steps[i], bsk[i], acc_of,
-                                              base_log, levels, js)
-    elif lowering.br == "longk":
-        for i in range(n_lwe):
-            dig = extprod.rot_diff_digits_flat(acc_of, a_steps[i], base_log,
-                                               levels, n_d)
-            acc_of = extprod.extprod_step_longk(dig, bsk[i], acc_of, js)
-    else:                                          # "grid" | "bucket"
-        dots = (extprod.extprod_step3 if lowering.br == "bucket"
-                else extprod.extprod_step2)
-        for i in range(n_lwe):
-            dig = extprod.rot_diff_digits(acc_of, a_steps[i], base_log,
+        acc_of = acc.permute(1, 0, 2).contiguous()             # [O, B, N]
+        base_log, levels = p.pbs_base_log, p.pbs_level
+        if lowering.br == "gridg":
+            dig = extprod.rot_diff_digits(acc_of, a_steps[0], base_log,
                                           levels, n_d)
-            acc_of = dots(dig, bsk[i], acc_of, js)
+            zero = torch.zeros_like(a_steps[0])
+            for i in range(n_lwe):
+                t_next = a_steps[i + 1] if i + 1 < n_lwe else zero
+                acc_of, dig = extprod.extprod_step2g(
+                    dig, bsk[i], acc_of, t_next, base_log, levels, js)
+        elif lowering.br == "merged":
+            for i in range(n_lwe):
+                acc_of = extprod.cmux_step_merged(a_steps[i], bsk[i], acc_of,
+                                                  base_log, levels, js)
+        elif lowering.br == "longk":
+            for i in range(n_lwe):
+                dig = extprod.rot_diff_digits_flat(acc_of, a_steps[i],
+                                                   base_log, levels, n_d)
+                acc_of = extprod.extprod_step_longk(dig, bsk[i], acc_of, js)
+        else:                                      # "grid" | "bucket"
+            dots = (extprod.extprod_step3 if lowering.br == "bucket"
+                    else extprod.extprod_step2)
+            for i in range(n_lwe):
+                dig = extprod.rot_diff_digits(acc_of, a_steps[i], base_log,
+                                              levels, n_d)
+                acc_of = dots(dig, bsk[i], acc_of, js)
     return acc_of.permute(1, 0, 2).reshape(batch + (k1, n))
 
 
@@ -123,6 +129,7 @@ def sample_extract0(glwe: torch.Tensor) -> torch.Tensor:
     return torch.cat([mask, b[..., :1]], dim=-1)
 
 
+@spanned("tfhe.wop.pbs")
 def pbs_bit_to_level(lwe_small: torch.Tensor, bsk: torch.Tensor,
                      target_log: int, params: WopbsParams,
                      lowering: Lowering = Lowering()) -> torch.Tensor:

@@ -28,6 +28,7 @@ from tfhe_aes2_tpu_torch.ops.keys import PreparedServerKeys
 from tfhe_aes2_tpu_torch.ops.kernels import extprod
 from tfhe_aes2_tpu_torch.ops.lowering import Lowering
 from tfhe_aes2_tpu_torch.ops.params import WopbsParams
+from tfhe_aes2_tpu_torch.utils.logger import spanned
 
 
 def circuit_bootstrap_bits(bits_big: torch.Tensor, sks: PreparedServerKeys,
@@ -82,6 +83,7 @@ def generate_lut(input_bits: int, output_bits: int, f,
     return lut.reshape(output_bits, p_count, n)
 
 
+@spanned("tfhe.wop.vp")
 def vertical_packing(ggsw: torch.Tensor, luts: torch.Tensor,
                      params: WopbsParams, vp_js: int,
                      lowering: Lowering = Lowering()) -> torch.Tensor:

@@ -22,6 +22,7 @@ from tfhe_aes2_tpu_torch.ops import keyswitch as ksw
 from tfhe_aes2_tpu_torch.ops.keys import ClientKey, PreparedServerKeys
 from tfhe_aes2_tpu_torch.ops.params import WopbsParams
 from tfhe_aes2_tpu_torch.ops.torus import srl
+from tfhe_aes2_tpu_torch.utils.logger import spanned
 
 
 def _wire_dtype(log2q: int) -> str:
@@ -34,6 +35,7 @@ def mod_switch_q(x: torch.Tensor, log2q: int) -> torch.Tensor:
     return srl(x + (1 << (shift - 1)), shift)
 
 
+@spanned("tfhe.wop.compress")
 def compress_bits(cts_big: torch.Tensor, sks: PreparedServerKeys,
                   params: WopbsParams, log2q: int = 32) -> torch.Tensor:
     """Big-key LWE bits [..., kN+1] -> compressed small-key cts [..., n+1],

@@ -13,8 +13,10 @@ import torch
 from tfhe_aes2_tpu_torch.ops import decomposition
 from tfhe_aes2_tpu_torch.ops.params import WopbsParams
 from tfhe_aes2_tpu_torch.ops.torus import exact_matmul
+from tfhe_aes2_tpu_torch.utils.logger import spanned
 
 
+@spanned("tfhe.wop.keyswitch")
 def keyswitch(lwe_big: torch.Tensor, ksk: torch.Tensor,
               params: WopbsParams) -> torch.Tensor:
     """[..., kN+1] under the big key -> [..., n+1] under the small key:
@@ -35,6 +37,7 @@ def keyswitch(lwe_big: torch.Tensor, ksk: torch.Tensor,
     return out
 
 
+@spanned("tfhe.wop.pfks")
 def pfks_all(lwe_big: torch.Tensor, pfpksk: torch.Tensor,
              params: WopbsParams) -> torch.Tensor:
     """Apply all k+1 circuit-bootstrap functions in one contraction:
