@@ -5,7 +5,10 @@
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. device and build: the card's name and power limit, the nvcc build of
      every kernel from tfhe_aes2_tpu_torch/csrc/;
-  2. kernel checks: K1-K11 at their PARAMS_SQRD_LVL_64 main-path shapes
+  2. kernel checks: K1's two kernels (wgmma from extprod.WG_MIN_LANES
+     lanes at N = 512, cmux_wg.cu, and mma.sync, cmux.cu) side by side at
+     B in {1, 9, 32, 64, 128, 160, 256, 288, 2048}, then K1-K11 at their
+     PARAMS_SQRD_LVL_64 main-path shapes
      (K2 at B in {9, 128, 160, 256, 288}, K3 and K8 at the vertical
      packing's (lanes, G) in {(4, 8), (16, 8), (16, 24), (128, 1),
      (32, 24)}), each held bit-for-bit against its plain PyTorch version on
@@ -206,8 +209,10 @@ IV = bytes.fromhex("bdd219b8a08ded1a")
 KERNELS = {
     "extprod_step2g": dict(
         fn=kx.extprod_step2g, source="tfhe_aes2_tpu_torch/csrc/cmux.cu",
+        source_wgmma="tfhe_aes2_tpu_torch/csrc/cmux_wg.cu",
         replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:542",
-        int8_products="mma.sync"),
+        int8_products="wgmma at N = 512 from extprod.WG_MIN_LANES lanes, "
+                      "else mma.sync"),
     "rot_diff_digits": dict(
         fn=kx.rot_diff_digits, source="tfhe_aes2_tpu_torch/csrc/cmux.cu",
         replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:386",
@@ -734,6 +739,49 @@ def check_k1_at(rows, p, dig, ext, acc, t, label: str = "",
     return acc_k, dig_k
 
 
+def check_k1_paths(rows, gen) -> None:
+    """K1's two kernels at PARAMS_SQRD_LVL_64's step from one lane through
+    the latency path's batches to the 16-block batch's 2,048 lanes: the
+    wrapper's (wgmma from extprod.WG_MIN_LANES lanes, cmux_wg.cu) and
+    mma.sync's through its C entry (cmux.cu), each bit-equal to the plain
+    version and timed; the crossover WG_MIN_LANES is read from these rows
+    ("wgmma" and "mma.sync" in their names)."""
+    k1, n, lv = P.glwe_dimension + 1, P.polynomial_size, P.pbs_level
+    nd = torus.limbs_for_bound(decomposition.digit_bound(P.pbs_base_log))
+    js, bl = truncation.bsk_j_start(P), P.pbs_base_log
+    f = kx._fn("cmux", "tfhe_extprod_step2g", [kx._P] * 5 + [kx._I] * 8
+               + [kx._P])
+
+    def mma_sync(dig, ext, acc, t):
+        out = torch.empty_like(dig)
+        build.check(f(dig.data_ptr(), ext.data_ptr(), acc.data_ptr(),
+                      t.data_ptr(), out.data_ptr(), t.shape[0], n, k1,
+                      k1 * lv, lv, nd, js, bl, build.stream_ptr(DEV)),
+                    "extprod_step2g")
+        return acc, out
+    for b in (1, 9, 32, 64, 128, 160, 256, 288, 2048):
+        acc, t, dig, ext = step_operands(gen, k1, n, lv, nd, b, js)
+        want = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, bl, lv, js)
+        macs = b * k1 * k1 * lv * n * n * pairs(nd, js)
+        nbytes = dig.numel() * 2 + ext.numel() + acc.numel() * 16 + b * 4
+        scratch = acc.clone()
+        plain_ms = time_ms(lambda: kx.extprod_step2g_plain(
+            dig, ext, scratch, t, bl, lv, js), reps=2)
+        for name, fn in (
+                (kx.k1_path(n, b),
+                 lambda a: kx.extprod_step2g(dig, ext, a, t, bl, lv, js)),
+                ("mma.sync", lambda a: mma_sync(dig, ext, a, t))):
+            got = fn(acc.clone())
+            sync()
+            err = max(max_abs_err(got[0], want[0]),
+                      max_abs_err(got[1], want[1]))
+            record(f"extprod_step2g {name} B={b}", rows["extprod_step2g"],
+                   macs, nbytes, time_ms(lambda: fn(scratch)), plain_ms, err)
+            if name == "mma.sync":
+                break
+        del want
+
+
 def check_step_at(rows, gen, p, b: int, label: str = "",
                   timed: bool = True) -> None:
     """K2 and K1 at the set p's CMux step for batch b on fresh operands
@@ -781,6 +829,7 @@ def phase_kernels() -> tuple[dict, float]:
     nd = torus.limbs_for_bound(decomposition.digit_bound(P.pbs_base_log))
     js = truncation.bsk_j_start(P)
     rows: dict[str, list] = {k: [] for k in KERNELS}
+    check_k1_paths(rows, gen)
 
     for b in (9, 128, 160, 256, 288):     # 9: one byte of the CTR counter
         acc = torch.randint(-2**62, 2**62, (k1, b, n), generator=gen,
@@ -3107,8 +3156,7 @@ def main() -> int:
             library_ms=last.get("int_mm_yardstick_ms"),
             library=LIBRARY.get(name), launch_floor_ms=floor,
             int8_products=spec["int8_products"],
-            **({"source_n1024": spec["source_n1024"]}
-               if "source_n1024" in spec else {}),
+            **{k: v for k, v in spec.items() if k.startswith("source_")},
             shape=last["name"],
             shapes=[{k: v for k, v in x.items()
                      if k not in ("macs", "nbytes")} for x in rows[name]]))

@@ -183,6 +183,103 @@ def test_cuda_tensor_core_steps_extreme_values():
     torch.cuda.synchronize()
 
 
+def _k1_mma_sync(dig, ext, acc, t, base_log, levels, js):
+    """K1 on mma.sync (csrc/cmux.cu) through its C entry, whatever
+    extprod.k1_path would take: (acc updated in place, next digits)."""
+    k1, _, n_d, b, n = dig.shape
+    out = torch.empty_like(dig)
+    f = kx._fn("cmux", "tfhe_extprod_step2g", [kx._P] * 5 + [kx._I] * 8
+               + [kx._P])
+    kx.build.check(f(dig.data_ptr(), ext.data_ptr(), acc.data_ptr(),
+                     t.data_ptr(), out.data_ptr(), b, n, k1, ext.shape[1],
+                     levels, n_d, js, base_log,
+                     kx.build.stream_ptr(acc.device)), "extprod_step2g")
+    return acc, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [9, 32, 40, 128, 288, 2048])
+def test_cuda_k1_wgmma_matches_plain_and_mma_sync(b):
+    """On the card at PARAMS_SQRD_LVL_64's step (N=512, R=15, n_d=2, js=2):
+    K1 as the wrapper launches it from WG_MIN_LANES lanes (cmux_wg.cu,
+    wgmma over 32-lane tiles; B=9 and 40 a ragged tile) bit-equal to the
+    plain version and to K1 on mma.sync (cmux.cu); launches_wg counts
+    exactly the launches that took the wgmma path."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(2000 + b)
+    k1, levels, n, n_d, js, base_log = 5, 3, 512, 2, 2, 12
+    assert kx.k1_path(n, b) == "wgmma"
+    dig = torch.randint(-128, 128, (k1, levels, n_d, b, n), generator=gen,
+                        dtype=torch.int8).cuda()
+    ext = torch.randint(-128, 128, (k1, k1 * levels, 8 - js, 2 * n),
+                        generator=gen, dtype=torch.int8).cuda()
+    acc = torch.randint(-2 ** 63, 2 ** 63 - 1, (k1, b, n), generator=gen,
+                        dtype=torch.int64).cuda()
+    t = torch.randint(0, 2 * n, (b,), generator=gen, dtype=torch.int32).cuda()
+    before = (kx.extprod_step2g.launches, kx.extprod_step2g.launches_wg)
+    a1, d1 = kx.extprod_step2g(dig, ext, acc.clone(), t, base_log, levels, js)
+    assert (kx.extprod_step2g.launches, kx.extprod_step2g.launches_wg) == (
+        before[0] + 1, before[1] + 1)
+    a0, d0 = _k1_mma_sync(dig, ext, acc.clone(), t, base_log, levels, js)
+    assert (kx.extprod_step2g.launches, kx.extprod_step2g.launches_wg) == (
+        before[0] + 1, before[1] + 1)
+    a2, d2 = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, base_log,
+                                     levels, js)
+    assert torch.equal(a1, a2) and torch.equal(d1, d2)
+    assert torch.equal(a1, a0) and torch.equal(d1, d0)
+    # below the crossover (where there is one) the wrapper takes mma.sync
+    # and counts no wgmma
+    small = kx.WG_MIN_LANES - 1
+    if small > 0:
+        kx.extprod_step2g(dig[..., :small, :].contiguous(), ext,
+                          acc[:, :small].contiguous(), t[:small].contiguous(),
+                          base_log, levels, js)
+        assert kx.extprod_step2g.launches_wg == before[1] + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_d", [1, 2, 3])
+def test_cuda_k1_wgmma_every_bucket_layout(n_d):
+    """On the card: K1 on wgmma at N=512 for js in 0..7 with one to three
+    limbs a digit (R=10, B=40 and B=70, each with a ragged tile) and with
+    every digit and key byte -128 at R=15, n_d=2, js=2, B=64 (each int32
+    bucket at the bound the wrapper admits), bit-equal to plain."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(30 + n_d)
+    k1, levels, n = 5, 2, 512
+    base_log = {1: 6, 2: 12, 3: 20}[n_d]
+    for js in range(8):
+        for b in (40, 70):
+            dig = torch.randint(-128, 128, (k1, levels, n_d, b, n),
+                                generator=gen, dtype=torch.int8).cuda()
+            ext = torch.randint(-128, 128, (k1, k1 * levels, 8 - js, 2 * n),
+                                generator=gen, dtype=torch.int8).cuda()
+            acc = torch.randint(-2 ** 62, 2 ** 62, (k1, b, n), generator=gen,
+                                dtype=torch.int64).cuda()
+            t = torch.randint(0, 2 * n, (b,), generator=gen,
+                              dtype=torch.int32).cuda()
+            a1, d1 = kx.extprod_step2g(dig, ext, acc.clone(), t, base_log,
+                                       levels, js)
+            a2, d2 = kx.extprod_step2g_plain(dig, ext, acc.clone(), t,
+                                             base_log, levels, js)
+            assert torch.equal(a1, a2) and torch.equal(d1, d2), (js, b)
+    if n_d == 2:
+        b = 64
+        dig = torch.full((k1, 3, 2, b, n), -128, dtype=torch.int8,
+                         device="cuda")
+        ext = torch.full((k1, k1 * 3, 6, 2 * n), -128, dtype=torch.int8,
+                         device="cuda")
+        acc = torch.randint(-2 ** 62, 2 ** 62, (k1, b, n), generator=gen,
+                            dtype=torch.int64).cuda()
+        t = torch.randint(0, 2 * n, (b,), generator=gen,
+                          dtype=torch.int32).cuda()
+        a1, d1 = kx.extprod_step2g(dig, ext, acc.clone(), t, 12, 3, 2)
+        a2, d2 = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, 12, 3, 2)
+        assert torch.equal(a1, a2) and torch.equal(d1, d2)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 9, 13, 70, 288])
 def test_cuda_limb_matmul_tensor_cores_match_plain(b):

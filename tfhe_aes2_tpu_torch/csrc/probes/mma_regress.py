@@ -3,7 +3,11 @@ card, so that two versions of the shared tensor-core contraction
 (csrc/nc_mma.cuh) can be compared in one call: K1 and K5 (cmux.cu), K3 and
 K8 (vp.cu), K6 and K7 (step.cu), K9 (merged.cu), K10b (longk.cu) and K11
 (bucket.cu), which share it, and the glue K2 (cmux.cu) and K10a (longk.cu)
-beside them:
+beside them. K1 is also timed on its own from 1 lane through the latency
+path's batches to the 16-block batch's 2,048 lanes, as the wrapper
+launches it ("K1") and, where the checkout has K1 on wgmma (cmux_wg.cu),
+each of its two kernels ("K1 mma.sync", "K1 wgmma"): the crossover
+extprod.WG_MIN_LANES is read from these times.
 
     python3 tfhe_aes2_tpu_torch/csrc/probes/mma_regress.py [ROOT]
 
@@ -27,6 +31,7 @@ ROOT = Path(sys.argv[1] if len(sys.argv) > 1
             else Path(__file__).resolve().parents[3]).resolve()
 sys.path.insert(0, str(ROOT))
 from tfhe_aes2_tpu_torch.ops import polynomial  # noqa: E402
+from tfhe_aes2_tpu_torch.ops.kernels import build  # noqa: E402
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx  # noqa: E402
 
 
@@ -98,6 +103,42 @@ def main() -> int:
             times[f"{name} B={b}"] = device_ms(fn)
         print(f"B={b}: " + ", ".join(f"{name} {times[f'{name} B={b}']:.4f} "
                                      "ms" for name in step), flush=True)
+    # K1 alone, as the wrapper launches it and, where the checkout has K1
+    # on wgmma, each kernel through its own C entry
+    wide = hasattr(kx, "k1_path")
+    entries = ([("K1 mma.sync", "cmux", "tfhe_extprod_step2g"),
+                ("K1 wgmma", "cmux_wg", "tfhe_extprod_step2g_wg")]
+               if wide else [])
+    for b in (1, 9, 16, 32, 64, 96, 128, 160, 192, 256, 288, 2048):
+        dig = r8(o, lv, nd, b, n)
+        acc = torch.randint(-2 ** 62, 2 ** 62, (o, b, n), generator=gen,
+                            dtype=torch.int64).cuda()
+        t = torch.randint(0, 2 * n, (b,), generator=gen,
+                          dtype=torch.int32).cuda()
+        want = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, bl, lv, js)
+        step = {"K1": lambda: kx.extprod_step2g(dig, ext, acc, t, bl, lv,
+                                                js)}
+        for name, stem, entry in entries:
+            f = kx._fn(stem, entry, [kx._P] * 5 + [kx._I] * 8 + [kx._P])
+
+            def launch(f=f, a=acc, out=torch.empty_like(dig)):
+                build.check(f(dig.data_ptr(), ext.data_ptr(), a.data_ptr(),
+                              t.data_ptr(), out.data_ptr(), b, n, o, o * lv,
+                              lv, nd, js, bl, build.stream_ptr(a.device)),
+                            entry)
+                return a, out
+            got = launch(a=acc.clone())
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"{name} differs from plain at B={b}")
+            step[name] = launch
+        del want
+        for name, fn in step.items():
+            times[f"{name} B={b}"] = device_ms(fn)
+        print(f"K1 B={b}: " + ", ".join(
+            f"{name} {times[f'{name} B={b}']:.4f} ms" for name in step)
+            + (f" (the wrapper takes {kx.k1_path(n, b)})" if wide else ""),
+            flush=True)
     # K2 and K10a, the glue alone in two layouts, at the batches the paths
     # run them at
     for b in (9, 128, 160, 256, 288):
