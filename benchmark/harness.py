@@ -56,11 +56,12 @@ def env(values: dict):
 
 def run_cell(cell: str, seed: int, seconds: float, trace: bool,
              device: torch.device, params=None, mix_changes=None,
-             control: bool = False) -> dict:
-    """-> the result line's object (`check` last). params / mix_changes
-    replace the configuration's set and parts of the mix (the CPU tests);
-    control=True runs the configuration's lower-precision control (its
-    `control_env`)."""
+             control: bool = False, rounds: int = 10) -> dict:
+    """-> the result line's object (`check` last). params / mix_changes /
+    rounds replace the configuration's set, parts of the mix and the AES
+    rounds a request runs (the CPU tests; the reference then checks the
+    reference crate's partial AES); control=True runs the configuration's
+    lower-precision control (its `control_env`)."""
     bench = spec.benchmark()
     wl = spec.workload(cell)
     cfg = spec.config(wl["config"])
@@ -77,7 +78,7 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
         log(f"pool of {len(pool.requests)} requests and the kind's set-up "
             f"{time.time() - t0:.3f} s")
         t0 = time.time()
-        kind.warm(session, pool, mix)
+        kind.warm(session, pool, mix, rounds)
         sync(device)
         log(f"warm pass {time.time() - t0:.3f} s")
         setup_s = since_start()
@@ -93,7 +94,7 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
                 while True:
                     req = pool.requests[len(answers) % len(pool.requests)]
                     with record_function("bench.request"):
-                        words = kind.serve(session, pool, req)
+                        words = kind.serve(session, pool, req, rounds)
                     answers.append((req.key, req.blocks, words))
                     if time.perf_counter() - t0 >= seconds:
                         break
@@ -137,7 +138,7 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
 
     t0 = time.time()
     got = check.compare(answers, secret_key.small_lwe_key(seed, n_lwe),
-                        cfg["compress_log2q"])
+                        cfg["compress_log2q"], rounds)
     log(f"reference check {time.time() - t0:.3f} s over {got['answers']} "
         "answers")
     limits = wl["limits"]

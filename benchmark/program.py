@@ -2,13 +2,16 @@
 key preparation and warm-up (set-up), and the two ends of a request that
 every traffic kind shares: ciphertexts from the host to the device, and the
 answer compressed to q' = 2^log2q and read back as wire words (the calls
-serve.py's request handler makes). Each call runs inside a named
+serve.py's request handler makes). The configuration names its FHE model
+(`model`, a module of tfhe_aes2_tpu_torch.models; shortint_woppbs_1bit
+where it names none). Each call runs inside a named
 `record_function` range, which the traced run reads as what the host was
 doing."""
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import sys
 import time
 
@@ -47,11 +50,18 @@ class Session:
             return to_tensor(arr, self.device)
 
     def answer(self, out) -> np.ndarray:
-        """The output bits (a BitCt) -> wire words on the host."""
+        """The output bits (a BitCt) -> wire words on the host: bits under
+        the big key (last axis kN+1) keyswitched to the small key and
+        switched to q', bits already under the small key (n+1: the 8-bit
+        model's) switched to q' alone."""
         from tfhe_aes2_tpu_torch.ops import compression
+        p = self.params
         with record_function("bench.compress"):
-            comp = compression.compress_bits(out.array, self.ctx.sks,
-                                             self.params, self.log2q)
+            if out.array.shape[-1] == p.big_lwe_dimension + 1:
+                comp = compression.compress_bits(out.array, self.ctx.sks, p,
+                                                 self.log2q)
+            else:
+                comp = compression.mod_switch_q(out.array, self.log2q)
         with record_function("bench.readback"):
             return compression.wire_array(comp, self.log2q)
 
@@ -71,14 +81,23 @@ def param_set(cfg: dict):
     return p
 
 
+DEFAULT_MODEL = "shortint_woppbs_1bit"
+
+
+def model_module(cfg: dict):
+    """The port's FHE model module the configuration names."""
+    return importlib.import_module("tfhe_aes2_tpu_torch.models."
+                                   + cfg.get("model", DEFAULT_MODEL))
+
+
 def open_session(cfg: dict, seed: int, device: torch.device,
                  params=None) -> Session:
     """Keygen from `seed`, key preparation under the default lowering and
     the port's warm-up (kernel build or load, one launch of each kernel the
-    context runs). `params` replaces the configuration's set (CPU tests)."""
+    context runs), the context built by the configuration's model.
+    `params` replaces the configuration's set (CPU tests)."""
     from tfhe_aes2_tpu_torch import aot
     from tfhe_aes2_tpu_torch.aes_128 import fhe
-    from tfhe_aes2_tpu_torch.models import shortint_woppbs_1bit as model
     from tfhe_aes2_tpu_torch.ops import keys
 
     p = params if params is not None else param_set(cfg)
@@ -88,7 +107,7 @@ def open_session(cfg: dict, seed: int, device: torch.device,
     client, raw = keys.generate_keys(p, seed=seed, device=device)
     log(f"keygen {time.time() - t0:.3f} s ({client.keygen_stream} stream)")
     t0 = time.time()
-    ctx = model.context_from_keys(p, raw)
+    ctx = model_module(cfg).context_from_keys(p, raw)
     del raw
     sync(device)
     log(f"key preparation {time.time() - t0:.3f} s, lowering "

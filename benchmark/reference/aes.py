@@ -75,17 +75,21 @@ def _mix_columns(s: list[int]) -> list[int]:
     return out
 
 
-def encrypt_block(w: list[list[int]], block: bytes) -> bytes:
-    """One 16-byte block under the expanded key `w` (FIPS-197 5.1)."""
+def encrypt_block(w: list[list[int]], block: bytes, rounds: int = 10) -> bytes:
+    """One 16-byte block under the expanded key `w` (FIPS-197 5.1). With
+    `rounds` under 10, the reference crate's partial AES (a CPU test's
+    shorter run): rounds 1 .. rounds-1 in full, then the final round,
+    without MixColumns, under round key 10."""
+    if not 1 <= rounds <= 10:
+        raise ValueError(f"{rounds} rounds: AES-128 has 1 to 10")
     s = _add_round_key(list(block), w, 0)
-    for r in range(1, 11):
-        s = _shift_rows([SBOX[b] for b in s])
-        if r < 10:
-            s = _mix_columns(s)
-        s = _add_round_key(s, w, r)
-    return bytes(s)
+    for r in range(1, rounds):
+        s = _add_round_key(_mix_columns(_shift_rows([SBOX[b] for b in s])),
+                           w, r)
+    return bytes(_add_round_key(_shift_rows([SBOX[b] for b in s]), w, 10))
 
 
-def encrypt_blocks(key: bytes, blocks: list[bytes]) -> list[bytes]:
+def encrypt_blocks(key: bytes, blocks: list[bytes],
+                   rounds: int = 10) -> list[bytes]:
     w = expand_key(key)
-    return [encrypt_block(w, b) for b in blocks]
+    return [encrypt_block(w, b, rounds) for b in blocks]

@@ -1,4 +1,5 @@
-"""The reference's AES-128 against FIPS-197's own vectors."""
+"""The reference's AES-128 against FIPS-197's own vectors, and its
+partial AES (a CPU test's shorter runs) against the port's clear oracle."""
 
 import pytest
 
@@ -25,3 +26,15 @@ def test_sbox_and_last_round_key():
     w = aes.expand_key(bytes.fromhex("2b7e151628aed2a6abf7158809cf4f3c"))
     assert bytes(sum(w[40:44], [])).hex() == \
         "d014f9a8c9ee2589e13f0cc8b6630ca6"
+
+
+@pytest.mark.parametrize("rounds", range(1, 11))
+def test_partial_rounds_are_the_reference_crates(rounds):
+    """Rounds 1 .. r-1 in full, then the final round under round key 10:
+    the port's aes_128/plain.py (the reference crate's plain.rs:75-103)."""
+    from tfhe_aes2_tpu_torch.aes_128 import plain
+    key = bytes.fromhex("2b7e151628aed2a6abf7158809cf4f3c")
+    blocks = [bytes.fromhex("3243f6a8885a308d313198a2e0370734"),
+              bytes(range(16))]
+    assert aes.encrypt_blocks(key, blocks, rounds) == \
+        plain.expand_key_and_encrypt_blocks(key, blocks, rounds)

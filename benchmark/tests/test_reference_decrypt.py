@@ -52,3 +52,14 @@ def test_secret_key_is_the_keygens(seed):
                                          native=False)
     assert (secret_key.small_lwe_key(seed, p.lwe_dimension)
             == client.lwe_sk.astype(np.int64)).all()
+
+
+@pytest.mark.parametrize("seed", [1, 2 ** 31 + 9])
+def test_secret_key_is_the_8bit_keygens(seed):
+    """The 8-bit model's keys come from the same keygen order."""
+    from tfhe_aes2_tpu_torch.ops import keys, params
+    p = params.PARAMS_TEST_8BIT
+    client, _ = keys.generate_keys_numpy(p, seed=seed, device="cpu",
+                                         native=False)
+    assert (secret_key.small_lwe_key(seed, p.lwe_dimension)
+            == client.lwe_sk.astype(np.int64)).all()

@@ -1,7 +1,9 @@
 """Every piece BENCHMARK.json names loads from its file by name, agrees
 with the entry, and keeps to the benchmark's contract; the configurations'
-numbers are the port's named sets, and the frozen CMux work is the bench
-entry's kept-dot count."""
+numbers are the port's named sets, each names the model whose bits its
+strategy makes, and the frozen CMux work is the bench entry's kept-dot
+count. The test-only 8-bit configuration (tests/configs/woppbs8-test.json)
+is held to the same."""
 
 import json
 import re
@@ -14,6 +16,9 @@ BENCH = spec.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 CELLS = [w["name"] for w in BENCH["workloads"]]
+EIGHT_BIT = json.loads((spec.HERE / "tests" / "configs" /
+                        "woppbs8-test.json").read_text())
+CONFIGS = [spec.config(c["name"]) for c in BENCH["configs"]] + [EIGHT_BIT]
 
 
 def test_top_level_keys_and_command():
@@ -77,27 +82,77 @@ def test_names_units_and_bounds():
     assert len({m["name"] for m in metrics}) == len(metrics)
 
 
-@pytest.mark.parametrize("params_name,ops", [
-    ("PARAMS_SQRD_LVL_64", 4.325e8), ("PARAMS_SQRD_LVL_256", 8.305e8)])
-def test_frozen_cmux_work_is_the_kept_dot_count(params_name, ops):
-    """cmux_roofline's work a lane-step, at KEPT_DOTS = 11, is the
-    bench entry's kept_dot_ops over its 128 lanes and n steps."""
+# int8 operations a lane-step, by parameter set (a set not listed here is
+# held by the exact comparison alone)
+LANE_STEP_OPS = {"PARAMS_SQRD_LVL_64": 4.325e8, "PARAMS_SQRD_LVL_256": 8.305e8,
+                 "PARAMS_WOPPBS_8BIT": 7.927e8}
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: c["name"])
+def test_frozen_cmux_work_is_the_kept_dot_count(cfg):
+    """cmux_roofline's work a lane-step, at the configuration's kept_dots
+    (11 where it states none), is the bench entry's kept_dot_ops over its
+    128 lanes and n steps."""
     from tfhe_aes2_tpu_torch import bench
     from tfhe_aes2_tpu_torch.ops import params
     reader = spec.metric_reader("cmux_roofline")
-    cfg = next(spec.config(c["name"]) for c in BENCH["configs"]
-               if spec.config(c["name"])["params"] == params_name)
-    p = getattr(params, params_name)
-    per_lane_step = reader.lane_step_ops(cfg["param_values"])
-    assert per_lane_step == pytest.approx(ops, rel=1e-3)
+    p = getattr(params, cfg["params"])
+    per_lane_step = reader.lane_step_ops(cfg)
+    if cfg["params"] in LANE_STEP_OPS:
+        assert per_lane_step == pytest.approx(LANE_STEP_OPS[cfg["params"]],
+                                              rel=1e-3)
     assert per_lane_step * 128 * p.lwe_dimension == bench.kept_dot_ops(p, 1)
 
 
-def test_frozen_blind_rotation_counts():
-    """Per block 10 rounds x 128 bits; a fresh key adds 1,600 (the latency
-    path's 11 scans of 32 + 9 x 288 + 256 lanes = 2,880 with its block)."""
+@pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: c["name"])
+def test_model_makes_the_strategys_bits(cfg):
+    """The configuration's model (stated, or the default) is the module
+    that defines the bit type its strategy's `fresh` returns, on a context
+    that model builds at a test set."""
+    from benchmark import program
+    from tfhe_aes2_tpu_torch.aes_128 import fhe
+    from tfhe_aes2_tpu_torch.ops import keys, params
+    from tfhe_aes2_tpu_torch.ops.torus import to_tensor
+    p = getattr(params, cfg.get("cpu_test", {}).get("params", "PARAMS_TEST"))
+    model = program.model_module(cfg)
+    assert model.__name__ == "tfhe_aes2_tpu_torch.models." + cfg.get(
+        "model", "shortint_woppbs_1bit")
+    client, raw = keys.generate_keys(p, seed=3, device="cpu")
+    ctx = model.context_from_keys(p, raw)
+    strategy = getattr(fhe, cfg["strategy"])
+    cts = to_tensor(strategy.encrypt_client(client, [bytes(16)]), ctx.device)
+    bits = strategy.fresh(cts, ctx, lane_ndim=2)
+    assert type(bits).__module__ == model.__name__
+
+
+def test_eight_bit_counts():
+    """624 rotations a block-round, 7,800 a fresh key, 7 dots."""
     reader = spec.metric_reader("cmux_roofline")
-    circuit = spec.config("lvl64-galmul")["circuit"]
+    circuit = EIGHT_BIT["circuit"]
+    assert reader.blind_rotations(circuit, "reused_key", 1, 1) == 6240
     assert reader.blind_rotations(circuit, "fresh_key", 1, 1) == \
-        32 + 9 * 288 + 256
-    assert reader.blind_rotations(circuit, "reused_key", 16, 1) == 20480
+        6240 + 200 * 39
+    assert reader.work_ops(EIGHT_BIT, "reused_key", 1, 1) == \
+        6240 * 785 * 3 * 18 * 1024 ** 2 * 7 * 2
+
+
+KINDS = sorted(f.stem for f in (spec.HERE / "traffic").glob("*.py")
+               if f.stem not in ("__init__", "common"))
+
+
+@pytest.mark.parametrize("name", ["lvl64-galmul", "lvl256-sboxpbs"])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("blocks,requests", [(1, 1), (1, 3), (16, 1),
+                                             (16, 3)])
+def test_frozen_blind_rotation_counts(name, kind, blocks, requests):
+    """Where a configuration states no rotation count, one a bootstrapped
+    bit: per block 10 rounds x 128 bits; a fresh key adds 1,600 a request
+    (the latency path's 11 scans of 32 + 9 x 288 + 256 lanes = 2,880 with
+    its block)."""
+    reader = spec.metric_reader("cmux_roofline")
+    circuit = spec.config(name)["circuit"]
+    assert not {"round_blind_rotations", "key_schedule_blind_rotations"} \
+        & set(circuit)
+    fresh = 1600 if kind == "fresh_key" else 0
+    assert reader.blind_rotations(circuit, kind, blocks, requests) == \
+        blocks * 10 * 128 + requests * fresh

@@ -7,7 +7,7 @@ the next `blocks` counters and runs the ten rounds on them under that key
 Mix parameters: blocks (a request), pool (requests encrypted in set-up,
 used in turn), warm_rounds (rounds of the set-up's warm pass, which
 launches every kernel and shape the window will: a middle and the final
-round)."""
+round; no more than the rounds a request runs)."""
 
 from __future__ import annotations
 
@@ -48,5 +48,6 @@ def serve(session, pool: Pool, req: Request, rounds: int = 10):
     return session.answer(out)
 
 
-def warm(session, pool: Pool, mix: dict) -> None:
-    serve(session, pool, pool.requests[0], rounds=mix["warm_rounds"])
+def warm(session, pool: Pool, mix: dict, rounds: int = 10) -> None:
+    serve(session, pool, pool.requests[0],
+          rounds=min(mix["warm_rounds"], rounds))
