@@ -5,9 +5,10 @@
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. device and build: the card's name and power limit, the nvcc build of
      every kernel from tfhe_aes2_tpu_torch/csrc/;
-  2. kernel checks: K1's two kernels (wgmma from extprod.WG_MIN_LANES
-     lanes at N = 512, cmux_wg.cu, and mma.sync, cmux.cu) side by side at
-     B in {1, 9, 32, 64, 128, 160, 256, 288, 2048}, then K1-K11 at their
+  2. kernel checks: K1's two kernels (wgmma at N = 512 and 1024,
+     cmux_wg.cu, and mma.sync, cmux.cu) side by side at B in {1, 9, 32, 64, 128, 160, 256, 288, 2048} at lvl64, B in
+     {1, 9, 32, 128, 160, 288, 2048} at lvl256 and B in {1, 16, 128} at the
+     8-bit model's step, then K1-K11 at their
      PARAMS_SQRD_LVL_64 main-path shapes
      (K2 at B in {9, 128, 160, 256, 288}, K3 and K8 at the vertical
      packing's (lanes, G) in {(4, 8), (16, 8), (16, 24), (128, 1),
@@ -211,8 +212,7 @@ KERNELS = {
         fn=kx.extprod_step2g, source="tfhe_aes2_tpu_torch/csrc/cmux.cu",
         source_wgmma="tfhe_aes2_tpu_torch/csrc/cmux_wg.cu",
         replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:542",
-        int8_products="wgmma at N = 512 from extprod.WG_MIN_LANES lanes, "
-                      "else mma.sync"),
+        int8_products="wgmma at N = 512 and 1024, else mma.sync"),
     "rot_diff_digits": dict(
         fn=kx.rot_diff_digits, source="tfhe_aes2_tpu_torch/csrc/cmux.cu",
         replaces="tfhe_aes2_tpu/ops/pallas/extprod.py:386",
@@ -727,7 +727,8 @@ def check_k1_at(rows, p, dig, ext, acc, t, label: str = "",
     err = max(max_abs_err(acc_k, acc_p), max_abs_err(dig_k, dig_p))
     del acc_p, dig_p
     scratch = acc.clone()
-    record(f"extprod_step2g {label}B={b}", rows["extprod_step2g"],
+    record(f"extprod_step2g {label}{kx.k1_path(n)} B={b}",
+           rows["extprod_step2g"],
            b * k1 * k1 * lv * n * n * pairs(nd, js),
            dig.numel() * 2 + ext.numel() + acc.numel() * 16 + b * 4,
            time_ms(lambda: kx.extprod_step2g(
@@ -740,46 +741,75 @@ def check_k1_at(rows, p, dig, ext, acc, t, label: str = "",
 
 
 def check_k1_paths(rows, gen) -> None:
-    """K1's two kernels at PARAMS_SQRD_LVL_64's step from one lane through
-    the latency path's batches to the 16-block batch's 2,048 lanes: the
-    wrapper's (wgmma from extprod.WG_MIN_LANES lanes, cmux_wg.cu) and
+    """K1's two kernels at three steps: PARAMS_SQRD_LVL_64's (N = 512)
+    from one lane through the latency path's batches to the 16-block
+    batch's 2,048 lanes, PARAMS_SQRD_LVL_256's (N = 1024) likewise, and
+    the 8-bit model's (N = 1024) at its scans of 16 and 128 lanes: the
+    wrapper's (k1_path: wgmma at each N of extprod.WG_N, cmux_wg.cu) and
     mma.sync's through its C entry (cmux.cu), each bit-equal to the plain
-    version and timed; the crossover WG_MIN_LANES is read from these rows
-    ("wgmma" and "mma.sync" in their names)."""
-    k1, n, lv = P.glwe_dimension + 1, P.polynomial_size, P.pbs_level
-    nd = torus.limbs_for_bound(decomposition.digit_bound(P.pbs_base_log))
-    js, bl = truncation.bsk_j_start(P), P.pbs_base_log
+    version and timed, and how many of the wrapper's launches took wgmma
+    (launches_wg, the mechanism's counter); the rows name the kernel they
+    time ("wgmma" or "mma.sync"), and that wgmma wins at every batch is
+    read from them. At
+    N = 1024 the card also reports how many clusters of 8 it holds at
+    once."""
     f = kx._fn("cmux", "tfhe_extprod_step2g", [kx._P] * 5 + [kx._I] * 8
                + [kx._P])
+    for label, p, batches in (
+            ("", P, (1, 9, 32, 64, 128, 160, 256, 288, 2048)),
+            (f"{WIDE} lvl256 ", P256, (1, 9, 32, 128, 160, 288, 2048)),
+            (f"{WIDE} 8-bit ", P8, (1, 16, 128))):
+        k1, n, lv = p.glwe_dimension + 1, p.polynomial_size, p.pbs_level
+        nd = torus.limbs_for_bound(decomposition.digit_bound(p.pbs_base_log))
+        js, bl = truncation.bsk_j_start(p), p.pbs_base_log
 
-    def mma_sync(dig, ext, acc, t):
-        out = torch.empty_like(dig)
-        build.check(f(dig.data_ptr(), ext.data_ptr(), acc.data_ptr(),
-                      t.data_ptr(), out.data_ptr(), t.shape[0], n, k1,
-                      k1 * lv, lv, nd, js, bl, build.stream_ptr(DEV)),
-                    "extprod_step2g")
-        return acc, out
-    for b in (1, 9, 32, 64, 128, 160, 256, 288, 2048):
-        acc, t, dig, ext = step_operands(gen, k1, n, lv, nd, b, js)
-        want = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, bl, lv, js)
-        macs = b * k1 * k1 * lv * n * n * pairs(nd, js)
-        nbytes = dig.numel() * 2 + ext.numel() + acc.numel() * 16 + b * 4
-        scratch = acc.clone()
-        plain_ms = time_ms(lambda: kx.extprod_step2g_plain(
-            dig, ext, scratch, t, bl, lv, js), reps=2)
-        for name, fn in (
-                (kx.k1_path(n, b),
-                 lambda a: kx.extprod_step2g(dig, ext, a, t, bl, lv, js)),
-                ("mma.sync", lambda a: mma_sync(dig, ext, a, t))):
-            got = fn(acc.clone())
-            sync()
-            err = max(max_abs_err(got[0], want[0]),
-                      max_abs_err(got[1], want[1]))
-            record(f"extprod_step2g {name} B={b}", rows["extprod_step2g"],
-                   macs, nbytes, time_ms(lambda: fn(scratch)), plain_ms, err)
-            if name == "mma.sync":
-                break
-        del want
+        def mma_sync(dig, ext, acc, t):
+            out = torch.empty_like(dig)
+            build.check(f(dig.data_ptr(), ext.data_ptr(), acc.data_ptr(),
+                          t.data_ptr(), out.data_ptr(), t.shape[0], n, k1,
+                          k1 * lv, lv, nd, js, bl, build.stream_ptr(DEV)),
+                        "extprod_step2g")
+            return acc, out
+        calls = wg_calls = 0
+        for b in batches:
+            acc, t, dig, ext = step_operands(gen, k1, n, lv, nd, b, js)
+            want = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, bl, lv,
+                                           js)
+            macs = b * k1 * k1 * lv * n * n * pairs(nd, js)
+            nbytes = dig.numel() * 2 + ext.numel() + acc.numel() * 16 + b * 4
+            scratch = acc.clone()
+            plain_ms = time_ms(lambda: kx.extprod_step2g_plain(
+                dig, ext, scratch, t, bl, lv, js), reps=2)
+            for name, fn in (
+                    (kx.k1_path(n),
+                     lambda a: kx.extprod_step2g(dig, ext, a, t, bl, lv, js)),
+                    ("mma.sync", lambda a: mma_sync(dig, ext, a, t))):
+                before = kx.extprod_step2g.launches_wg
+                got = fn(acc.clone())
+                if name == kx.k1_path(n):
+                    calls += 1
+                    wg_calls += kx.extprod_step2g.launches_wg - before
+                sync()
+                err = max(max_abs_err(got[0], want[0]),
+                          max_abs_err(got[1], want[1]))
+                record(f"extprod_step2g {label}{name} B={b}",
+                       rows["extprod_step2g"], macs, nbytes,
+                       time_ms(lambda: fn(scratch)), plain_ms, err)
+                if name == "mma.sync":
+                    break
+            del want
+        line = (f"  K1 at {label.strip() or 'lvl64'}: {wg_calls} of the "
+                f"wrapper's {calls} launches on wgmma (launches_wg)")
+        if n in kx.WG_N:
+            held = ctypes.c_int(0)
+            build.check(kx._fn("cmux_wg", "tfhe_extprod_step2g_wg_clusters",
+                               [ctypes.c_int] * 3
+                               + [ctypes.POINTER(ctypes.c_int)])(
+                n, nd, js, ctypes.byref(held)), "extprod_step2g")
+            line += (f"; the card holds {held.value} clusters of "
+                     f"{n // kx.WG_COLS} blocks at once "
+                     "(cudaOccupancyMaxActiveClusters)")
+        log(line)
 
 
 def check_step_at(rows, gen, p, b: int, label: str = "",
@@ -1614,7 +1644,7 @@ def check_wide_steps(rows, gen) -> None:
                                           js)
             sync()
             err = max(max_abs_err(got[0], ref[0]), max_abs_err(got[1], ref[1]))
-            record(f"extprod_step2g {WIDE} {name} B={b}",
+            record(f"extprod_step2g {WIDE} {kx.k1_path(n)} {name} B={b}",
                    rows["extprod_step2g"], macs,
                    dig.numel() * 2 + ext.numel() + acc.numel() * 16 + b * 4,
                    time_ms(lambda: kx.extprod_step2g(dig, ext, scratch, t, bl,

@@ -8,7 +8,8 @@ machine without it run: python -m pytest tests/test_torch_cuda.py -m cuda
 import pytest
 import torch
 
-from tfhe_aes2_tpu_torch.ops import decomposition, polynomial, torus
+from tfhe_aes2_tpu_torch.ops import decomposition, params, polynomial, torus
+from tfhe_aes2_tpu_torch.ops import truncation
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
 from tfhe_aes2_tpu_torch.ops.kernels import matmul as kmm
 from tests.torch_port_common import require_cuda
@@ -201,14 +202,14 @@ def _k1_mma_sync(dig, ext, acc, t, base_log, levels, js):
 @pytest.mark.parametrize("b", [9, 32, 40, 128, 288, 2048])
 def test_cuda_k1_wgmma_matches_plain_and_mma_sync(b):
     """On the card at PARAMS_SQRD_LVL_64's step (N=512, R=15, n_d=2, js=2):
-    K1 as the wrapper launches it from WG_MIN_LANES lanes (cmux_wg.cu,
-    wgmma over 32-lane tiles; B=9 and 40 a ragged tile) bit-equal to the
+    K1 as the wrapper launches it at every batch (cmux_wg.cu, wgmma over
+    32-lane tiles; B=9 and 40 a ragged tile) bit-equal to the
     plain version and to K1 on mma.sync (cmux.cu); launches_wg counts
     exactly the launches that took the wgmma path."""
     require_cuda()
     gen = torch.Generator().manual_seed(2000 + b)
     k1, levels, n, n_d, js, base_log = 5, 3, 512, 2, 2, 12
-    assert kx.k1_path(n, b) == "wgmma"
+    assert kx.k1_path(n) == "wgmma"
     dig = torch.randint(-128, 128, (k1, levels, n_d, b, n), generator=gen,
                         dtype=torch.int8).cuda()
     ext = torch.randint(-128, 128, (k1, k1 * levels, 8 - js, 2 * n),
@@ -227,27 +228,20 @@ def test_cuda_k1_wgmma_matches_plain_and_mma_sync(b):
                                      levels, js)
     assert torch.equal(a1, a2) and torch.equal(d1, d2)
     assert torch.equal(a1, a0) and torch.equal(d1, d0)
-    # below the crossover (where there is one) the wrapper takes mma.sync
-    # and counts no wgmma
-    small = kx.WG_MIN_LANES - 1
-    if small > 0:
-        kx.extprod_step2g(dig[..., :small, :].contiguous(), ext,
-                          acc[:, :small].contiguous(), t[:small].contiguous(),
-                          base_log, levels, js)
-        assert kx.extprod_step2g.launches_wg == before[1] + 1
     torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 1024])
 @pytest.mark.parametrize("n_d", [1, 2, 3])
-def test_cuda_k1_wgmma_every_bucket_layout(n_d):
-    """On the card: K1 on wgmma at N=512 for js in 0..7 with one to three
-    limbs a digit (R=10, B=40 and B=70, each with a ragged tile) and with
-    every digit and key byte -128 at R=15, n_d=2, js=2, B=64 (each int32
-    bucket at the bound the wrapper admits), bit-equal to plain."""
+def test_cuda_k1_wgmma_every_bucket_layout(n_d, n):
+    """On the card: K1 on wgmma at N=512 and 1024 for js in 0..7 with one
+    to three limbs a digit (R=10, B=40 and B=70, each with a ragged tile)
+    and with every digit and key byte -128 at R=15, n_d=2, js=2, B=64 (each
+    int32 bucket at n_d·R·N·2^14), bit-equal to plain."""
     require_cuda()
-    gen = torch.Generator().manual_seed(30 + n_d)
-    k1, levels, n = 5, 2, 512
+    gen = torch.Generator().manual_seed(30 + n_d + n)
+    k1, levels = 5, 2
     base_log = {1: 6, 2: 12, 3: 20}[n_d]
     for js in range(8):
         for b in (40, 70):
@@ -277,6 +271,82 @@ def test_cuda_k1_wgmma_every_bucket_layout(n_d):
         a1, d1 = kx.extprod_step2g(dig, ext, acc.clone(), t, 12, 3, 2)
         a2, d2 = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, 12, 3, 2)
         assert torch.equal(a1, a2) and torch.equal(d1, d2)
+    torch.cuda.synchronize()
+
+
+# The N = 1024 sets of ops/params.py (lvl4's step is lvl1's)
+N1024_SETS = {"lvl256": params.PARAMS_SQRD_LVL_256,
+              "8-bit": params.PARAMS_WOPPBS_8BIT,
+              "lvl1": params.PARAMS_SQRD_LVL_1}
+
+
+def _step_at(p, b, gen, fill=None):
+    """Operands of the set p's CMux step for b lanes, the rotations 0, 1,
+    N and 2N-1 among them; fill: every digit and key byte. Returns
+    (dig, ext, acc, t, base_log, levels, js)."""
+    k1, levels, n = p.glwe_dimension + 1, p.pbs_level, p.polynomial_size
+    n_d = torus.limbs_for_bound(decomposition.digit_bound(p.pbs_base_log))
+    js = truncation.bsk_j_start(p)
+    if fill is None:
+        dig = torch.randint(-128, 128, (k1, levels, n_d, b, n), generator=gen,
+                            dtype=torch.int8).cuda()
+        ext = torch.randint(-128, 128, (k1, k1 * levels, 8 - js, 2 * n),
+                            generator=gen, dtype=torch.int8).cuda()
+    else:
+        dig = torch.full((k1, levels, n_d, b, n), fill, dtype=torch.int8,
+                         device="cuda")
+        ext = torch.full((k1, k1 * levels, 8 - js, 2 * n), fill,
+                         dtype=torch.int8, device="cuda")
+    acc = torch.randint(-2 ** 63, 2 ** 63 - 1, (k1, b, n), generator=gen,
+                        dtype=torch.int64).cuda()
+    t = torch.randint(0, 2 * n, (b,), generator=gen, dtype=torch.int32)
+    t[:min(b, 4)] = torch.tensor([0, 1, n, 2 * n - 1])[:min(b, 4)]
+    return dig, ext, acc, t.cuda(), p.pbs_base_log, levels, js
+
+
+def _k1_three_ways(dig, ext, acc, t, base_log, levels, js):
+    """K1 as the wrapper launches it, counted: launches and launches_wg
+    each one more; K1 on mma.sync through its C entry, counted by neither;
+    both bit-equal to the plain version."""
+    before = (kx.extprod_step2g.launches, kx.extprod_step2g.launches_wg)
+    a1, d1 = kx.extprod_step2g(dig, ext, acc.clone(), t, base_log, levels, js)
+    assert (kx.extprod_step2g.launches, kx.extprod_step2g.launches_wg) == (
+        before[0] + 1, before[1] + 1)
+    a0, d0 = _k1_mma_sync(dig, ext, acc.clone(), t, base_log, levels, js)
+    assert (kx.extprod_step2g.launches, kx.extprod_step2g.launches_wg) == (
+        before[0] + 1, before[1] + 1)
+    a2, d2 = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, base_log,
+                                     levels, js)
+    assert torch.equal(a1, a2) and torch.equal(d1, d2)
+    assert torch.equal(a1, a0) and torch.equal(d1, d0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 31, 32, 33, 128, 288])
+@pytest.mark.parametrize("name", sorted(N1024_SETS))
+def test_cuda_k1_wgmma_n1024_matches_plain_and_mma_sync(name, b):
+    """On the card at each N = 1024 set's step (lvl256: R = 12, n_d 2, js 2;
+    the 8-bit model's: R = 18, n_d 1, js 1; lvl1's: R = 6): K1 as the
+    wrapper launches it (cmux_wg.cu, clusters of 8 blocks), across the
+    32-lane tile edge, bit-equal to the plain version and to K1 on mma.sync
+    (cmux.cu); launches and launches_wg each count one a call."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(4000 + b)
+    p = N1024_SETS[name]
+    assert p.polynomial_size == 1024
+    assert kx.k1_path(1024) == "wgmma"
+    _k1_three_ways(*_step_at(p, b, gen))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_k1_wgmma_n1024_extreme_values():
+    """On the card at lvl256's step, B = 33: every digit and key byte -128,
+    so every int32 bucket at n_d·R·N·2^14, K1 on wgmma bit-equal to plain
+    and to K1 on mma.sync."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(4100)
+    _k1_three_ways(*_step_at(N1024_SETS["lvl256"], 33, gen, fill=-128))
     torch.cuda.synchronize()
 
 

@@ -1,21 +1,25 @@
 """The index arithmetic of K1 on wgmma (csrc/cmux_wg.cu, csrc/nc_wgmma.cuh),
-emulated in numpy and held against `extprod_step2g_plain`.
+emulated in numpy and held against `extprod_step2g_plain`, at each
+polynomial size the kernel is built for (N = 512 and 1024).
 
 The kernel feeds `wgmma.mma_async.m64n32k32.s32.s8.s8`: operand A (64 rows,
 from registers) is a slab of the negacirculant read from each plane's
-S-table window of N + COLS words, operand B (32 columns, from shared memory
-through a descriptor) the digits of the block's 32 batch lanes in the
-canonical K-major layout. The emulation follows the device code: the window
-build from the raw key row, the cp.async piece map that places the digits
-in core matrices, the descriptor's leading and stride byte offsets, the A
-fragment of each warp (rows 16·warp + gid and + 8, standing for columns
-cA + gid and cA + gid - 16) from the thread's sequence of words 16 apart,
-the D fragment map thread -> (column, lane), the accumulator tile and the
+S-table window of KC + COLS words, operand B (32 columns, from shared
+memory through a descriptor) the digits of the block's 32 batch lanes in
+the canonical K-major layout. A block contracts unit by unit, a unit the
+KC = 512 digit columns from k0 of one row (one a row at N = 512, two at
+1024). The emulation follows the device code: the raw key bytes a unit
+stages (the whole row at N = 512, a slice of it at 1024) and the window
+built from them, the cp.async piece map that places the digits in core
+matrices, the descriptor's leading and stride byte offsets, the A fragment
+of each warp (rows 16·warp + gid and + 8, standing for columns cA + gid and
+cA + gid - 16) from the thread's sequence of words 16 apart, the D
+fragment map thread -> (column, lane), the accumulator tile and the
 cluster's glue reads across the N / COLS blocks of a lane tile, and the
-ragged last tile. The per-k-step products are summed over a row's k in one
-float32 product (exact: every partial sum is an integer below 2^24), so the
-file stays at a few seconds. Change an index in nc_wgmma.cuh or cmux_wg.cu
--> change it here first. Needs nothing of the JAX package.
+ragged last tile. The per-k-step products are summed over a unit's k in
+one float32 product (exact: every partial sum is an integer below 2^24),
+so the file stays at seconds. Change an index in nc_wgmma.cuh or
+cmux_wg.cu -> change it here first. Needs nothing of the JAX package.
 """
 
 import re
@@ -29,10 +33,10 @@ from tests.test_torch_mma_layout import byte_perm, table_by_definition
 from tfhe_aes2_tpu_torch.ops import decomposition, torus
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
 
-N, LANES = kx.WG_N, kx.WG_LANES
-KSTEPS = N // 32
-CHUNKS = N // 16                    # 16-byte chunks of a lane's digit row
-DIG_PLANE = LANES * N               # bytes of one limb's digit tile
+LANES, KC = kx.WG_LANES, kx.WG_KC
+KSTEPS = KC // 32                   # k-steps of a unit
+CHUNKS = KC // 16                   # 16-byte chunks of a lane's unit row
+DIG_PLANE = LANES * KC              # bytes of one limb's digit tile
 K_CHUNK, LANE_GROUP = LANES * 16, 128   # the descriptor's LBO and SBO
 ACC = LANES // 2                    # D registers a thread, a bucket
 LANE = np.arange(32)
@@ -40,24 +44,47 @@ GID, TIG = LANE >> 2, LANE & 3
 CSRC = Path(kx.__file__).resolve().parents[2] / "csrc"
 COLS = kx.WG_COLS                   # output columns of a block
 WGS = COLS // 64                    # warpgroups of a block
-CLUSTER = N // COLS                 # blocks of one (lane tile, o)
-TAB = N + COLS                      # words of one plane's table window
+TAB = KC + COLS                     # words of one plane's table window
+SIZES = sorted(kx.WG_N)             # 512, 1024
 
 
-def window_table(raw, c0):
-    """The table windows as build_window stores them: raw int8 [..., 2N]
-    (one plane's key row each), c0 int [...] or a scalar -> uint32
-    [..., N + COLS]; group yw (words 4yw..4yw+3) from the three raw words
-    of nc::build_tables' group (yw - (c0 + COLS)/4) mod N/2."""
-    hw = N // 2
+def raw_word0(c0, k0):
+    """nc_wgmma.cuh's raw_word0: at N = 1024 the raw word (mod N/2) that a
+    unit's staged slice starts at."""
+    return (c0 + COLS - k0) // 4 - TAB // 4 - 4
+
+
+def unit_raw(raw_w, n, c0, k0):
+    """The raw key words a unit stages (copy_raw_piece): raw_w uint32
+    [..., N/2] (one plane's row each), c0 int [...] -> uint32 [..., KC/2]:
+    the whole row at N = KC, else by 16-byte pieces the slice of KC/2 words
+    from raw_word0 (mod N/2), no piece across the wrap."""
+    if n == KC:
+        return raw_w
+    w = (raw_word0(c0, k0)[..., None] + 4 * np.arange(KC // 8)) % (n // 2)
+    assert (w % 4 == 0).all()
+    idx = (w[..., None] + np.arange(4)).reshape(w.shape[:-1] + (KC // 2,))
+    return np.take_along_axis(raw_w, idx, -1)
+
+
+def window_table(raw, c0, n, k0=0):
+    """The table windows as build_window_group stores them for the unit at
+    k0: raw int8 [..., 2N] (one plane's key row each), c0 int [...] or a
+    scalar -> uint32 [..., KC + COLS]; group yw (words 4yw..4yw+3) from
+    three staged words, slice word (SW - y - d) mod SW, d = 0, 1, 2, with
+    y = (yw - (c0 + COLS)/4) mod SW at N = 512 and yw - TAB/4 - 4 at 1024
+    (SW = KC/2 staged words a plane)."""
+    sw = KC // 2
     raw_w = np.ascontiguousarray(raw).view(np.uint32)     # [..., N/2]
     lead = np.broadcast_shapes(raw_w.shape[:-1], np.shape(c0))
-    raw_w = np.broadcast_to(raw_w, lead + (hw,))
+    raw_w = np.broadcast_to(raw_w, lead + (n // 2,))
+    c0 = np.broadcast_to(np.asarray(c0), lead)
+    staged = unit_raw(raw_w, n, c0, k0)                   # [..., SW]
     yw = np.arange(TAB // 4)
-    y = (yw - (np.asarray(c0)[..., None] + COLS) // 4) % hw
-    w0, wm1, wm2 = (np.take_along_axis(
-        raw_w, np.broadcast_to((hw - y - d) % hw, lead + (TAB // 4,)), -1)
-        for d in (0, 1, 2))
+    y = ((yw - (c0[..., None] + COLS) // 4) % sw if n == KC
+         else np.broadcast_to(yw - TAB // 4 - 4, lead + (TAB // 4,)))
+    w0, wm1, wm2 = (np.take_along_axis(staged, (sw - y - d) % sw, -1)
+                    for d in (0, 1, 2))
     tab = np.empty(lead + (TAB // 4, 4), dtype=np.uint32)
     tab[..., 0] = byte_perm(wm1, w0, 0x1234)
     tab[..., 1] = byte_perm(wm1, wm1, 0x0123)
@@ -67,8 +94,8 @@ def window_table(raw, c0):
 
 
 def word_index():
-    """at0 of mma_row per (warpgroup, warp, lane): the window index of the
-    thread's word 0, W(e0) with e0 = 4·tig - gid - cA at k-step 0, int
+    """at0 of mma_unit per (warpgroup, warp, lane): the window index of the
+    thread's word 0, W(e0) with e0 = k0 + 4·tig - gid - cA at k-step 0, int
     [WGS, 4, 32]; word m lies 16·m further on."""
     g = np.arange(WGS)[:, None, None]
     w = np.arange(4)[None, :, None]
@@ -103,10 +130,10 @@ assert np.array_equal(np.sort(A_AT.reshape(-1)), np.arange(64 * 32))
 
 def a_operand(tabs):
     """A of every k-step of one plane, as the warps load it: tabs uint32
-    [..., TAB] (one window per block) -> int8 [..., WGS, 64, N] (row,
-    k = 32·kt + k of the k-step). K-step kt takes the thread's words 2kt,
-    2kt+1, 2kt+1, 2kt+2 (a0 .. a3): word 0 loaded before k-step 0, words
-    2kt+1 and 2kt+2 at k-step kt."""
+    [..., TAB] (one window per block) -> int8 [..., WGS, 64, KC] (row,
+    k = 32·kt + k of the k-step, counted from the unit's k0). K-step kt
+    takes the thread's words 2kt, 2kt+1, 2kt+1, 2kt+2 (a0 .. a3): word 0
+    loaded before k-step 0, words 2kt+1 and 2kt+2 at k-step kt."""
     at0 = word_index()
     m = 2 * np.arange(KSTEPS)                               # [KT]
     idx = at0[None] + 16 * m[:, None, None, None]           # [KT, WGS, 4, 32]
@@ -120,12 +147,13 @@ def a_operand(tabs):
     a = a.reshape(lead + (64, 32))           # [..., KT, WGS, 64, 32]
     a = np.moveaxis(a, -4, -3)               # [..., WGS, KT, 64, 32]
     a = np.swapaxes(a, -3, -2)               # [..., WGS, 64, KT, 32]
-    return a.reshape(a.shape[:-2] + (N,))    # [..., WGS, 64, N]
+    return a.reshape(a.shape[:-2] + (KC,))   # [..., WGS, 64, KC]
 
 
 def digit_tile(dig_rows, rows_valid):
-    """One contraction row's digit tile as copy_digits stages it: dig_rows
-    int8 [n_d, LANES, N] (lanes past the batch anything) -> the shared
+    """One unit's digit tile as copy_digit_piece stages it: dig_rows int8
+    [n_d, LANES, KC] (the unit's columns; lanes past the batch anything)
+    -> the shared
     bytes, uint8 [n_d·DIG_PLANE]: piece p (bit 0 and bits 6.. the chunk,
     bits 1-5 the lane, above them the limb) lands at i·DIG_PLANE +
     chunk·K_CHUNK + lane·16, zero past rows_valid."""
@@ -173,47 +201,52 @@ def output_map():
 
 
 def emulate(dig, ext, acc, t, base_log, levels, js):
-    """K1 on wgmma, block by block as the kernel computes it: dig int8
-    [O, L, n_d, B, N], ext int8 [O, R, 8-js, 2N], acc int64 [O, B, N],
-    t int [B] -> (new acc, the glue's rotated differences int64 [O, B, N],
-    each read from the tile of the cluster rank that owns its source, and
-    how often each rank was read)."""
-    k1, lv, n_d, b, _ = dig.shape
+    """K1 on wgmma, block by block and unit by unit as the kernel computes
+    it: dig int8 [O, L, n_d, B, N], ext int8 [O, R, 8-js, 2N], acc int64
+    [O, B, N], t int [B] -> (new acc, the glue's rotated differences int64
+    [O, B, N], each read from the tile of the cluster rank that owns its
+    source, how often each rank was read, and how many reads were negated,
+    src >= N)."""
+    k1, lv, n_d, b, n = dig.shape
     r_cnt, nj = ext.shape[1], 8 - js
+    cluster = n // COLS
     tiles = -(-b // LANES)
-    c0s = COLS * np.arange(CLUSTER)
-    dig_rows = dig.reshape(r_cnt, n_d, b, N)
-    # buckets as D fragments: [nj, O, lane tiles, CLUSTER, WGS, 4, 32, ACC]
-    buckets = np.zeros((nj, k1, tiles, CLUSTER, WGS, 4, 32, ACC),
+    c0s = COLS * np.arange(cluster)
+    dig_rows = dig.reshape(r_cnt, n_d, b, n)
+    # buckets as D fragments: [nj, O, lane tiles, cluster, WGS, 4, 32, ACC]
+    buckets = np.zeros((nj, k1, tiles, cluster, WGS, 4, 32, ACC),
                        dtype=np.int64)
     for r in range(r_cnt):
-        b_full = np.empty((n_d, tiles, N, 32), dtype=np.float32)  # [i,T,k,n]
-        for tl in range(tiles):
-            rows = min(LANES, b - LANES * tl)
-            pad = np.full((n_d, LANES, N), 77, dtype=np.int8)   # never read
-            pad[:, :rows] = dig_rows[r, :, LANES * tl:LANES * tl + rows]
-            tile = digit_tile(pad, rows)
-            for i in range(n_d):
-                b_full[i, tl] = np.concatenate(
-                    [b_operand(tile, i, kt) for kt in range(KSTEPS)])
-        windows = window_table(ext[:, r, :, None], c0s)   # [O, NJ, CL, TAB]
-        for j in range(js, 8):
-            # [O, 1, CL, WGS, 64, N]
-            a_full = a_operand(windows[:, j - js]).astype(np.float32)[
-                :, None]
-            for i in range(n_d):
-                if i + j >= 8:
-                    continue
-                d = a_full @ b_full[i][None, :, None, None]
-                frag = d.reshape(d.shape[:-2] + (-1,))[..., D_AT]
-                buckets[i + j - js] += frag.astype(np.int64)
+        for k0 in range(0, n, KC):
+            b_full = np.empty((n_d, tiles, KC, 32), dtype=np.float32)
+            for tl in range(tiles):
+                rows = min(LANES, b - LANES * tl)
+                pad = np.full((n_d, LANES, KC), 77, dtype=np.int8)  # unread
+                pad[:, :rows] = dig_rows[r, :, LANES * tl:LANES * tl + rows,
+                                         k0:k0 + KC]
+                tile = digit_tile(pad, rows)
+                for i in range(n_d):
+                    b_full[i, tl] = np.concatenate(
+                        [b_operand(tile, i, kt) for kt in range(KSTEPS)])
+            # [O, NJ, cluster, TAB]
+            windows = window_table(ext[:, r, :, None], c0s, n, k0)
+            for j in range(js, 8):
+                # [O, 1, cluster, WGS, 64, KC]
+                a_full = a_operand(windows[:, j - js]).astype(np.float32)[
+                    :, None]
+                for i in range(n_d):
+                    if i + j >= 8:
+                        continue
+                    d = a_full @ b_full[i][None, :, None, None]
+                    frag = d.reshape(d.shape[:-2] + (-1,))[..., D_AT]
+                    buckets[i + j - js] += frag.astype(np.int64)
     assert np.abs(buckets).max() < 2 ** 31      # the int32 buckets hold it
     total = np.zeros(buckets.shape[1:], dtype=np.uint64)
     with np.errstate(over="ignore"):
         for s in range(nj):
             total += buckets[s].view(np.uint64) << np.uint64(8 * (s + js))
     out_lane, out_col = output_map()
-    sums = np.zeros((k1, tiles, CLUSTER, LANES, COLS), dtype=np.uint64)
+    sums = np.zeros((k1, tiles, cluster, LANES, COLS), dtype=np.uint64)
     sums[..., out_lane, out_col] = total
     # the accumulator's read-modify-write through the tile, zero past the
     # batch edge
@@ -227,40 +260,44 @@ def emulate(dig, ext, acc, t, base_log, levels, js):
                 seg += sums[:, tl, h, :rows]
                 tile_acc[:, tl, h, :rows] = seg
     # the glue: block h of the cluster reads source x from the tile of rank
-    # x // COLS at row·COLS + x % COLS
-    rot_diff = np.zeros((k1, b, N), dtype=np.uint64)
-    reads = np.zeros(CLUSTER, dtype=int)
+    # x // COLS at row·COLS + x % COLS, negated where src >= N
+    rot_diff = np.zeros((k1, b, n), dtype=np.uint64)
+    reads = np.zeros(cluster, dtype=int)
+    negated = 0
     with np.errstate(over="ignore"):
         for tl in range(tiles):
             rows = min(LANES, b - LANES * tl)
             for h, c0 in enumerate(c0s):
                 row = np.arange(rows)[:, None]
                 m = c0 + np.arange(COLS)[None, :]
-                src = (m - t[LANES * tl + row]) & (2 * N - 1)
-                x = src & (N - 1)
+                src = (m - t[LANES * tl + row]) & (2 * n - 1)
+                x = src & (n - 1)
                 owner = x // COLS
                 np.add.at(reads, owner.reshape(-1), k1)
+                negated += k1 * int((src >= n).sum())
                 v = tile_acc[:, tl][:, owner, row, x % COLS]
-                rot = np.where(src < N, v, np.uint64(0) - v)
+                rot = np.where(src < n, v, np.uint64(0) - v)
                 rot_diff[:, LANES * tl:LANES * tl + rows, c0:c0 + COLS] = (
                     rot - tile_acc[:, tl, h, :rows])
-    return new.view(np.int64), rot_diff.view(np.int64), reads
+    return new.view(np.int64), rot_diff.view(np.int64), reads, negated
 
 
-def step_operands(b, seed, k1=5, lv=3, n_d=2, js=2, base_log=12, fill=None):
-    """A step at N = 512, by default PARAMS_SQRD_LVL_64's (k+1 = 5, L = 3,
-    n_d = 2, js = 2, base_log 12); random, or every byte `fill`."""
+def step_operands(b, seed, n=512, k1=5, lv=3, n_d=2, js=2, base_log=12,
+                  fill=None):
+    """A step at polynomial size n, by default PARAMS_SQRD_LVL_64's
+    (N = 512, k+1 = 5, L = 3, n_d = 2, js = 2, base_log 12); random, or
+    every byte `fill`."""
     rng = np.random.default_rng(seed)
     if fill is None:
-        dig = rng.integers(-128, 128, (k1, lv, n_d, b, N), dtype=np.int8)
-        ext = rng.integers(-128, 128, (k1, k1 * lv, 8 - js, 2 * N),
+        dig = rng.integers(-128, 128, (k1, lv, n_d, b, n), dtype=np.int8)
+        ext = rng.integers(-128, 128, (k1, k1 * lv, 8 - js, 2 * n),
                            dtype=np.int8)
     else:
-        dig = np.full((k1, lv, n_d, b, N), fill, dtype=np.int8)
-        ext = np.full((k1, k1 * lv, 8 - js, 2 * N), fill, dtype=np.int8)
-    acc = rng.integers(-2 ** 63, 2 ** 63, (k1, b, N), dtype=np.int64)
-    t = rng.integers(0, 2 * N, b)
-    t[:4] = [0, 1, N, 2 * N - 1][:b]
+        dig = np.full((k1, lv, n_d, b, n), fill, dtype=np.int8)
+        ext = np.full((k1, k1 * lv, 8 - js, 2 * n), fill, dtype=np.int8)
+    acc = rng.integers(-2 ** 63, 2 ** 63, (k1, b, n), dtype=np.int64)
+    t = rng.integers(0, 2 * n, b)
+    t[:4] = [0, 1, n, 2 * n - 1][:b]
     return dig, ext, acc, t, base_log, lv, js
 
 
@@ -270,14 +307,14 @@ def check_against_plain(dig, ext, acc, t, base_log, levels, js):
         torch.from_numpy(dig), torch.from_numpy(ext),
         torch.from_numpy(acc.copy()), torch.from_numpy(t).to(torch.int32),
         base_log, levels, js)
-    got_acc, rot_diff, reads = emulate(dig, ext, acc, t, base_log, levels,
-                                       js)
+    got_acc, rot_diff, reads, negated = emulate(dig, ext, acc, t, base_log,
+                                                levels, js)
     assert np.array_equal(got_acc, want_acc.numpy())
     digits = decomposition.decompose(torch.from_numpy(rot_diff), base_log,
                                      levels)
     got_dig = torus.split_int32_signed(digits, n_d).permute(1, 4, 0, 2, 3)
     assert torch.equal(got_dig, want_dig)
-    return reads
+    return reads, negated
 
 
 def test_wgmma_k1_matches_plain_at_lvl64():
@@ -285,7 +322,7 @@ def test_wgmma_k1_matches_plain_at_lvl64():
     full lane tile and a ragged one of 8 lanes), equals
     extprod_step2g_plain bit for bit: the new accumulator and the next
     step's digits; the glue reads every rank of the cluster."""
-    reads = check_against_plain(*step_operands(40, 60))
+    reads, _ = check_against_plain(*step_operands(40, 60))
     assert (reads > 0).all()
 
 
@@ -296,94 +333,159 @@ def test_wgmma_k1_matches_plain_at_the_tree_models_step():
                                        base_log=6))
 
 
-def test_wgmma_k1_extreme_values():
+@pytest.mark.parametrize("b", [33, 40])
+def test_wgmma_k1_matches_plain_at_lvl256(b):
+    """PARAMS_SQRD_LVL_256's step at N = 1024 (k+1 = 3, L = 4, n_d = 2,
+    js = 2, base_log 9: R = 12 rows of two units each), across the 32-lane
+    tile edge: bit-equal to plain; the glue reads all 8 ranks of the
+    cluster, some of them negated (src >= N)."""
+    reads, negated = check_against_plain(*step_operands(
+        b, 70 + b, n=1024, k1=3, lv=4, n_d=2, js=2, base_log=9))
+    assert reads.shape == (8,) and (reads > 0).all() and negated > 0
+
+
+def test_wgmma_k1_matches_plain_at_the_8bit_step():
+    """PARAMS_WOPPBS_8BIT's step at N = 1024 (k+1 = 3, L = 6, one limb a
+    digit, js = 1, base_log 7: R = 18, 7 buckets), B = 33: bit-equal to
+    plain."""
+    check_against_plain(*step_operands(33, 71, n=1024, k1=3, lv=6, n_d=1,
+                                       js=1, base_log=7))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_wgmma_k1_extreme_values(n):
     """Every digit and key byte -128 at R = 15 (one component, 15 levels
-    of base 2^4): each int32 bucket at n_d·R·N·2^14, the bound the wrapper
-    admits, reproduced exactly, with a ragged tile of 13 lanes."""
-    check_against_plain(*step_operands(13, 7, k1=1, lv=15, base_log=4,
+    of base 2^4): each int32 bucket at n_d·R·N·2^14, reproduced exactly,
+    with a ragged tile of 13 lanes."""
+    check_against_plain(*step_operands(13, 7, n=n, k1=1, lv=15, base_log=4,
                                        fill=-128))
 
 
-def test_table_window_is_the_s_table():
-    """Every block's window (c0 its first column) holds S-table words
-    x = y - c0 - COLS for y in [0, N + COLS), unwrapped; the A words of
-    every warp and k-step lie inside it."""
+@pytest.mark.parametrize("n", SIZES)
+def test_table_window_is_the_s_table(n):
+    """Every unit's window (c0 the block's first column, k0 the unit's
+    first digit column) holds S-table words x = y + k0 - c0 - COLS for y
+    in [0, KC + COLS), unwrapped; the A words of every warp and k-step lie
+    inside it, and over all blocks and units they read x in [1 - N, N - 4]
+    only, every such word once at least."""
     rng = np.random.default_rng(2)
-    raw = rng.integers(-128, 128, 2 * N, dtype=np.int8)
-    full = table_by_definition(raw, N)                  # word x at x + N
+    raw = rng.integers(-128, 128, 2 * n, dtype=np.int8)
+    full = table_by_definition(raw, n)                  # word x at x + N
     y = np.arange(TAB)
-    for c0 in range(0, N, COLS):
-        assert np.array_equal(window_table(raw, c0),
-                              full[(y - c0 - COLS + N) % (2 * N)])
     at0 = word_index()
     assert at0.min() >= 1 and (at0 + 16 * 2 * KSTEPS).max() <= TAB - 4
+    read = set()
+    for c0 in range(0, n, COLS):
+        for k0 in range(0, n, KC):
+            assert np.array_equal(window_table(raw, c0, n, k0),
+                                  full[(y + k0 - c0 - COLS + n) % (2 * n)])
+            read.update(range(1 + k0 - c0 - COLS, k0 + KC - 3 - c0))
+    assert read == set(range(1 - n, n - 3))
 
 
-def test_a_fragment_is_the_negacirculant_slab():
-    """A[row, k] of warpgroup g is NC[k, column(row)] =
-    ext[(column - k) mod 2N], column(16w + gid) = cA + gid and
-    column(16w + gid + 8) = cA + gid - 16, block-local cA = 64·g + 16 +
-    8·(w&1) + 32·(w>>1); the rows of a warpgroup are its 64 columns once
-    each."""
+@pytest.mark.parametrize("n", SIZES)
+def test_raw_slice_covers_the_window(n):
+    """At N = 1024 a unit stages KC/2 raw words a plane from raw_word0, a
+    multiple of 4 (whole 16-byte pieces), and its window groups read slice
+    words TAB/4 + 4 - yw - d in [3, TAB/4 + 4] (no wrap in the slice); at
+    N = 512 it stages the whole row."""
+    for c0 in range(0, n, COLS):
+        for k0 in range(0, n, KC):
+            w0 = raw_word0(c0, k0)
+            assert w0 % 4 == 0
+            raw_w = np.arange(n // 2, dtype=np.uint32)
+            staged = unit_raw(raw_w, n, np.asarray(c0), k0)
+            if n == KC:
+                assert np.array_equal(staged, raw_w)
+                continue
+            assert np.array_equal(staged, (w0 + np.arange(KC // 2)) % (n // 2))
+            yw = np.arange(TAB // 4)
+            # raw word -(yw + (k0 - c0 - COLS)/4) - d, d = 0..2, at slice
+            # word TAB/4 + 4 - yw - d
+            for d in range(3):
+                word = (-(yw + (k0 - c0 - COLS) // 4) - d) % (n // 2)
+                at = TAB // 4 + 4 - yw - d
+                assert at.min() >= 3 and at.max() <= TAB // 4 + 4
+                assert np.array_equal(staged[at], word)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_a_fragment_is_the_negacirculant_slab(n):
+    """A[row, k] of warpgroup g at the unit from k0 is NC[k0 + k,
+    column(row)] = ext[(column - k0 - k) mod 2N], column(16w + gid) = cA +
+    gid and column(16w + gid + 8) = cA + gid - 16, block-local cA = 64·g +
+    16 + 8·(w&1) + 32·(w>>1); the rows of a warpgroup are its 64 columns
+    once each."""
     rng = np.random.default_rng(3)
-    raw = rng.integers(-128, 128, 2 * N, dtype=np.int8)
-    for c0 in (0, N - COLS):
-        a = a_operand(window_table(raw, c0))            # [WGS, 64, N]
-        for g in range(WGS):
-            w = np.arange(4)[:, None]
-            ca = 64 * g + 16 + 8 * (w & 1) + 32 * (w >> 1)
-            col = np.concatenate([ca + np.arange(8), ca - 16 + np.arange(8)],
-                                 axis=1).reshape(-1)     # by row
-            assert np.array_equal(np.sort(col), 64 * g + np.arange(64))
-            k = np.arange(N)
-            want = raw[(c0 + col[:, None] - k[None, :]) % (2 * N)]
-            assert np.array_equal(a[g], want)
+    raw = rng.integers(-128, 128, 2 * n, dtype=np.int8)
+    for c0 in (0, n - COLS):
+        for k0 in range(0, n, KC):
+            a = a_operand(window_table(raw, c0, n, k0))     # [WGS, 64, KC]
+            for g in range(WGS):
+                w = np.arange(4)[:, None]
+                ca = 64 * g + 16 + 8 * (w & 1) + 32 * (w >> 1)
+                col = np.concatenate([ca + np.arange(8),
+                                      ca - 16 + np.arange(8)],
+                                     axis=1).reshape(-1)     # by row
+                assert np.array_equal(np.sort(col), 64 * g + np.arange(64))
+                k = k0 + np.arange(KC)
+                want = raw[(c0 + col[:, None] - k[None, :]) % (2 * n)]
+                assert np.array_equal(a[g], want)
 
 
-def test_digit_tile_core_matrices():
-    """The staged digit tile read through the descriptor is the digits:
-    B[k, n] of limb i at k-step kt is dig_i[lane n, 32·kt + k], lanes past
-    the batch zero; each 8-lane core matrix is 128 contiguous bytes."""
+@pytest.mark.parametrize("n", SIZES)
+def test_digit_tile_core_matrices(n):
+    """Each unit's staged digit tile read through the descriptor is its
+    digits: B[k, lane] of limb i at k-step kt of the unit from k0 is
+    dig_i[lane, k0 + 32·kt + k], lanes past the batch zero; each 8-lane
+    core matrix is 128 contiguous bytes."""
     rng = np.random.default_rng(4)
-    dig = rng.integers(-128, 128, (2, LANES, N), dtype=np.int8)
-    tile = digit_tile(dig, 27)
-    for i in range(2):
-        for kt in (0, 7, KSTEPS - 1):
-            got = b_operand(tile, i, kt)
-            want = dig[i, :, 32 * kt:32 * kt + 32].T.copy()
-            want[:, 27:] = 0
-            assert np.array_equal(got, want)
-    core = tile[:128].view(np.int8).reshape(8, 16)      # lanes 0-7, k 0-15
-    assert np.array_equal(core, dig[0, :8, :16])
+    dig = rng.integers(-128, 128, (2, LANES, n), dtype=np.int8)
+    for k0 in range(0, n, KC):
+        tile = digit_tile(dig[:, :, k0:k0 + KC], 27)
+        for i in range(2):
+            for kt in (0, 7, KSTEPS - 1):
+                got = b_operand(tile, i, kt)
+                want = dig[i, :, k0 + 32 * kt:k0 + 32 * kt + 32].T.copy()
+                want[:, 27:] = 0
+                assert np.array_equal(got, want)
+        core = tile[:128].view(np.int8).reshape(8, 16)  # lanes 0-7, k 0-15
+        assert np.array_equal(core, dig[0, :8, k0:k0 + 16])
 
 
 def test_dispatch_chooses_the_path_from_n_and_b():
-    """k1_path: wgmma at N = 512 from WG_MIN_LANES lanes up, mma.sync below
-    it and at every other N; the shape constants are the CUDA source's and
-    every block fits the card's shared memory and a portable cluster."""
-    for b in (kx.WG_MIN_LANES, 9, 32, 40, 288, 2048):
-        assert kx.k1_path(512, b) == "wgmma"
-    for b in range(1, kx.WG_MIN_LANES):
-        assert kx.k1_path(512, b) == "mma.sync"
-    for n in (64, 256, 1024):
-        for b in (1, 288, 2048):
-            assert kx.k1_path(n, b) == "mma.sync"
+    """k1_path: wgmma at each N the CUDA source is built for (512 and 1024)
+    whatever the batch (it wins from one lane at both, PERF.md), mma.sync
+    at every other N; the shape constants are the CUDA source's, and at
+    both N every block (js 0..7, n_d 1..3) fits the card's shared memory
+    and a portable cluster, and the wrapper's shared-memory size refuses
+    every other N."""
     src = (CSRC / "nc_wgmma.cuh").read_text()
-    assert int(re.search(r"constexpr int N = (\d+);", src).group(1)) == N
+    kern = (CSRC / "cmux_wg.cu").read_text()
+    built = {int(v) for v in re.findall(r"launch_wg<(\d+), ND, JS>", kern)}
+    assert built == set(kx.WG_N) == {512, 1024}
+    for n in SIZES:
+        assert kx.k1_path(n) == "wgmma"
+        assert n % COLS == 0 and n // COLS <= 8 and n % KC == 0
+        for js in range(8):
+            for n_d in (1, 2, 3):
+                assert kx._k1_wg_smem(n, 8 - js, n_d) <= kx.SMEM_LIMIT
+    for n in (64, 128, 256, 2048):
+        assert kx.k1_path(n) == "mma.sync"
+        with pytest.raises(ValueError):
+            kx._k1_wg_smem(n, 6, 2)
+    assert int(re.search(r"constexpr int KC = (\d+);", src).group(1)) == KC
     assert int(re.search(r"constexpr int LANES = (\d+);", src).group(1)) \
         == LANES
     assert 64 * int(re.search(r"constexpr int WGS = (\d+);", src).group(1)) \
         == COLS
-    assert N % COLS == 0 and CLUSTER <= 8
-    for js in range(8):
-        for n_d in (1, 2, 3):
-            assert kx._k1_wg_smem(8 - js, n_d) <= kx.SMEM_LIMIT
 
 
-def test_wrapper_counts_the_wgmma_launches_apart():
+@pytest.mark.parametrize("n", SIZES)
+def test_wrapper_counts_the_wgmma_launches_apart(n):
     """On the CPU the wrapper runs the plain version and counts no launch
     of either kernel."""
-    dig, ext, acc, t, bl, lv, js = step_operands(33, 5)
+    dig, ext, acc, t, bl, lv, js = step_operands(33, 5, n=n)
     before = (kx.extprod_step2g.launches, kx.extprod_step2g.launches_wg)
     kx.extprod_step2g(torch.from_numpy(dig[:, :, :, :1]),
                       torch.from_numpy(ext), torch.from_numpy(acc[:, :1]),

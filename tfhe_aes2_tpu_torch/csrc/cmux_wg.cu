@@ -1,4 +1,4 @@
-// K1 at N = 512 on wgmma: the blind-rotate CMux step of
+// K1 on wgmma at N = 512 and 1024: the blind-rotate CMux step of
 // tfhe_aes2_tpu/ops/pallas/extprod.py::extprod_step2g, as cmux.cu's K1
 // computes it (the same kept limb-plane dots, int32 buckets, wrapping
 // uint64 recombination and fused glue of the next step, bit for bit), with
@@ -6,25 +6,29 @@
 // (nc_wgmma.cuh) in place of mma.sync.m16n8k32 over 8-lane blocks.
 //
 // What bounds it on the H100: int8 operations (a step at B = 2,048 lanes is
-// 2,048 x 4.325e8 operations, 0.448 ms at the 1,979 TOPS peak), and beside
-// them shared-memory bandwidth: each wgmma reads its 1 KB digit tile from
-// shared memory, about half of the 128 bytes a clock an SM has at the
-// tensor cores' rate. mma.sync at N = 8 stopped at a third of the bound
-// (PERF.md).
+// 2,048 x 4.325e8 operations at lvl64, 0.448 ms at the 1,979 TOPS peak,
+// and 2,048 x 8.305e8 at lvl256, 0.859 ms), and beside them shared-memory
+// bandwidth: each wgmma reads its 1 KB digit tile from shared memory,
+// about half of the 128 bytes a clock an SM has at the tensor cores' rate.
+// mma.sync at N = 8 stopped at a third of the bound (PERF.md).
 //
 // A block owns 32 batch lanes x COLS = 128 output columns of one component
 // o: two warpgroups of one 64-column tile each, 8-JS buckets of 16 int32
 // registers a thread (32 lanes x all 512 columns x 6 buckets would need
-// more registers than an SM has). It contracts over
-// all N digit columns, row by row as nc::contract_mma does: the raw key
-// rows and the digit tile of the next row arrive by cp.async into a
-// second stage, and the next row's table windows are built from the raw
-// rows, in small steps between this row's first instruction groups. Grid
-// (ceil(B/32), O, N/COLS).
+// more registers than an SM has). It contracts over all N digit columns,
+// unit by unit (a unit: one contraction row's KC = 512 digit columns, so
+// one a row at N = 512 and two at N = 1024), as nc::contract_mma does row
+// by row: the raw key bytes and the digit tile of the next unit arrive by
+// cp.async into a second stage, and the next unit's table windows are
+// built from the raw bytes, in small steps between this unit's first
+// instruction groups. Grid (ceil(B/32), O, N/COLS). N is a template value:
+// the stage and the unit's body are the same at both sizes, and N sets the
+// cluster, the units a row and the raw bytes a unit stages.
 //
 // The glue. The next step's rotation reads column (m - t) mod N of the
 // whole new row, so the N/COLS blocks of one (lane tile, o) launch as one
-// cluster (cudaLaunchKernelEx, cluster {1, 1, N/COLS}, rank = blockIdx.z).
+// cluster (cudaLaunchKernelEx, cluster {1, 1, N/COLS}: 4 blocks at N = 512,
+// 8 at N = 1024; rank = blockIdx.z).
 // Each block adds its recombined sums into the accumulator through a
 // [32][COLS] int64 tile in its shared memory (coalesced read-modify-write
 // of device memory), the cluster synchronises, and each block glues its own
@@ -41,12 +45,12 @@ namespace {
 
 namespace wg = nc::wg;
 
-// dig     int8  [R][ND][B][512]       this step's digit limb planes
-// ext     int8  [O][R][8-JS][1024]    this step's BSK limb planes
-// acc     int64 [O][B][512]           updated in place
+// dig     int8  [R][ND][B][N]         this step's digit limb planes
+// ext     int8  [O][R][8-JS][2N]      this step's BSK limb planes
+// acc     int64 [O][B][N]             updated in place
 // t_next  int32 [B]                   next step's mod-switched mask element
-// dig_out int8  [O][L][ND][B][512]    next step's digits
-template <int ND, int JS>
+// dig_out int8  [O][L][ND][B][N]      next step's digits
+template <int N, int ND, int JS>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 extprod_step2g_wg_kernel(const int8_t* __restrict__ dig,
                          const int8_t* __restrict__ ext,
@@ -55,21 +59,32 @@ extprod_step2g_wg_kernel(const int8_t* __restrict__ dig,
                          int8_t* __restrict__ dig_out, int B, int R,
                          int levels, int base_log) {
   constexpr int NJ = 8 - JS;
-  constexpr int N = wg::N, COLS = wg::COLS, THREADS = wg::THREADS;
-  constexpr int TAB_B = NJ * wg::TAB_WORDS * 4, RAW_B = NJ * 2 * N,
-                DIG_B = ND * wg::DIG_PLANE;
+  constexpr int KC = wg::KC, COLS = wg::COLS, THREADS = wg::THREADS;
+  constexpr int UNITS = wg::units<N>();
+  constexpr int TAB_B = NJ * wg::TAB_WORDS * 4, RAW_B = NJ * 2 * KC,
+                DIG_B = ND * wg::DIG_PLANE, ROW_B = NJ * 2 * N;
   extern __shared__ __align__(128) unsigned char smem[];
   const int o = blockIdx.y;
   const int b0 = blockIdx.x * wg::LANES;
   const int rows = min(wg::LANES, B - b0);
   const int c0 = blockIdx.z * COLS;     // blockIdx.z is the cluster rank
+  const int U = R * UNITS;              // unit v: row v / UNITS, k-chunk
+                                        // v % UNITS
   unsigned char* tab = smem;                // [2][TAB_B]
   unsigned char* raw = smem + 2 * TAB_B;    // [2][RAW_B]
   unsigned char* dig_s = raw + 2 * RAW_B;   // [2][DIG_B]
-  const int8_t* ext_o = ext + (size_t)o * R * RAW_B;
+  const int8_t* ext_o = ext + (size_t)o * R * ROW_B;
   const int8_t* dig_b = dig + (size_t)b0 * N;
   const unsigned dig_r = (unsigned)(ND * B * N);
   const unsigned dig_plane = (unsigned)(B * N);
+  // unit v's digit rows at its k0, and piece p of its raw key bytes
+  auto unit_dig = [&](int v) {
+    return dig_b + (size_t)(v / UNITS) * dig_r + (v % UNITS) * KC;
+  };
+  auto copy_raw = [&](unsigned char* dst, int v, int p) {
+    wg::copy_raw_piece<N, NJ>(dst, ext_o + (size_t)(v / UNITS) * ROW_B, c0,
+                              (v % UNITS) * KC, p);
+  };
 
   int32_t part[NJ][wg::ACC];
 #pragma unroll
@@ -77,9 +92,16 @@ extprod_step2g_wg_kernel(const int8_t* __restrict__ dig,
 #pragma unroll
     for (int c = 0; c < wg::ACC; ++c) part[s][c] = 0;
 
-  // row 0's stage; then each row stages the next in the shadow of its own
-  // first instruction groups (mma_row's prep)
-  nc::copy_async(raw, ext_o, (R > 1 ? 2 : 1) * RAW_B);
+  // unit 0's stage (and unit 1's raw bytes); then each unit stages the
+  // next in the shadow of its own first instruction groups (mma_unit's
+  // prep)
+  if constexpr (UNITS == 1) {
+    nc::copy_async(raw, ext_o, (R > 1 ? 2 : 1) * RAW_B);
+  } else {
+    for (int p = threadIdx.x; p < 2 * RAW_B / 16; p += THREADS)
+      copy_raw(raw + (p / (RAW_B / 16)) * RAW_B, p / (RAW_B / 16),
+               p % (RAW_B / 16));
+  }
   for (int t = 0; t < wg::prep_steps<ND, NJ>(); ++t)
     wg::copy_digit_piece<ND>(dig_s, dig_b, dig_plane, N, rows,
                              threadIdx.x + t * THREADS);
@@ -87,35 +109,32 @@ extprod_step2g_wg_kernel(const int8_t* __restrict__ dig,
   nc::cp_async_wait_all();
   __syncthreads();
   for (int t = 0; t < wg::prep_steps<ND, NJ>(); ++t)
-    wg::build_window_group<NJ>(reinterpret_cast<uint32_t*>(tab), raw, c0,
-                               threadIdx.x + t * THREADS);
+    wg::build_window_group<N, NJ>(reinterpret_cast<uint32_t*>(tab), raw, c0,
+                                  threadIdx.x + t * THREADS);
   wg::fence_proxy_async();
   __syncthreads();
-  for (int r = 0; r < R; ++r) {
-    const int s = r & 1;
-    // stage s holds row r's tables and digits, raw stage s^1 row r+1's key
-    // rows; everything else was last read before the barrier just passed.
-    // Step t of the staging: digit piece and table group t of row r+1,
-    // 16 raw bytes of row r+2
+  for (int u = 0; u < U; ++u) {
+    const int s = u & 1;
+    // stage s holds unit u's tables and digits, raw stage s^1 unit u+1's
+    // key bytes; everything else was last read before the barrier just
+    // passed. Step t of the staging: digit piece and table group t of
+    // unit u+1, 16 raw bytes of unit u+2
     auto prep = [&](int t) {
       const int p = threadIdx.x + t * THREADS;
-      if (r + 1 < R) {
-        wg::copy_digit_piece<ND>(dig_s + (s ^ 1) * DIG_B,
-                                 dig_b + (size_t)(r + 1) * dig_r, dig_plane,
-                                 N, rows, p);
-        wg::build_window_group<NJ>(
+      if (u + 1 < U) {
+        wg::copy_digit_piece<ND>(dig_s + (s ^ 1) * DIG_B, unit_dig(u + 1),
+                                 dig_plane, N, rows, p);
+        wg::build_window_group<N, NJ>(
             reinterpret_cast<uint32_t*>(tab + (s ^ 1) * TAB_B),
             raw + (s ^ 1) * RAW_B, c0, p);
       }
-      if (r + 2 < R && p < RAW_B / 16)
-        nc::cp_async16(raw + s * RAW_B + 16 * p,
-                       ext_o + (size_t)(r + 2) * RAW_B + 16 * p, 16);
+      if (u + 2 < U && p < RAW_B / 16) copy_raw(raw + s * RAW_B, u + 2, p);
     };
-    wg::mma_row<ND, JS>(part,
-                        reinterpret_cast<const uint32_t*>(tab + s * TAB_B),
-                        wg::digit_desc(dig_s + s * DIG_B), prep);
+    wg::mma_unit<ND, JS>(part,
+                         reinterpret_cast<const uint32_t*>(tab + s * TAB_B),
+                         wg::digit_desc(dig_s + s * DIG_B), prep);
     nc::cp_async_commit();
-    // the next row's digits land in the stage these instructions read
+    // the next unit's digits land in the stage these instructions read
     wg::wait<0>();
     nc::cp_async_wait_all();
     wg::fence_proxy_async();
@@ -161,48 +180,97 @@ extprod_step2g_wg_kernel(const int8_t* __restrict__ dig,
   cluster.sync();   // the cluster may still be reading this block's tile
 }
 
-template <int ND, int JS>
-int launch_wg(const int8_t* dig, const int8_t* ext, int64_t* acc,
-              const int32_t* t_next, int8_t* dig_out, int B, int O, int R,
-              int levels, int base_log, cudaStream_t stream) {
+// The launch of a B-lane step, its kernel's attributes set: grid
+// (ceil(B/32), O, N/COLS), clusters {1, 1, N/COLS}. `attr` holds the
+// cluster dimension cfg points to.
+template <int N, int ND, int JS>
+cudaError_t wg_config(int B, int O, cudaStream_t stream,
+                      cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
   const int smem = wg::smem_bytes(8 - JS, ND);
-  auto kern = extprod_step2g_wg_kernel<ND, JS>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = wg::CLUSTER;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((B + wg::LANES - 1) / wg::LANES, O, wg::CLUSTER);
+      extprod_step2g_wg_kernel<N, ND, JS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = wg::cluster<N>();
+  cfg = {};
+  cfg.gridDim = dim3((B + wg::LANES - 1) / wg::LANES, O, wg::cluster<N>());
   cfg.blockDim = dim3(wg::THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cfg.attrs = attr;
+  cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kern, dig, ext,
-                           reinterpret_cast<uint64_t*>(acc), t_next, dig_out,
-                           B, R, levels, base_log);
+  return err;
+}
+
+template <int N, int ND, int JS>
+int launch_wg(const int8_t* dig, const int8_t* ext, int64_t* acc,
+              const int32_t* t_next, int8_t* dig_out, int B, int O, int R,
+              int levels, int base_log, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = wg_config<N, ND, JS>(B, O, stream, cfg, attr);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, extprod_step2g_wg_kernel<N, ND, JS>, dig,
+                           ext, reinterpret_cast<uint64_t*>(acc), t_next,
+                           dig_out, B, R, levels, base_log);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// How many of the launch's clusters the card holds at once.
+template <int N, int ND, int JS>
+int wg_clusters(int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = wg_config<N, ND, JS>(wg::LANES, 1, nullptr, cfg, attr);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveClusters(
+      clusters, extprod_step2g_wg_kernel<N, ND, JS>, &cfg);
+}
+
 }  // namespace
 
-// K1 on wgmma: tfhe_extprod_step2g's arguments and layouts, at N = 512
-// only (cudaErrorInvalidValue at any other n).
+// K1 on wgmma: tfhe_extprod_step2g's arguments and layouts, at n = 512 and
+// 1024 only (cudaErrorInvalidValue at any other n).
 extern "C" int tfhe_extprod_step2g_wg(const int8_t* dig, const int8_t* ext,
                                       int64_t* acc, const int32_t* t_next,
                                       int8_t* dig_out, int B, int n, int O,
                                       int R, int levels, int nd, int js,
                                       int base_log, void* stream) {
-  if (n != wg::N) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define WG_CALL(ND, JS)                                                     \
-  launch_wg<ND, JS>(dig, ext, acc, t_next, dig_out, B, O, R, levels,       \
-                    base_log, s)
-  NC_DISPATCH(nd, js, WG_CALL)
-#undef WG_CALL
+#define WG_CALL_512(ND, JS)                                                 \
+  launch_wg<512, ND, JS>(dig, ext, acc, t_next, dig_out, B, O, R, levels,  \
+                         base_log, s)
+#define WG_CALL_1024(ND, JS)                                                \
+  launch_wg<1024, ND, JS>(dig, ext, acc, t_next, dig_out, B, O, R, levels, \
+                          base_log, s)
+  if (n == 512) {
+    NC_DISPATCH(nd, js, WG_CALL_512)
+  }
+  if (n == 1024) {
+    NC_DISPATCH(nd, js, WG_CALL_1024)
+  }
+#undef WG_CALL_512
+#undef WG_CALL_1024
+  return (int)cudaErrorInvalidValue;
+}
+
+// The clusters of K1 on wgmma that the card holds at once
+// (cudaOccupancyMaxActiveClusters) at n = 512 or 1024: a launch of more
+// than that runs in waves. chip_smoke.py and PERF.md read it.
+extern "C" int tfhe_extprod_step2g_wg_clusters(int n, int nd, int js,
+                                               int* clusters) {
+#define WG_OCC_512(ND, JS) wg_clusters<512, ND, JS>(clusters)
+#define WG_OCC_1024(ND, JS) wg_clusters<1024, ND, JS>(clusters)
+  if (n == 512) {
+    NC_DISPATCH(nd, js, WG_OCC_512)
+  }
+  if (n == 1024) {
+    NC_DISPATCH(nd, js, WG_OCC_1024)
+  }
+#undef WG_OCC_512
+#undef WG_OCC_1024
+  return (int)cudaErrorInvalidValue;
 }

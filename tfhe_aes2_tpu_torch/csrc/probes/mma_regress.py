@@ -4,10 +4,13 @@ card, so that two versions of the shared tensor-core contraction
 K8 (vp.cu), K6 and K7 (step.cu), K9 (merged.cu), K10b (longk.cu) and K11
 (bucket.cu), which share it, and the glue K2 (cmux.cu) and K10a (longk.cu)
 beside them. K1 is also timed on its own from 1 lane through the latency
-path's batches to the 16-block batch's 2,048 lanes, as the wrapper
-launches it ("K1") and, where the checkout has K1 on wgmma (cmux_wg.cu),
-each of its two kernels ("K1 mma.sync", "K1 wgmma"): the crossover
-extprod.WG_MIN_LANES is read from these times.
+path's batches to the 16-block batch's 2,048 lanes, at lvl64's step
+(N = 512) and lvl256's (N = 1024), and at the 8-bit model's scans
+(N = 1024), as the wrapper launches it ("K1") and, where the checkout
+has K1 on wgmma (cmux_wg.cu) at that N, each of its two kernels ("K1
+mma.sync", "K1 wgmma"); for each step it prints the crossover, the
+fewest lanes from which wgmma is the faster at every batch timed (below
+one lane at both N: extprod.k1_path reads N alone).
 
     python3 tfhe_aes2_tpu_torch/csrc/probes/mma_regress.py [ROOT]
 
@@ -47,6 +50,71 @@ def device_ms(fn, reps=50):
         b.record()
     torch.cuda.synchronize()
     return float(np.median([a.elapsed_time(b) for a, b in ev]))
+
+
+def k1_alone(times, r8, gen):
+    """K1 alone at lvl64's, lvl256's and the 8-bit model's steps, as the
+    wrapper launches it and, where the checkout has K1 on wgmma at the
+    step's N, each kernel through its own C entry, bit-equal to plain;
+    times into `times`, and each step's crossover printed."""
+    wg_n = getattr(kx, "WG_N", ())
+    wg_n = wg_n if isinstance(wg_n, frozenset) else {wg_n}
+    for label, (o, lv, n, nd, js, bl), batches in (
+            ("", (5, 3, 512, 2, 2, 12),
+             (1, 9, 16, 32, 64, 96, 128, 160, 192, 256, 288, 2048)),
+            ("N=1024 lvl256 ", (3, 4, 1024, 2, 2, 9),
+             (1, 9, 16, 32, 128, 160, 288, 2048)),
+            ("N=1024 8-bit ", (3, 6, 1024, 1, 1, 7), (1, 16, 32, 128))):
+        ext = r8(o, o * lv, 8 - js, 2 * n)
+        entries = ([("K1 mma.sync", "cmux", "tfhe_extprod_step2g"),
+                    ("K1 wgmma", "cmux_wg", "tfhe_extprod_step2g_wg")]
+                   if n in wg_n else [])
+        for b in batches:
+            dig = r8(o, lv, nd, b, n)
+            acc = torch.randint(-2 ** 62, 2 ** 62, (o, b, n), generator=gen,
+                                dtype=torch.int64).cuda()
+            t = torch.randint(0, 2 * n, (b,), generator=gen,
+                              dtype=torch.int32).cuda()
+            want = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, bl, lv,
+                                           js)
+            step = {"K1": lambda: kx.extprod_step2g(dig, ext, acc, t, bl, lv,
+                                                    js)}
+            for name, stem, entry in entries:
+                f = kx._fn(stem, entry, [kx._P] * 5 + [kx._I] * 8 + [kx._P])
+
+                def launch(f=f, a=acc, out=torch.empty_like(dig)):
+                    build.check(f(dig.data_ptr(), ext.data_ptr(),
+                                  a.data_ptr(), t.data_ptr(), out.data_ptr(),
+                                  b, n, o, o * lv, lv, nd, js, bl,
+                                  build.stream_ptr(a.device)), entry)
+                    return a, out
+                got = launch(a=acc.clone())
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"{name} differs from plain at "
+                                         f"{label}B={b}")
+                step[name] = launch
+            del want
+            before = getattr(kx.extprod_step2g, "launches_wg", 0)
+            step["K1"]()
+            took = ("wgmma" if getattr(kx.extprod_step2g, "launches_wg", 0)
+                    > before else "mma.sync")
+            for name, fn in step.items():
+                times[f"{name} {label}B={b}"] = device_ms(fn)
+            print(f"K1 {label}B={b}: " + ", ".join(
+                f"{name} {times[f'{name} {label}B={b}']:.4f} ms"
+                for name in step) + f" (the wrapper takes {took})",
+                flush=True)
+        if entries:
+            wins = [times[f"K1 wgmma {label}B={b}"]
+                    <= times[f"K1 mma.sync {label}B={b}"] for b in batches]
+            start = next((batches[i] for i in range(len(batches))
+                          if all(wins[i:])), None)
+            verdict = (f"faster from B={start} at every batch timed"
+                       if start is not None
+                       else "slower at the largest batch")
+            print(f"K1 {label or 'N=512 lvl64 '}crossover: wgmma is the "
+                  f"{verdict}", flush=True)
 
 
 def main() -> int:
@@ -103,42 +171,7 @@ def main() -> int:
             times[f"{name} B={b}"] = device_ms(fn)
         print(f"B={b}: " + ", ".join(f"{name} {times[f'{name} B={b}']:.4f} "
                                      "ms" for name in step), flush=True)
-    # K1 alone, as the wrapper launches it and, where the checkout has K1
-    # on wgmma, each kernel through its own C entry
-    wide = hasattr(kx, "k1_path")
-    entries = ([("K1 mma.sync", "cmux", "tfhe_extprod_step2g"),
-                ("K1 wgmma", "cmux_wg", "tfhe_extprod_step2g_wg")]
-               if wide else [])
-    for b in (1, 9, 16, 32, 64, 96, 128, 160, 192, 256, 288, 2048):
-        dig = r8(o, lv, nd, b, n)
-        acc = torch.randint(-2 ** 62, 2 ** 62, (o, b, n), generator=gen,
-                            dtype=torch.int64).cuda()
-        t = torch.randint(0, 2 * n, (b,), generator=gen,
-                          dtype=torch.int32).cuda()
-        want = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, bl, lv, js)
-        step = {"K1": lambda: kx.extprod_step2g(dig, ext, acc, t, bl, lv,
-                                                js)}
-        for name, stem, entry in entries:
-            f = kx._fn(stem, entry, [kx._P] * 5 + [kx._I] * 8 + [kx._P])
-
-            def launch(f=f, a=acc, out=torch.empty_like(dig)):
-                build.check(f(dig.data_ptr(), ext.data_ptr(), a.data_ptr(),
-                              t.data_ptr(), out.data_ptr(), b, n, o, o * lv,
-                              lv, nd, js, bl, build.stream_ptr(a.device)),
-                            entry)
-                return a, out
-            got = launch(a=acc.clone())
-            if not (torch.equal(got[0], want[0])
-                    and torch.equal(got[1], want[1])):
-                raise AssertionError(f"{name} differs from plain at B={b}")
-            step[name] = launch
-        del want
-        for name, fn in step.items():
-            times[f"{name} B={b}"] = device_ms(fn)
-        print(f"K1 B={b}: " + ", ".join(
-            f"{name} {times[f'{name} B={b}']:.4f} ms" for name in step)
-            + (f" (the wrapper takes {kx.k1_path(n, b)})" if wide else ""),
-            flush=True)
+    k1_alone(times, r8, gen)
     # K2 and K10a, the glue alone in two layouts, at the batches the paths
     # run them at
     for b in (9, 128, 160, 256, 288):

@@ -4,8 +4,8 @@ versions.
 K1 `extprod_step2g` — one whole blind-rotate CMux step (dots + recombine +
    the next step's glue). Replaces the Pallas kernel
    tfhe_aes2_tpu/ops/pallas/extprod.py::extprod_step2g; source csrc/cmux.cu,
-   and at N = 512 from WG_MIN_LANES lanes csrc/cmux_wg.cu (the same step on
-   `wgmma` over 32-lane tiles, `k1_path`).
+   and at N = 512 and 1024 csrc/cmux_wg.cu (the same step on `wgmma` over
+   32-lane tiles, `k1_path`).
 K2 `rot_diff_digits` — the glue alone, for step 0. Replaces
    extprod.py::rot_diff_digits; source csrc/cmux.cu (nc::glue_wide of
    csrc/nc_common.cuh: a thread owns 8 consecutive columns of one row).
@@ -55,12 +55,13 @@ takes on the card is N_MAX. Every kernel with products (K1, K3, K5-K9, K10b, K11
 the tensor cores: `mma.sync.m16n8k32` int8 whose operand fragments are S-table
 and digit-tile words, the operands staged by `cp.async` one contraction row
 ahead (csrc/nc_mma.cuh); what is left above their bound is the instruction rate
-of `mma.sync` at N = 8 and, in K9, the glue. K1 at N = 512 from WG_MIN_LANES
-lanes runs `wgmma.m64n32k32` instead, its A fragments S-table words and its B
-a 32-lane digit tile in shared memory (csrc/nc_wgmma.cuh). (K3's and K8's 8 instruction
-columns are 8 of a lane's G accumulators; K11's blocks each keep one weight
-bucket.) K2 and K10a are bound by bytes: one wide pass, a thread for every 8
-columns of an accumulator row (csrc/nc_common.cuh).
+of `mma.sync` at N = 8 and, in K9, the glue. K1 at N = 512 and 1024 runs
+`wgmma.m64n32k32` instead, its A fragments S-table words and its B a
+32-lane digit tile in shared memory (csrc/nc_wgmma.cuh).
+(K3's and K8's 8 instruction columns are 8 of a lane's G accumulators;
+K11's blocks each keep one weight bucket.) K2 and K10a are bound by bytes:
+one wide pass, a thread for every 8 columns of an accumulator row
+(csrc/nc_common.cuh).
 
 Layouts (int64 torus values; the TPU's (lo, hi) u32 pairs do not exist):
   dig    int8  [k+1, L, n_d, B, N]   digit limb planes, row r = u·L + l
@@ -309,31 +310,37 @@ def extprod_step2g_plain(dig, ext_or, acc, t_next, base_log: int,
 
 
 # K1 on `wgmma` (csrc/cmux_wg.cu, nc_wgmma.cuh): a block owns 32 lanes x
-# WG_COLS of the N = WG_N columns, its N / WG_COLS blocks one cluster.
-# Where it takes over from cmux.cu's mma.sync blocks of 8 lanes: from
-# WG_MIN_LANES lanes up, the crossover csrc/probes/mma_regress.py times
-# (PERF.md): on the H100 it lies below one lane, wgmma taking 0.080 ms at
-# B = 1 against mma.sync's 0.130, so every batch at N = 512 takes it.
-# WG_COLS is nc_wgmma.cuh's COLS.
-WG_N = 512
+# WG_COLS of the N columns, its N / WG_COLS blocks one cluster (4 at
+# N = 512, 8 at 1024), at each N in WG_N. A block contracts unit by unit,
+# a unit WG_KC digit columns of one row, so its stage is the same at both
+# sizes. It takes over from cmux.cu's mma.sync blocks of 8 lanes at every
+# batch: the crossover that csrc/probes/mma_regress.py times lies below one
+# lane at both sizes on the H100 (PERF.md), wgmma taking 0.080 ms at B = 1
+# against mma.sync's 0.130 at N = 512, 0.126 against 0.197 at N = 1024.
+# WG_LANES, WG_COLS and WG_KC are nc_wgmma.cuh's LANES, COLS and KC.
+WG_N = frozenset({512, 1024})
 WG_LANES = 32
 WG_COLS = 128
-WG_MIN_LANES = 1
+WG_KC = 512
 
 
-def k1_path(n: int, b: int) -> str:
-    """Which kernel K1 launches on the card for polynomial size n and
-    batch b: "wgmma" (cmux_wg.cu) at N = WG_N from WG_MIN_LANES lanes,
-    else "mma.sync" (cmux.cu)."""
-    return "wgmma" if n == WG_N and b >= WG_MIN_LANES else "mma.sync"
+def k1_path(n: int) -> str:
+    """Which kernel K1 launches on the card for polynomial size n, at any
+    batch: "wgmma" (cmux_wg.cu) at each N in WG_N, else "mma.sync"
+    (cmux.cu)."""
+    return "wgmma" if n in WG_N else "mma.sync"
 
 
-def _k1_wg_smem(nj: int, n_d: int) -> int:
-    """K1 on wgmma's block: two stages of nj table windows of N + WG_COLS
-    words, nj raw key rows and n_d 32-lane digit tiles, or the [32][WG_COLS]
-    int64 tile of the new accumulator, whichever is larger."""
-    stage = (nj * (WG_N + WG_COLS) * 4 + nj * 2 * WG_N
-             + n_d * WG_LANES * WG_N)
+def _k1_wg_smem(n: int, nj: int, n_d: int) -> int:
+    """K1 on wgmma's block at N = n (one of WG_N): two stages of a unit's
+    nj table windows of WG_KC + WG_COLS words, nj x 2·WG_KC raw key bytes
+    and n_d 32-lane digit tiles of WG_KC columns, or the [32][WG_COLS]
+    int64 tile of the new accumulator, whichever is larger. The stage is
+    the same at every N."""
+    if n not in WG_N:
+        raise ValueError(f"K1 on wgmma is not built for N={n}")
+    stage = (nj * (WG_KC + WG_COLS) * 4 + nj * 2 * WG_KC
+             + n_d * WG_LANES * WG_KC)
     return max(2 * stage, WG_LANES * WG_COLS * 8)
 
 
@@ -343,7 +350,7 @@ def extprod_step2g(dig: torch.Tensor, ext_or: torch.Tensor, acc: torch.Tensor,
     """K1. dig int8 [k+1, L, n_d, B, N]; ext_or int8 [O, R, 8-js, 2N];
     acc int64 [O, B, N] (updated in place, as the TPU kernel aliases it);
     t_next int32 [B] -> (acc, next digits int8 [k+1, L, n_d, B, N]). On the
-    card it launches the kernel k1_path(N, B) names; `launches` counts
+    card it launches the kernel k1_path(N) names; `launches` counts
     both, `launches_wg` the wgmma one."""
     k1, lv, n_d, b, n = dig.shape
     o, r, nj, two_n = ext_or.shape
@@ -358,8 +365,8 @@ def extprod_step2g(dig: torch.Tensor, ext_or: torch.Tensor, acc: torch.Tensor,
         return extprod_step2g_plain(dig, ext_or, acc, t_next, base_log,
                                     levels, j_start)
     _check_geometry("extprod_step2g", n, n_d, r, j_start, n_min=64)
-    wide = k1_path(n, b) == "wgmma"
-    _check_smem("extprod_step2g", _k1_wg_smem(nj, n_d) if wide
+    wide = k1_path(n) == "wgmma"
+    _check_smem("extprod_step2g", _k1_wg_smem(n, nj, n_d) if wide
                 else _k1_smem(n, nj, n_d))
     _require_cuda("extprod_step2g",
                   [(dig, torch.int8), (ext_or, torch.int8),
