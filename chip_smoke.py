@@ -5,8 +5,9 @@
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. device and build: the card's name and power limit, the nvcc build of
      every kernel from tfhe_aes2_tpu_torch/csrc/;
-  2. kernel checks: K1's two kernels (wgmma at N = 512 and 1024,
-     cmux_wg.cu, and mma.sync, cmux.cu) side by side at B in {1, 9, 32, 64, 128, 160, 256, 288, 2048} at lvl64, B in
+  2. kernel checks: K1 as the wrapper launches it (wgmma at N = 512 and
+     1024, cmux_wg.cu) beside K1 on mma.sync (cmux.cu) at B in {1, 9, 32,
+     64, 128, 160, 256, 288, 2048} at lvl64, and beside K5 then K2 at B in
      {1, 9, 32, 128, 160, 288, 2048} at lvl256 and B in {1, 16, 128} at the
      8-bit model's step, then K1-K11 at their
      PARAMS_SQRD_LVL_64 main-path shapes
@@ -741,16 +742,16 @@ def check_k1_at(rows, p, dig, ext, acc, t, label: str = "",
 
 
 def check_k1_paths(rows, gen) -> None:
-    """K1's two kernels at three steps: PARAMS_SQRD_LVL_64's (N = 512)
-    from one lane through the latency path's batches to the 16-block
-    batch's 2,048 lanes, PARAMS_SQRD_LVL_256's (N = 1024) likewise, and
-    the 8-bit model's (N = 1024) at its scans of 16 and 128 lanes: the
-    wrapper's (k1_path: wgmma at each N of extprod.WG_N, cmux_wg.cu) and
-    mma.sync's through its C entry (cmux.cu), each bit-equal to the plain
-    version and timed, and how many of the wrapper's launches took wgmma
-    (launches_wg, the mechanism's counter); the rows name the kernel they
-    time ("wgmma" or "mma.sync"), and that wgmma wins at every batch is
-    read from them. At
+    """K1 at three steps: PARAMS_SQRD_LVL_64's (N = 512) from one lane
+    through the latency path's batches to the 16-block batch's 2,048 lanes,
+    PARAMS_SQRD_LVL_256's (N = 1024) likewise, and the 8-bit model's
+    (N = 1024) at its scans of 16 and 128 lanes: the wrapper's (k1_path:
+    wgmma at each N of extprod.WG_N, cmux_wg.cu) and a second reference,
+    mma.sync's through its C entry (cmux.cu) where N <= 512 and K5 then K2
+    at N = 1024, each bit-equal to the plain version and timed, and how
+    many of the wrapper's launches took wgmma (launches_wg, the mechanism's
+    counter); the rows name what they time ("wgmma", "mma.sync" or
+    "K5+K2"), and that wgmma wins at every batch is read from them. At
     N = 1024 the card also reports how many clusters of 8 it holds at
     once."""
     f = kx._fn("cmux", "tfhe_extprod_step2g", [kx._P] * 5 + [kx._I] * 8
@@ -770,6 +771,10 @@ def check_k1_paths(rows, gen) -> None:
                           k1 * lv, lv, nd, js, bl, build.stream_ptr(DEV)),
                         "extprod_step2g")
             return acc, out
+
+        def k5_k2(dig, ext, acc, t):
+            acc = kx.extprod_step2(dig, ext, acc, js)
+            return acc, kx.rot_diff_digits(acc, t, bl, lv, nd)
         calls = wg_calls = 0
         for b in batches:
             acc, t, dig, ext = step_operands(gen, k1, n, lv, nd, b, js)
@@ -783,7 +788,9 @@ def check_k1_paths(rows, gen) -> None:
             for name, fn in (
                     (kx.k1_path(n),
                      lambda a: kx.extprod_step2g(dig, ext, a, t, bl, lv, js)),
-                    ("mma.sync", lambda a: mma_sync(dig, ext, a, t))):
+                    ("mma.sync", lambda a: mma_sync(dig, ext, a, t))
+                    if n <= 512 else
+                    ("K5+K2", lambda a: k5_k2(dig, ext, a, t))):
                 before = kx.extprod_step2g.launches_wg
                 got = fn(acc.clone())
                 if name == kx.k1_path(n):
@@ -1585,13 +1592,14 @@ def step_operands(gen, k1, n, lv, nd, b, js, fill=None):
 
 
 def check_wide_steps(rows, gen) -> None:
-    """K1 (its two column halves a cluster, the glue reading across them)
-    and K5 at N = 1024 for both N = 1024 gadgets — lvl1/lvl4's (2, 15) at
-    R = 6 and lvl256's (4, 9) at R = 12 — over B in {1, 9, 13, 288} and js
-    in {0, 2}, each against its plain version, K2 then K5 equal to K1; again
-    with every digit and key byte -128 at R = 12; K2 at N = 1024 for every
-    gadget it is built for at B in {9, 288}; then K1, K5 and K2 timed at the
-    main path's B = 288 and 160 for both sets."""
+    """K1 (on wgmma, 8 blocks of 128 columns a cluster, the glue reading
+    across them) and K5 (two column halves) at N = 1024 for both N = 1024
+    gadgets — lvl1/lvl4's (2, 15) at R = 6 and lvl256's (4, 9) at R = 12 —
+    over B in {1, 9, 13, 288} and js in {0, 2}, each against its plain
+    version, K2 then K5 equal to K1; again with every digit and key byte
+    -128 at R = 12; K2 at N = 1024 for every gadget it is built for at B in
+    {9, 288}; then K1, K5 and K2 timed at the main path's B = 288 and 160
+    for both sets."""
     done = 0
     for lv, bl in ((2, 15), (4, 9)):
         for b, js, fill in ([(b, js, None) for b in (1, 9, 13, 288)

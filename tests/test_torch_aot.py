@@ -193,7 +193,7 @@ def test_warmup_touches_only_the_contexts_kernels(low, keys_test,
     its keys' kept planes (none for the vertical packing under the NTT at
     PARAMS_TEST's 3 planes) and K4, and nothing else."""
     called = set()
-    for module, names in ((kx, list(kx.N_MAX)), (kmm, ["fused_limb_matmul"])):
+    for module, names in ((kx, kx.WRAPPERS), (kmm, ["fused_limb_matmul"])):
         for name in names:
             def spy(*args, _name=name, _fn=getattr(module, name), **kwargs):
                 called.add(_name)

@@ -185,7 +185,7 @@ def test_cuda_tensor_core_steps_extreme_values():
 
 
 def _k1_mma_sync(dig, ext, acc, t, base_log, levels, js):
-    """K1 on mma.sync (csrc/cmux.cu) through its C entry, whatever
+    """K1 on mma.sync (csrc/cmux.cu, N <= 512) through its C entry, whatever
     extprod.k1_path would take: (acc updated in place, next digits)."""
     k1, _, n_d, b, n = dig.shape
     out = torch.empty_like(dig)
@@ -306,29 +306,30 @@ def _step_at(p, b, gen, fill=None):
 
 def _k1_three_ways(dig, ext, acc, t, base_log, levels, js):
     """K1 as the wrapper launches it, counted: launches and launches_wg
-    each one more; K1 on mma.sync through its C entry, counted by neither;
-    both bit-equal to the plain version."""
+    each one more; K5 then K2 (extprod_step2, then rot_diff_digits on
+    t_next), counted by neither; both bit-equal to the plain version."""
     before = (kx.extprod_step2g.launches, kx.extprod_step2g.launches_wg)
     a1, d1 = kx.extprod_step2g(dig, ext, acc.clone(), t, base_log, levels, js)
     assert (kx.extprod_step2g.launches, kx.extprod_step2g.launches_wg) == (
         before[0] + 1, before[1] + 1)
-    a0, d0 = _k1_mma_sync(dig, ext, acc.clone(), t, base_log, levels, js)
+    a5 = kx.extprod_step2(dig, ext, acc.clone(), js)
+    d5 = kx.rot_diff_digits(a5, t, base_log, levels, dig.shape[2])
     assert (kx.extprod_step2g.launches, kx.extprod_step2g.launches_wg) == (
         before[0] + 1, before[1] + 1)
     a2, d2 = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, base_log,
                                      levels, js)
     assert torch.equal(a1, a2) and torch.equal(d1, d2)
-    assert torch.equal(a1, a0) and torch.equal(d1, d0)
+    assert torch.equal(a1, a5) and torch.equal(d1, d5)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 31, 32, 33, 128, 288])
 @pytest.mark.parametrize("name", sorted(N1024_SETS))
-def test_cuda_k1_wgmma_n1024_matches_plain_and_mma_sync(name, b):
+def test_cuda_k1_wgmma_n1024_matches_plain_and_k5_k2(name, b):
     """On the card at each N = 1024 set's step (lvl256: R = 12, n_d 2, js 2;
     the 8-bit model's: R = 18, n_d 1, js 1; lvl1's: R = 6): K1 as the
     wrapper launches it (cmux_wg.cu, clusters of 8 blocks), across the
-    32-lane tile edge, bit-equal to the plain version and to K1 on mma.sync
+    32-lane tile edge, bit-equal to the plain version and to K5 then K2
     (cmux.cu); launches and launches_wg each count one a call."""
     require_cuda()
     gen = torch.Generator().manual_seed(4000 + b)
@@ -343,11 +344,28 @@ def test_cuda_k1_wgmma_n1024_matches_plain_and_mma_sync(name, b):
 def test_cuda_k1_wgmma_n1024_extreme_values():
     """On the card at lvl256's step, B = 33: every digit and key byte -128,
     so every int32 bucket at n_d·R·N·2^14, K1 on wgmma bit-equal to plain
-    and to K1 on mma.sync."""
+    and to K5 then K2."""
     require_cuda()
     gen = torch.Generator().manual_seed(4100)
     _k1_three_ways(*_step_at(N1024_SETS["lvl256"], 33, gen, fill=-128))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_k1_mma_sync_refuses_n1024():
+    """K1 on mma.sync is built for N <= 512 (its glue reads the whole new
+    row from one block's tile): its C entry returns cudaErrorInvalidValue
+    at lvl256's step and launches nothing, the accumulator left as it
+    was."""
+    require_cuda()
+    gen = torch.Generator().manual_seed(4200)
+    dig, ext, acc, t, base_log, levels, js = _step_at(
+        N1024_SETS["lvl256"], 9, gen)
+    before = acc.clone()
+    with pytest.raises(RuntimeError, match="cudaError_t 1\\)"):
+        _k1_mma_sync(dig, ext, acc, t, base_log, levels, js)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, before)
 
 
 @pytest.mark.cuda
@@ -643,8 +661,10 @@ def _wide_step_operands(gen, b, levels, js, fill=None):
 
 
 def _assert_wide_step(dig, ext, acc, t, base_log, levels, js):
-    """K1 (its glue across a cluster of the two column halves) and K5 at
-    N = 1024 bit-equal to their plain versions; K2 then K5 equal to K1."""
+    """K1 (on wgmma: 8 blocks of 128 columns one cluster, its glue reading
+    the rotated sources from any of them) and K5 (two blocks of 512
+    columns) at N = 1024 bit-equal to their plain versions; K2 then K5
+    equal to K1."""
     n_d = dig.shape[2]
     a1, d1 = kx.extprod_step2g(dig, ext, acc.clone(), t, base_log, levels, js)
     a2, d2 = kx.extprod_step2g_plain(dig, ext, acc.clone(), t, base_log,
@@ -659,9 +679,9 @@ def _assert_wide_step(dig, ext, acc, t, base_log, levels, js):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 9, 13, 288])
 def test_cuda_wide_steps_match_plain(b):
-    """On the card at N = 1024, k = 2: K1 and K5 (a block owns 8 lanes x 512
-    columns; K1's two halves one cluster, its glue reading the rotated
-    sources from either half) bit-equal to their plain versions, for both
+    """On the card at N = 1024, k = 2: K1 (a block of K1 on wgmma owns 32
+    lanes x 128 columns, 8 blocks one cluster) and K5 (8 lanes x 512
+    columns) bit-equal to their plain versions, for both
     N = 1024 gadgets and js in {0, 2}, with a ragged last lane tile (rows
     past the batch edge in both halves) and the rotations 0, N-1, N and
     2N-1 among the lanes."""

@@ -1,11 +1,10 @@
 """On a CUDA device the CLI and the server take the parameter sets with
 N = 1024 (lvl1, lvl4, lvl256, and the 8-bit model's PARAMS_WOPPBS_8BIT)
 under every lowering — (gridg | grid | merged | longk | bucket | glue_out)
-x (fused | partials), each of whose kernels takes N = 1024 (extprod.N_MAX);
+x (fused | partials), whose kernels all take N <= 1024 (extprod.N_MAX);
 the CLI reads the set the chosen model runs. The refusal path stays: a set
-above what one of a lowering's kernels takes (N = 2048, or N = 1024 with a
-kernel's N_MAX narrowed to 512 here) is refused before any keygen or
-request, on the card only. On the CPU every set runs under every lowering.
+above what the kernels take (N = 2048, or N = 1024 with N_MAX narrowed to
+512 here) is refused before any keygen or request, on the card only. On the CPU every set runs under every lowering.
 CPU only: the refusal comes before anything touches a card, and the
 accepting runs are stopped where keygen or key loading would begin."""
 
@@ -26,21 +25,20 @@ from tfhe_aes2_tpu_torch.ops import circuit_bootstrap as cbs_mod
 from tfhe_aes2_tpu_torch.ops import params as params_mod
 from tfhe_aes2_tpu_torch.ops import serialization, truncation
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
-from tfhe_aes2_tpu_torch.ops.lowering import (BR_CHOICES, BR_KERNELS,
-                                              VP_CHOICES, Lowering)
+from tfhe_aes2_tpu_torch.ops.lowering import (BR_CHOICES, VP_CHOICES,
+                                              Lowering)
 
 ARGV = ["--key", "00" * 16, "--iv", "00" * 8, "--number-of-outputs", "1"]
 WIDE = ["lvl1", "lvl4", "lvl256"]
 WIDE_BR = ["gridg", "grid", "merged", "longk", "bucket", "glue_out"]
-# the lowering whose kernel the refusal tests narrow to N <= 512 (K9, which
-# took N <= 512 until it had a cluster layout at N = 1024)
+# the lowering the refusal tests run with the kernels narrowed to N <= 512
+# (K9's, which took N <= 512 until it had a cluster layout at N = 1024)
 NARROW_BR = ["merged"]
 
 
-def _narrow(monkeypatch, br):
-    """Every kernel br's blind rotation runs takes N <= 512 on the card."""
-    for name in BR_KERNELS[br]:
-        monkeypatch.setitem(kx.N_MAX, name, 512)
+def _narrow(monkeypatch):
+    """Every kernel takes N <= 512 on the card."""
+    monkeypatch.setattr(kx, "N_MAX", 512)
 
 
 def _set_lowering(monkeypatch, br, vp="fused"):
@@ -67,8 +65,8 @@ def _stop(*args, **kwargs):
 
 def test_the_wide_sets_are_the_ones_above_the_kernels_limit():
     """The sets with N = 1024 are the wide ones; every lowering of WIDE_BR x
-    (fused | partials), which is all of them, takes them on the card, each
-    kernel by its own N_MAX."""
+    (fused | partials), which is all of them, takes them on the card, every
+    kernel up to N_MAX."""
     above = {name for name, p in cli.PARAM_CHOICES.items()
              if p.polynomial_size > 512}
     assert above == set(WIDE)
@@ -78,8 +76,8 @@ def test_the_wide_sets_are_the_ones_above_the_kernels_limit():
     takes = {(br, vp) for br in BR_CHOICES for vp in VP_CHOICES
              if kx.device_refusal(1024, "cuda", Lowering(br, vp)) is None}
     assert takes == {(br, vp) for br in WIDE_BR for vp in VP_CHOICES}
-    # every kernel a lowering runs has its range; K7 runs in none
-    assert set(kx.N_MAX) - {k for br in BR_CHOICES for vp in VP_CHOICES
+    # every wrapper but K7 runs under some lowering
+    assert set(kx.WRAPPERS) - {k for br in BR_CHOICES for vp in VP_CHOICES
                             for k in Lowering(br, vp).kernels()} == {
         "extprod_partials"}
     assert all(kx.device_refusal(512, "cuda", Lowering(br, vp)) is None
@@ -95,7 +93,7 @@ def test_each_lowering_launches_the_kernels_it_names(br, vp, monkeypatch):
     under that lowering: each wrapper of ops/kernels/extprod.py is spied on
     while both run on small random operands on the CPU."""
     called = set()
-    for name in kx.N_MAX:
+    for name in kx.WRAPPERS:
         def spy(*args, _name=name, _fn=getattr(kx, name), **kwargs):
             called.add(_name)
             return _fn(*args, **kwargs)
@@ -120,10 +118,10 @@ def test_each_lowering_launches_the_kernels_it_names(br, vp, monkeypatch):
 @pytest.mark.parametrize("name", WIDE)
 def test_cli_refuses_n1024_on_cuda_before_keygen(name, br, monkeypatch,
                                                  capsys):
-    """With br's kernel narrowed to N <= 512, the CLI refuses the N = 1024
+    """With the kernels narrowed to N <= 512, the CLI refuses the N = 1024
     sets under br on the card with argparse's error, before keygen."""
     _set_lowering(monkeypatch, br)
-    _narrow(monkeypatch, br)
+    _narrow(monkeypatch)
     monkeypatch.setattr(model, "generate_keys", _stop)
     with pytest.raises(SystemExit) as exc:
         cli.main(ARGV + ["--params", name], device="cuda")
@@ -160,11 +158,11 @@ def test_cli_on_cuda_takes_lvl64_to_keygen(monkeypatch):
 def test_cli_refuses_the_8bit_model_on_cuda_before_keygen(br, monkeypatch,
                                                          capsys):
     """The 8-bit model always runs PARAMS_WOPPBS_8BIT (N = 1024), so the
-    refusal reads that set, not --params: with br's kernel narrowed to
+    refusal reads that set, not --params: with the kernels narrowed to
     N <= 512 and lvl64 (N = 512) named, it is still refused before
     keygen."""
     _set_lowering(monkeypatch, br)
-    _narrow(monkeypatch, br)
+    _narrow(monkeypatch)
     monkeypatch.setattr(model_8, "generate_keys", _stop)
     monkeypatch.setattr(model, "generate_keys", _stop)
     with pytest.raises(SystemExit) as exc:
@@ -248,10 +246,10 @@ def _bundle(path, params):
 
 @pytest.mark.parametrize("br", NARROW_BR)
 def test_server_refuses_an_n1024_bundle_on_cuda(br, tmp_path, monkeypatch):
-    """With br's kernel narrowed to N <= 512, the server refuses a bundle of
+    """With the kernels narrowed to N <= 512, the server refuses a bundle of
     lvl1's parameters under br on the card as it loads, before the keys
     move."""
-    _narrow(monkeypatch, br)
+    _narrow(monkeypatch)
     monkeypatch.setattr(serialization, "server_keys_on", _stop)
     monkeypatch.setattr(model, "context_from_keys", _stop)
     keys = _bundle(str(tmp_path / "keys.npz"), params_mod.PARAMS_SQRD_LVL_1)
@@ -263,22 +261,23 @@ def test_server_refuses_an_n1024_bundle_on_cuda(br, tmp_path, monkeypatch):
 @pytest.mark.parametrize("vp", VP_CHOICES)
 @pytest.mark.parametrize("br", BR_CHOICES)
 def test_device_refusal_above_every_kernel(br, vp, monkeypatch):
-    """device_refusal itself, for each lowering: at N = 2048, above every
-    kernel's N_MAX, it names on the card each kernel the lowering runs and
-    the largest N they take, and nothing on the CPU; with one kernel
-    narrowed to N <= 512, it refuses N = 1024 exactly where the lowering
-    runs that kernel, naming it alone."""
+    """device_refusal itself, for each lowering: at N = 2048, above N_MAX,
+    it names on the card each kernel the lowering runs and the largest N
+    they take, and nothing on the CPU; with N_MAX narrowed to 512, it
+    refuses N = 1024 under every lowering on the card, and nothing on the
+    CPU."""
     low = Lowering(br, vp)
     why = kx.device_refusal(2048, "cuda", low)
     assert why is not None and "polynomial_size 2048" in why
     assert f"br={br}, vp={vp}" in why and "N <= 1024" in why
     assert all(name in why for name in low.kernels())
     assert kx.device_refusal(2048, "cpu", low) is None
-    monkeypatch.setitem(kx.N_MAX, "cmux_step_merged", 512)
+    _narrow(monkeypatch)
     why = kx.device_refusal(1024, "cuda", low)
-    assert (why is not None) == (br == "merged")
-    if why:
-        assert "cmux_step_merged take N <= 512" in why
+    assert why is not None and "polynomial_size 1024" in why
+    assert f"br={br}, vp={vp}" in why and "N <= 512" in why
+    assert all(name in why for name in low.kernels())
+    assert kx.device_refusal(1024, "cpu", low) is None
     assert kx.device_refusal(512, "cuda", low) is None
 
 
@@ -345,7 +344,7 @@ def test_the_ntt_lowering_launches_the_kernels_it_names(vp, vp_js,
     where the NTT runs (4 kept planes) and the fallback's where it does
     not (5), as the wrappers called show."""
     called = set()
-    for name in kx.N_MAX:
+    for name in kx.WRAPPERS:
         def spy(*args, _name=name, _fn=getattr(kx, name), **kwargs):
             called.add(_name)
             return _fn(*args, **kwargs)

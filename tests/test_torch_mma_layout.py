@@ -16,7 +16,6 @@ import numpy as np
 import pytest
 import torch
 
-from tfhe_aes2_tpu_torch.ops import polynomial
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
 
 ROWS = 8          # batch lanes of a block = N of the instruction
@@ -323,55 +322,3 @@ def test_mma_column_split_at_n1024(js):
                                 c0) for c0 in (0, 512)]
     assert not halves[0][:, 512:].any() and not halves[1][:, :512].any()
     assert np.array_equal(halves[0] + halves[1], want[o])
-
-
-def cluster_glue_sources(acc_rows, t, c0):
-    """K1's glue at N = 1024 for the block of columns [c0, c0 + 512): each
-    block's tile holds its [ROWS][512] half of the new accumulator; for
-    column m the source src = (m - t) mod 2N, x = src mod N, is read from
-    this block's tile when x lies in its half ((x ^ c0) < 512), else from
-    the partner's, at row·512 + x mod 512, negated when src >= N
-    (csrc/cmux.cu, N > 512). acc_rows uint64 [ROWS, N] -> the rotated values
-    (X^t·acc)[m] uint64 [ROWS, 512] and how often each half was read."""
-    n, cols = acc_rows.shape[1], 512
-    tiles = {h: acc_rows[:, h * cols:(h + 1) * cols].reshape(-1)
-             for h in (0, 1)}
-    own, other = tiles[c0 // cols], tiles[1 - c0 // cols]
-    rot = np.zeros((ROWS, cols), dtype=np.uint64)
-    reads = {"own": 0, "other": 0}
-    for row in range(ROWS):
-        m = c0 + np.arange(cols)
-        src = (m - t[row]) & (2 * n - 1)
-        x = src & (n - 1)
-        mine = (x ^ c0) < cols
-        v = np.where(mine, own[row * cols + (x & (cols - 1))],
-                     other[row * cols + (x & (cols - 1))])
-        with np.errstate(over="ignore"):
-            rot[row] = np.where(src < n, v, np.uint64(0) - v)
-        reads["own"] += int(mine.sum())
-        reads["other"] += int((~mine).sum())
-    return rot, reads
-
-
-@pytest.mark.parametrize("t_case", ["none", "at N", "at 2N", "mixed"])
-def test_cluster_glue_reads_across_the_halves(t_case):
-    """The rotated sources K1's cluster glue reads, for both blocks, equal
-    X^t·acc (polynomial.monomial_mul) for every rotation class: no wrap
-    (src = m - t in [0, N)), a wrap at N (src in [N, 2N): the sign of
-    ext = [acc, -acc]) and a wrap at 2N (m < t); each class reads both
-    halves where its rotation crosses one."""
-    n = 1024
-    rng = np.random.default_rng(["none", "at N", "at 2N",
-                                 "mixed"].index(t_case))
-    acc = rng.integers(-2 ** 63, 2 ** 63, (ROWS, n), dtype=np.int64)
-    t = {"none": np.array([0, 1, 100, 511, 512, 513, 700, 1000]),
-         "at N": np.array([1024, 1025, 1100, 1535, 1536, 1700, 2000, 2047]),
-         "at 2N": np.array([1, 7, 300, 511, 512, 900, 1023, 1024]),
-         "mixed": rng.integers(0, 2 * n, ROWS)}[t_case].astype(np.int64)
-    want = polynomial.monomial_mul(torch.from_numpy(acc),
-                                   torch.from_numpy(t)).numpy()
-    for c0 in (0, 512):
-        rot, reads = cluster_glue_sources(acc.view(np.uint64), t, c0)
-        assert np.array_equal(rot.view(np.int64), want[:, c0:c0 + 512])
-        if t_case != "none":
-            assert reads["other"] > 0

@@ -30,7 +30,7 @@ import pytest
 import torch
 
 from tests.test_torch_mma_layout import byte_perm, table_by_definition
-from tfhe_aes2_tpu_torch.ops import decomposition, torus
+from tfhe_aes2_tpu_torch.ops import decomposition, polynomial, torus
 from tfhe_aes2_tpu_torch.ops.kernels import extprod as kx
 
 LANES, KC = kx.WG_LANES, kx.WG_KC
@@ -259,27 +259,49 @@ def emulate(dig, ext, acc, t, base_log, levels, js):
                 seg = new[:, LANES * tl:LANES * tl + rows, c0:c0 + COLS]
                 seg += sums[:, tl, h, :rows]
                 tile_acc[:, tl, h, :rows] = seg
-    # the glue: block h of the cluster reads source x from the tile of rank
-    # x // COLS at row·COLS + x % COLS, negated where src >= N
+    # the glue, lane tile by lane tile
     rot_diff = np.zeros((k1, b, n), dtype=np.uint64)
     reads = np.zeros(cluster, dtype=int)
     negated = 0
     with np.errstate(over="ignore"):
         for tl in range(tiles):
             rows = min(LANES, b - LANES * tl)
-            for h, c0 in enumerate(c0s):
-                row = np.arange(rows)[:, None]
-                m = c0 + np.arange(COLS)[None, :]
-                src = (m - t[LANES * tl + row]) & (2 * n - 1)
-                x = src & (n - 1)
-                owner = x // COLS
-                np.add.at(reads, owner.reshape(-1), k1)
-                negated += k1 * int((src >= n).sum())
-                v = tile_acc[:, tl][:, owner, row, x % COLS]
-                rot = np.where(src < n, v, np.uint64(0) - v)
-                rot_diff[:, LANES * tl:LANES * tl + rows, c0:c0 + COLS] = (
-                    rot - tile_acc[:, tl, h, :rows])
+            lanes = slice(LANES * tl, LANES * tl + rows)
+            own = tile_acc[:, tl, :, :rows]
+            rot, by_rank, neg = cluster_glue(own, t[lanes])
+            reads += by_rank.sum(axis=0)
+            negated += neg
+            rot_diff[:, lanes] = rot - own.transpose(0, 2, 1, 3).reshape(
+                k1, rows, n)
     return new.view(np.int64), rot_diff.view(np.int64), reads, negated
+
+
+def cluster_glue(tiles, t):
+    """The rotated sources of K1 on wgmma's glue for one lane tile: tiles
+    uint64 [O, cluster, rows, COLS], rank h's tile of the new accumulator
+    (its COLS columns from COLS·h); t [rows] -> (X^t·acc uint64 [O, rows,
+    N], block h's column m read as source x = src mod N, src = (m - t) mod
+    2N, from the tile of rank x // COLS at row·COLS + x % COLS, negated
+    where src >= N; reads int [cluster, cluster], how often block h read
+    rank g's tile at [h, g]; how many reads were negated)."""
+    k1, cluster, rows, _ = tiles.shape
+    n = cluster * COLS
+    row = np.arange(rows)[:, None]
+    rot = np.zeros((k1, rows, n), dtype=np.uint64)
+    reads = np.zeros((cluster, cluster), dtype=int)
+    negated = 0
+    with np.errstate(over="ignore"):
+        for h in range(cluster):
+            m = COLS * h + np.arange(COLS)[None, :]
+            src = (m - t[:, None]) & (2 * n - 1)
+            x = src & (n - 1)
+            owner = x // COLS
+            np.add.at(reads[h], owner.reshape(-1), k1)
+            negated += k1 * int((src >= n).sum())
+            v = tiles[:, owner, row, x % COLS]
+            rot[:, :, COLS * h:COLS * (h + 1)] = np.where(src < n, v,
+                                                         np.uint64(0) - v)
+    return rot, reads, negated
 
 
 def step_operands(b, seed, n=512, k1=5, lv=3, n_d=2, js=2, base_log=12,
@@ -359,6 +381,36 @@ def test_wgmma_k1_extreme_values(n):
     with a ragged tile of 13 lanes."""
     check_against_plain(*step_operands(13, 7, n=n, k1=1, lv=15, base_log=4,
                                        fill=-128))
+
+
+@pytest.mark.parametrize("t_case", ["none", "at N", "at 2N", "mixed"])
+def test_cluster_glue_reads_across_the_ranks(t_case):
+    """At N = 1024 the rotated sources the glue reads across the cluster's
+    8 ranks equal X^t·acc (polynomial.monomial_mul), each column read once,
+    for every rotation class: t below N, t in [N, 2N) (a source past N
+    reads the negated half of [acc, -acc]), t near the wrap at 2N, and
+    random t; each class but the first has every block read a rank other
+    than its own, and the class at N negates."""
+    n, rows = 1024, 8
+    cluster = n // COLS
+    rng = np.random.default_rng(["none", "at N", "at 2N",
+                                 "mixed"].index(t_case))
+    acc = rng.integers(-2 ** 63, 2 ** 63, (rows, n), dtype=np.int64)
+    t = {"none": np.array([0, 1, 100, 511, 512, 513, 700, 1000]),
+         "at N": np.array([1024, 1025, 1100, 1535, 1536, 1700, 2000, 2047]),
+         "at 2N": np.array([1, 7, 300, 511, 512, 900, 1023, 1024]),
+         "mixed": rng.integers(0, 2 * n, rows)}[t_case].astype(np.int64)
+    want = polynomial.monomial_mul(torch.from_numpy(acc),
+                                   torch.from_numpy(t)).numpy()
+    tiles = acc.view(np.uint64).reshape(rows, cluster, COLS).transpose(
+        1, 0, 2)[None]
+    rot, reads, negated = cluster_glue(tiles, t)
+    assert np.array_equal(rot[0].view(np.int64), want)
+    assert (reads.sum(axis=1) == rows * COLS).all()
+    if t_case != "none":
+        assert (reads.sum(axis=1) > reads.diagonal()).all()
+    if t_case == "at N":
+        assert negated > 0
 
 
 @pytest.mark.parametrize("n", SIZES)

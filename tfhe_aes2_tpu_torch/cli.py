@@ -22,7 +22,7 @@ and the run's kernels load before the first request (aot.py).
 On a CUDA device every parameter set, the ones with N = 1024 (lvl1, lvl4,
 lvl256 and the 8-bit model's) among them, runs under every lowering — gridg
 (the default), grid, merged, longk, bucket and glue_out, each with fused or
-partials; a set above what a lowering's kernels take (extprod.N_MAX, none in
+partials; a set above what the kernels take (N > extprod.N_MAX, none in
 ops/params.py) would be refused before keygen, reading the set the chosen
 model will run, and so are lvl1 and lvl4 under TFHE_VP_NTT=1, where the
 CRT-NTT has no 2N-th root of unity at N = 1024 (the JAX package raises). lvl1's and lvl4's noise

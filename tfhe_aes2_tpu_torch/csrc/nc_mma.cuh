@@ -72,13 +72,6 @@ namespace nc {
 constexpr int MT = 4;         // 16-column tiles a warp owns
 constexpr int DIG_PAD = 16;   // bytes added to each digit-tile row
 
-// k-steps unrolled in mma_row; probes/step_variants.py builds other values.
-#ifndef NC_KT_UNROLL
-#define NC_KT_UNROLL 4
-#endif
-#define NC_STR_(x) #x
-#define NC_STR(x) NC_STR_(x)
-
 constexpr int SPLIT_COLS = 512;   // the most output columns a block owns
 
 // Threads of a block for polynomial size n >= 64: one warp per 64 of the
@@ -219,7 +212,7 @@ __device__ __forceinline__ void mma_row(int32_t (&acc)[MT][8 - JS][4],
     uint32_t v[10];
 #pragma unroll
     for (int p = 4; p < 10; ++p) v[p] = at[-8 * p];
-    _Pragma(NC_STR(unroll NC_KT_UNROLL))
+#pragma unroll 4
     for (int kt = 0; kt < ksteps; ++kt) {
 #pragma unroll
       for (int p = 0; p < 4; ++p) v[p] = at[-8 * p];

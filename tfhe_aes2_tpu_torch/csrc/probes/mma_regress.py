@@ -7,10 +7,12 @@ beside them. K1 is also timed on its own from 1 lane through the latency
 path's batches to the 16-block batch's 2,048 lanes, at lvl64's step
 (N = 512) and lvl256's (N = 1024), and at the 8-bit model's scans
 (N = 1024), as the wrapper launches it ("K1") and, where the checkout
-has K1 on wgmma (cmux_wg.cu) at that N, each of its two kernels ("K1
-mma.sync", "K1 wgmma"); for each step it prints the crossover, the
-fewest lanes from which wgmma is the faster at every batch timed (below
-one lane at both N: extprod.k1_path reads N alone).
+has K1 on wgmma (cmux_wg.cu) at that N, that kernel through its C entry
+("K1 wgmma") beside a second reference: K1 on mma.sync (cmux.cu, "K1
+mma.sync") where N <= 512, K5 then K2 ("K5+K2") at N = 1024. Where both
+K1 kernels are timed it prints the crossover, the fewest lanes from
+which wgmma is the faster at every batch timed (below one lane:
+extprod.k1_path reads N alone).
 
     python3 tfhe_aes2_tpu_torch/csrc/probes/mma_regress.py [ROOT]
 
@@ -55,8 +57,9 @@ def device_ms(fn, reps=50):
 def k1_alone(times, r8, gen):
     """K1 alone at lvl64's, lvl256's and the 8-bit model's steps, as the
     wrapper launches it and, where the checkout has K1 on wgmma at the
-    step's N, each kernel through its own C entry, bit-equal to plain;
-    times into `times`, and each step's crossover printed."""
+    step's N, that kernel and the second reference (K1 on mma.sync where
+    N <= 512, else K5 then K2), each bit-equal to plain; times into
+    `times`, and the crossover printed where both K1 kernels ran."""
     wg_n = getattr(kx, "WG_N", ())
     wg_n = wg_n if isinstance(wg_n, frozenset) else {wg_n}
     for label, (o, lv, n, nd, js, bl), batches in (
@@ -66,9 +69,10 @@ def k1_alone(times, r8, gen):
              (1, 9, 16, 32, 128, 160, 288, 2048)),
             ("N=1024 8-bit ", (3, 6, 1024, 1, 1, 7), (1, 16, 32, 128))):
         ext = r8(o, o * lv, 8 - js, 2 * n)
-        entries = ([("K1 mma.sync", "cmux", "tfhe_extprod_step2g"),
-                    ("K1 wgmma", "cmux_wg", "tfhe_extprod_step2g_wg")]
-                   if n in wg_n else [])
+        entries = ([("K1 mma.sync", "cmux", "tfhe_extprod_step2g")]
+                   if n in wg_n and n <= 512 else [])
+        entries += ([("K1 wgmma", "cmux_wg", "tfhe_extprod_step2g_wg")]
+                    if n in wg_n else [])
         for b in batches:
             dig = r8(o, lv, nd, b, n)
             acc = torch.randint(-2 ** 62, 2 ** 62, (o, b, n), generator=gen,
@@ -94,6 +98,16 @@ def k1_alone(times, r8, gen):
                     raise AssertionError(f"{name} differs from plain at "
                                          f"{label}B={b}")
                 step[name] = launch
+            if n in wg_n and n > 512:
+                def k5_k2(a=acc.clone()):
+                    a = kx.extprod_step2(dig, ext, a, js)
+                    return a, kx.rot_diff_digits(a, t, bl, lv, nd)
+                got = k5_k2()
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"K5+K2 differs from plain at "
+                                         f"{label}B={b}")
+                step["K5+K2"] = k5_k2
             del want
             before = getattr(kx.extprod_step2g, "launches_wg", 0)
             step["K1"]()
@@ -105,7 +119,7 @@ def k1_alone(times, r8, gen):
                 f"{name} {times[f'{name} {label}B={b}']:.4f} ms"
                 for name in step) + f" (the wrapper takes {took})",
                 flush=True)
-        if entries:
+        if len(entries) == 2:
             wins = [times[f"K1 wgmma {label}B={b}"]
                     <= times[f"K1 mma.sync {label}B={b}"] for b in batches]
             start = next((batches[i] for i in range(len(batches))

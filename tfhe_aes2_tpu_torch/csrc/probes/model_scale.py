@@ -36,7 +36,7 @@ from tfhe_aes2_tpu_torch.ops.kernels import matmul as kmm
 from tfhe_aes2_tpu_torch.ops.lowering import Lowering
 
 DEV = "cuda"
-WRAPPERS = {name: getattr(kx, name) for name in kx.N_MAX}
+WRAPPERS = {name: getattr(kx, name) for name in kx.WRAPPERS}
 WRAPPERS["fused_limb_matmul"] = kmm.fused_limb_matmul
 
 

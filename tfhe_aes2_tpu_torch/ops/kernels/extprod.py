@@ -48,16 +48,16 @@ negacirculant from shared-memory S-tables that index the 2N-byte ext row,
 so it (146 GB for the expanded BSK) never exists; the TPU's packed ladders,
 weight buckets in VMEM and sequential (n_bt, o, r) grid have no counterpart
 — a block owns ROWS lanes × all N columns of one component (at N = 1024
-512 of them, two blocks a row tile; K1's two a cluster for its glue, K9's
-2·O blocks of a lane tile one cluster for theirs) and loops over r
-itself. Which N each kernel
-takes on the card is N_MAX. Every kernel with products (K1, K3, K5-K9, K10b, K11) puts them on
-the tensor cores: `mma.sync.m16n8k32` int8 whose operand fragments are S-table
-and digit-tile words, the operands staged by `cp.async` one contraction row
-ahead (csrc/nc_mma.cuh); what is left above their bound is the instruction rate
-of `mma.sync` at N = 8 and, in K9, the glue. K1 at N = 512 and 1024 runs
-`wgmma.m64n32k32` instead, its A fragments S-table words and its B a
-32-lane digit tile in shared memory (csrc/nc_wgmma.cuh).
+512 of them, two blocks a row tile; K9's 2·O blocks of a lane tile one
+cluster for their glue) and loops over r itself. Every kernel takes
+N <= N_MAX on the card. Every kernel with products (K1, K3, K5-K9, K10b,
+K11) puts them on the tensor cores: `mma.sync.m16n8k32` int8 whose operand
+fragments are S-table and digit-tile words, the operands staged by
+`cp.async` one contraction row ahead (csrc/nc_mma.cuh); what is left above
+their bound is the instruction rate of `mma.sync` at N = 8 and, in K9, the
+glue. K1 at N = 512 and 1024 runs `wgmma.m64n32k32` instead, its A
+fragments S-table words and its B a 32-lane digit tile in shared memory
+(csrc/nc_wgmma.cuh).
 (K3's and K8's 8 instruction columns are 8 of a lane's G accumulators;
 K11's blocks each keep one weight bucket.) K2 and K10a are bound by bytes:
 one wide pass, a thread for every 8 columns of an accumulator row
@@ -122,18 +122,20 @@ def _require_cuda(name: str, spec) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
-# The largest polynomial size N each kernel takes on a CUDA device: 1024,
+# The largest polynomial size N every kernel takes on a CUDA device: 1024,
 # where a block owns at most 512 output columns and two blocks share a row
-# tile (K1, K3, K5-K9, K10b, K11: csrc/nc_mma.cuh's column offset; K1's
-# glue across a cluster of the two, K9's across a cluster of a lane tile's
-# 2·O blocks) or a block owns a row (K2, K10a). device_refusal reads it, so
-# a kernel that took less would be refused before keygen.
-N_MAX = {"extprod_step2g": 1024, "rot_diff_digits": 1024,
-         "extprod_grouped_fused": 1024, "extprod_step2": 1024,
-         "extprod_partials_grouped": 1024, "extprod_step": 1024,
-         "extprod_partials": 1024, "cmux_step_merged": 1024,
-         "rot_diff_digits_flat": 1024, "extprod_step_longk": 1024,
-         "extprod_step3": 1024}
+# tile (K3, K5-K9, K10b, K11: csrc/nc_mma.cuh's column offset; K9's glue
+# across a cluster of a lane tile's 2·O blocks), K1 on wgmma's 8 blocks of
+# 128 columns are one cluster (csrc/cmux_wg.cu), or a block owns a row (K2,
+# K10a). device_refusal reads it, so a set above it is refused before keygen.
+N_MAX = 1024
+
+# The kernel wrappers of this module, whose launch counters the tests and
+# csrc/probes/model_scale.py read.
+WRAPPERS = ("extprod_step2g", "rot_diff_digits", "extprod_grouped_fused",
+            "extprod_step2", "extprod_partials_grouped", "extprod_step",
+            "extprod_partials", "cmux_step_merged", "rot_diff_digits_flat",
+            "extprod_step_longk", "extprod_step3")
 
 
 def _column_blocks(n: int) -> int:
@@ -157,8 +159,8 @@ def device_refusal(n: int, device, lowering: Lowering,
     Under lowering.ntt, where the set takes the CRT-NTT (lowering.vp_ntt)
     the NTT must have its roots of unity at N = n, on any device: at
     N = 1024 with 4 planes (lvl1, lvl4) it has not, and the JAX package
-    raises. On a CUDA device every kernel the lowering runs must take N = n
-    (N_MAX); on the CPU the plain versions take any N. Every set of
+    raises. On a CUDA device n must be at most N_MAX, which every kernel
+    takes; on the CPU the plain versions take any N. Every set of
     ops/params.py (N <= 1024) runs on the card under every lowering without
     ntt."""
     if vp_js is not None and lowering.vp_ntt(vp_js):
@@ -167,28 +169,23 @@ def device_refusal(n: int, device, lowering: Lowering,
             return (f"{why} (TFHE_VP_NTT=1 takes the NTT where the "
                     f"selectors keep {8 - vp_js} <= {ntt.MAX_PLANES} limb "
                     "planes, as in the JAX package)")
-    if torch.device(device).type != "cuda":
-        return None
-    short = [name for name in lowering.kernels(vp_js) if n > N_MAX[name]]
-    if not short:
+    if torch.device(device).type != "cuda" or n <= N_MAX:
         return None
     return (f"polynomial_size {n} is above what lowering (br="
             f"{lowering.br}, vp={lowering.vp}) takes on the card: its "
-            f"kernels {', '.join(short)} take N <= "
-            f"{min(N_MAX[name] for name in short)} (on device 'cpu' the "
-            f"plain versions run it)")
+            f"kernels {', '.join(lowering.kernels(vp_js))} take N <= "
+            f"{N_MAX} (on device 'cpu' the plain versions run it)")
 
 
 def _check_geometry(name: str, n: int, n_d: int, r: int, j_start: int,
                     n_min: int = 8):
-    """N a power of two from n_min up to the kernel's N_MAX. n_min: 8 for
+    """N a power of two from n_min up to N_MAX. n_min: 8 for
     the glue (K2, K10a), whose threads each own 8 consecutive columns of a
     row; 64 for the tensor-core kernels (K1, K3, K5-K9, K10b, K11), whose
     warps own 64 columns each and index their S-tables unmasked."""
-    n_max = N_MAX[name]
-    if n & (n - 1) or not n_min <= n <= n_max:
+    if n & (n - 1) or not n_min <= n <= N_MAX:
         raise ValueError(f"{name}: N={n} must be a power of two in "
-                         f"[{n_min}, {n_max}]")
+                         f"[{n_min}, {N_MAX}]")
     if not 1 <= n_d <= 3 or not 0 <= j_start <= 7:
         raise ValueError(f"{name}: n_d={n_d}, j_start={j_start} unsupported")
     if n > 512 and name in WIDE_ND_KERNELS and n_d not in WIDE_ND:
@@ -220,12 +217,12 @@ def _mma_dig_tile_bytes(n: int, n_d: int) -> int:
 
 
 def _k1_smem(n: int, nj: int, n_d: int) -> int:
-    """K1's block (csrc/cmux.cu): the two stages of the contraction (the
-    whole 2N-word S-tables and 2N-byte digit rows at every N), or the
-    [8][min(N, 512)] int64 tile of the new accumulator its glue reads
-    after them, whichever is larger."""
+    """K1 on mma.sync's block (csrc/cmux.cu, N <= 512): the two stages of
+    the contraction (the whole 2N-word S-tables and 2N-byte digit rows), or
+    the [8][N] int64 tile of the new accumulator its glue reads after them,
+    whichever is larger."""
     return max(_mma_stage_bytes(n, nj) + 2 * _mma_dig_tile_bytes(n, n_d),
-               8 * min(n, 512) * 8)
+               8 * n * 8)
 
 
 def _check_staged(name: str, *tensors) -> None:
@@ -314,9 +311,10 @@ def extprod_step2g_plain(dig, ext_or, acc, t_next, base_log: int,
 # N = 512, 8 at 1024), at each N in WG_N. A block contracts unit by unit,
 # a unit WG_KC digit columns of one row, so its stage is the same at both
 # sizes. It takes over from cmux.cu's mma.sync blocks of 8 lanes at every
-# batch: the crossover that csrc/probes/mma_regress.py times lies below one
-# lane at both sizes on the H100 (PERF.md), wgmma taking 0.080 ms at B = 1
-# against mma.sync's 0.130 at N = 512, 0.126 against 0.197 at N = 1024.
+# batch, so that those serve N <= 256 only: the crossover lies below one
+# lane at both sizes on the H100 (PERF.md; csrc/probes/mma_regress.py times
+# it at N = 512), wgmma taking 0.080 ms at B = 1 against mma.sync's 0.130
+# at N = 512, 0.126 against 0.197 at N = 1024.
 # WG_LANES, WG_COLS and WG_KC are nc_wgmma.cuh's LANES, COLS and KC.
 WG_N = frozenset({512, 1024})
 WG_LANES = 32

@@ -47,8 +47,8 @@ BR_CHOICES = ("gridg", "grid", "merged", "longk", "bucket", "glue_out")
 VP_CHOICES = ("fused", "partials")
 
 # The kernel wrappers each schedule launches (ops/kernels/extprod.py); K4,
-# the keyswitches' contraction, runs under every lowering. Which N each
-# takes on the card is extprod.N_MAX, read by extprod.device_refusal: every
+# the keyswitches' contraction, runs under every lowering. Each takes
+# N <= extprod.N_MAX on the card, read by extprod.device_refusal: every
 # lowering takes N = 1024, the largest of ops/params.py.
 # tests/test_torch_device_refusal.py holds these tables against the
 # wrappers that blind_rotate.py and circuit_bootstrap.py call.

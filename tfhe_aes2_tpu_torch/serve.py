@@ -146,7 +146,7 @@ def serve(keys_path: str, address: str, one_shot: bool = False,
     the heavy startup happens while the first request waits in the accept
     backlog. A request that fails is answered with ok: false and the server
     goes on; a bundle whose parameters the kernels of `device` do not take
-    under the lowering (extprod.N_MAX on CUDA: no set of ops/params.py;
+    under the lowering (N > extprod.N_MAX on CUDA: no set of ops/params.py;
     on any device lvl1 and lvl4 under the CRT-NTT, which has no root of
     unity at N = 1024) is refused with ValueError as it loads, before any
     request is accepted."""
