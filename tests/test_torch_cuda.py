@@ -1255,3 +1255,79 @@ def test_cuda_bench_run_two_blocks_lvl64():
     assert sec["card"] and sec["device"] == torch.cuda.get_device_name(0)
     assert sec["lowering"] == ["gridg", "fused", False]
     assert sec["stage_ms_per_round"] is None and len(res["reps_s"]) == 2
+
+
+def _without_sync(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error"): any call that
+    waits for the stream (a blocking copy, a readback) raises. The mode is
+    restored after."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+@pytest.mark.cuda
+def test_cuda_warm_latency_request_makes_no_blocking_copy():
+    """On the card: a warm latency-path request at PARAMS_TEST, from its
+    uploaded ciphertexts to the last op queued before the readback, never
+    waits for the stream (its constants are on the card since the cold
+    request, ops/torus.device_const); bit-equal to the cold request and
+    decrypted to AES."""
+    from tfhe_aes2_tpu_torch.aes_128 import fhe, fhe_encryption, plain
+    from tfhe_aes2_tpu_torch.models import shortint_woppbs_1bit as model
+    from tfhe_aes2_tpu_torch.ops.lowering import Lowering
+
+    require_cuda()
+    client, ctx = model.generate_keys(params.PARAMS_TEST, seed=13,
+                                      device="cuda", lowering=Lowering())
+    strat = fhe.ShortintWoppbs1BitSboxGalMulPbsAesEncrypt
+    key = bytes(range(16))
+    blocks = [bytes(8) + (1).to_bytes(8, "big")]
+    key_ct = torus.to_tensor(fhe_encryption.encrypt_byte_array(client, key),
+                             "cuda")
+    block_ct = torus.to_tensor(fhe_encryption.encrypt_blocks(client, blocks),
+                               "cuda")
+    cold = fhe.encrypt_block_latency(strat, ctx, key_ct, block_ct)
+    torch.cuda.synchronize()
+    uploads = torus.device_const.uploads
+    warm = _without_sync(
+        lambda: fhe.encrypt_block_latency(strat, ctx, key_ct, block_ct))
+    assert torus.device_const.uploads == uploads
+    assert torch.equal(warm.array, cold.array)
+    assert (fhe_encryption.decrypt_blocks(client, torus.to_numpy(warm.array))
+            == plain.expand_key_and_encrypt_blocks(key, blocks, 10))
+
+
+@pytest.mark.cuda
+def test_cuda_warm_sbox_pbs_rounds_make_no_blocking_copy():
+    """On the card: a warm 2-round run of the depth-11 pipeline (sbox_pbs,
+    a clear key schedule encrypted, noise budget 256) at PARAMS_TEST never
+    waits for the stream, and is bit-equal to the cold run."""
+    import dataclasses
+
+    from tfhe_aes2_tpu_torch.aes_128 import fhe, fhe_encryption, plain
+    from tfhe_aes2_tpu_torch.models import shortint_woppbs_1bit as model
+    from tfhe_aes2_tpu_torch.ops.lowering import Lowering
+
+    require_cuda()
+    client, ctx = model.generate_keys(params.PARAMS_TEST, seed=17,
+                                      device="cuda", lowering=Lowering())
+    ctx = dataclasses.replace(
+        ctx, params=dataclasses.replace(ctx.params,
+                                        max_noise_level_squared=256))
+    strat = fhe.ShortintWoppbs1BitSboxPbsAesEncrypt
+    eks = model.fresh_bitct(torus.to_tensor(fhe_encryption.encrypt_word_array(
+        client, plain.key_schedule(bytes(range(16)))), "cuda"), ctx,
+        lane_ndim=3)
+    block_ct = torus.to_tensor(fhe_encryption.encrypt_blocks(
+        client, [bytes(range(16, 32))]), "cuda")
+    cold = fhe.encrypt_blocks_staged(strat, ctx, eks, block_ct, 2)
+    torch.cuda.synchronize()
+    uploads = torus.device_const.uploads
+    warm = _without_sync(
+        lambda: fhe.encrypt_blocks_staged(strat, ctx, eks, block_ct, 2))
+    assert torus.device_const.uploads == uploads
+    assert torch.equal(warm.array, cold.array)

@@ -4,7 +4,9 @@ With truncate=False the port's key_schedule_staged + encrypt_blocks_staged
 (1 block, 2 rounds) is bit-equal to the JAX package's staged path on the
 same keys and ciphertexts — expanded key, output ciphertexts and BitCt
 metadata alike. With truncate=True (the production setting) the outputs
-decrypt to the clear oracles, on the batch path and on the latency path."""
+decrypt to the clear oracles, on the batch path and on the latency path,
+and the latency request after a staged run copies no constant to the
+device (ops/torus.device_const)."""
 
 import subprocess
 import sys
@@ -21,6 +23,7 @@ from tfhe_aes2_tpu.models import shortint_woppbs_1bit as jm1
 from tfhe_aes2_tpu_torch import cli
 from tfhe_aes2_tpu_torch.aes_128 import aes_lib, fhe as tfhe, fhe_encryption
 from tfhe_aes2_tpu_torch.aes_128 import plain, scenario
+from tfhe_aes2_tpu_torch.ops.torus import device_const
 from tests.torch_port_common import port_context, t64, u64
 
 KEY = bytes(range(16))
@@ -69,8 +72,12 @@ def test_truncated_paths_decrypt_to_oracles(keys_test):
     out, timings = scenario.run_client_server_aes_scenario(
         client, ctx, KEY, bytes(8), 1, rounds=2)
     assert set(timings) == {"key_expansion_s", "blocks_s", "blocks_per_s"}
+    # the staged run put every constant of the latency path on the device:
+    # the request asks for 105 and copies none
+    uploads, hits = device_const.uploads, device_const.hits
     out, timings = scenario.run_client_server_aes_scenario(
         client, ctx, KEY, bytes(8), 1, rounds=10)
+    assert (device_const.uploads, device_const.hits) == (uploads, hits + 105)
     assert set(timings) == {"fused_latency_s"}
     assert out == aes_lib.encrypt_blocks(KEY, scenario.ctr_blocks(bytes(8), 1))
 

@@ -27,7 +27,7 @@ from tfhe_aes2_tpu_torch.ops import keys as keys_mod
 from tfhe_aes2_tpu_torch.ops import lwe as lwe_ops
 from tfhe_aes2_tpu_torch.ops.lowering import Lowering
 from tfhe_aes2_tpu_torch.ops.params import PARAMS_SQRD_LVL_64, WopbsParams
-from tfhe_aes2_tpu_torch.ops.torus import to_tensor
+from tfhe_aes2_tpu_torch.ops.torus import device_const
 from tfhe_aes2_tpu_torch.utils.logger import span, spanned
 
 
@@ -71,7 +71,7 @@ class FheContext:
     def trivial_bits(self, bits) -> "BitCt":
         """Trivial (noiseless) ciphertexts of clear `bits`; degree = bit."""
         bits = np.asarray(bits)
-        arr = lwe_ops.trivial_bits(torch.as_tensor(bits, device=self.device),
+        arr = lwe_ops.trivial_bits(device_const(bits, self.device),
                                    self.params.big_lwe_dimension)
         return BitCt(arr, np.zeros(bits.shape, np.int64),
                      _empty_ids(bits.shape), self, bits.astype(np.int64))
@@ -81,7 +81,7 @@ class FheContext:
         return cbs_ops.generate_lut(input_bits, output_bits, f, self.params)
 
     def _luts(self, lut: np.ndarray) -> torch.Tensor:
-        return to_tensor(lut, self.device)
+        return device_const(lut, self.device, torch.int64)
 
     def circuit_bootstrap(self, bits: "BitCt", lut: np.ndarray) -> "BitCt":
         """Multivariate multivalued bootstrap.
@@ -192,7 +192,7 @@ class BitCt:
         axis = axis % len(self.lane_shape)
         arr = torch.index_select(
             self.array, self._arr_axis(axis),
-            torch.as_tensor(idx, dtype=torch.int64, device=self.array.device))
+            device_const(idx, self.array.device, torch.int64))
         return type(self)(arr, np.take(self.noise_sq, idx, axis=axis),
                           np.take(self.comps, idx, axis=axis), self.context,
                           np.take(self.degree, idx, axis=axis))

@@ -16,10 +16,22 @@ digit × key-plane contraction to the hand-written kernel K4
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
+
 import numpy as np
 import torch
 
 _U64_MASK = (1 << 64) - 1
+
+# device_const's cache, least recently used first: (device, dtype, numpy
+# dtype, shape, bytes) -> the tensor on that device. Bounded in entries and
+# in bytes an entry; shared by every context of the process, which is safe
+# because a key holds the whole content.
+CONST_MAX_ENTRIES = 256
+CONST_MAX_BYTES = 1 << 18
+_CONSTS: OrderedDict = OrderedDict()
+_CONSTS_LOCK = threading.Lock()
 
 
 def wrap(v: int) -> int:
@@ -33,6 +45,48 @@ def to_tensor(x, device) -> torch.Tensor:
     (never sharing memory with x)."""
     arr = np.ascontiguousarray(np.asarray(x, dtype=np.uint64))
     return torch.from_numpy(arr.view(np.int64)).to(device, copy=True)
+
+
+def device_const(x, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A small constant host array (LUTs, lane indices, clear bits) on
+    `device`, copied there once.
+
+    Returns the values of torch.as_tensor(x, dtype=dtype, device=device),
+    uint64 taken as int64 with the same bits (to_tensor). A host-to-device
+    copy waits for the stream to drain, so the host loses its lead on the
+    device; here each (device, dtype, shape, content) is copied on its first
+    call only, and later calls return the cached tensor. The key is the
+    array's bytes, so a hit always holds the values asked for. At most
+    CONST_MAX_ENTRIES tensors are kept, least recently used out first; an
+    array over CONST_MAX_BYTES is copied and not kept. The tensor is shared:
+    callers only read it. `device_const.uploads` counts the copies,
+    `device_const.hits` the cached returns.
+    """
+    arr = np.ascontiguousarray(x)
+    if arr.dtype == np.uint64:
+        arr = arr.view(np.int64)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (device, dtype, arr.dtype.str, arr.shape, arr.tobytes())
+    with _CONSTS_LOCK:
+        hit = _CONSTS.get(key)
+        if hit is not None:
+            _CONSTS.move_to_end(key)
+            device_const.hits += 1
+            return hit
+        device_const.uploads += 1
+    t = torch.from_numpy(arr.copy()).to(device=device, dtype=dtype)
+    if arr.nbytes <= CONST_MAX_BYTES:
+        with _CONSTS_LOCK:
+            _CONSTS[key] = t
+            while len(_CONSTS) > CONST_MAX_ENTRIES:
+                _CONSTS.popitem(last=False)
+    return t
+
+
+device_const.uploads = 0
+device_const.hits = 0
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
